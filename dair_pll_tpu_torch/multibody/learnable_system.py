@@ -1,0 +1,143 @@
+r"""Learnable multibody system: fused Anitescu rollouts (PyTorch).
+
+Counterpart of the rollout part of
+``dair_pll_tpu/multibody/learnable_system.py``. The next-step contact
+impulse solves Anitescu's dual QCQP
+
+.. math::
+    \min_{f \in FC} \tfrac 12 f^T D(q) f + f^T (J(q) v^- + [I;0]\phi/dt)
+
+over the product friction cone, with ``v^- = v + dt a_nc`` and
+``v^+ = v^- + M^{-1} J^T f``. Parameters are passed in on every call, as
+in the JAX package; the system holds only the model, the time step and
+the device.
+
+Ported: the fused batch-minor rollout (``simulate_batch`` with
+``use_fused``), whose every step runs the hand-written CUDA solve kernel
+on the card. Not ported yet: the vmapped integrator path and the
+ContactNets loss.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import Tensor
+
+from dair_pll_tpu_torch.multibody.model import MultibodyModel, MultibodyParams
+from dair_pll_tpu_torch.multibody.soa_terms import (
+    soa_forward_dynamics_batch, supports_fused)
+
+DYNAMICS_EPSILON = 1e-4    # dynamics QP regularization
+CONTACT_FILTER_EPS = 1e6   # phi activation threshold
+#: (ipm, newton) budget of warm-started rollout solves. The JAX package
+#: measured that fresh impacts need the full 14-step central path: at
+#: (10, 6) grazing-contact QPs keep 1.7e-3 impulse error, at (14, 6) the
+#: error is at machine precision.
+DEFAULT_WARM_IPM_ITERATIONS = 14
+DEFAULT_WARM_NEWTON_ITERATIONS = 6
+#: Flattened batch size from which ``simulate_batch`` takes the fused
+#: path when ``use_fused`` is not given.
+FUSED_ROLLOUT_MIN_BATCH = 1024
+
+_VMAPPED_NOT_PORTED = (
+    "the vmapped integrator rollout (use_fused=False, and the default "
+    "below FUSED_ROLLOUT_MIN_BATCH) is not ported to dair_pll_tpu_torch yet "
+    "(ROADMAP.md, Queue 1: 'Vmapped simulation and IFT gradients'); pass "
+    "use_fused=True")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA card; raises when none is present. The CPU
+    is used only when the caller asks for it."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "device='cpu' to run on the CPU")
+        if device.index is None:
+            # Tensors report their card's index; name it, so that device
+            # checks compare like with like.
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class MultibodyLearnableSystem:
+    """Contact-dynamics system with learnable inertia, friction and
+    geometry; parameters (:class:`MultibodyParams`) are passed in."""
+
+    model: MultibodyModel
+    dt: float
+
+    def __init__(self, model: MultibodyModel, dt: float,
+                 device=None) -> None:
+        self.model = model
+        self.dt = dt
+        self.device = resolve_device(device)
+        self.space = model.state_space()
+
+    @classmethod
+    def from_urdfs(cls, urdfs: Dict[str, str], dt: float,
+                   **kwargs) -> "MultibodyLearnableSystem":
+        """Builds the system from named URDF files."""
+        from dair_pll_tpu_torch.urdf import build_multibody_model
+        mesh_representation = kwargs.pop(
+            "mesh_representation", "deep_support_convex")
+        model = build_multibody_model(
+            urdfs, mesh_representation=mesh_representation)
+        return cls(model, dt, **kwargs)
+
+    def initial_params(self, dtype=torch.float32) -> MultibodyParams:
+        """The model's initial parameters on this system's device."""
+        return self.model.initial_params(dtype, self.device)
+
+    def supports_fused_loss(self) -> bool:
+        """Whether the batch-minor fused SoA path covers this model."""
+        return supports_fused(self.model)
+
+    def simulate_batch(self, params: MultibodyParams, x_0: Tensor,
+                       steps: int,
+                       use_fused: Optional[bool] = None) -> Tensor:
+        """Batched rollout ``(*, n_x) -> (*, steps + 1, n_x)``.
+
+        The fused path runs one batch-minor step per time step
+        (``soa_terms.soa_forward_dynamics_batch``: terms, the
+        warm-started hybrid solve, the velocity update), carrying the SAP
+        primal ``w`` from step to step. The rollout is forward only and
+        runs under ``torch.no_grad``. ``x_0`` and ``params`` must lie on
+        the system's device.
+        """
+        batch_shape = tuple(x_0.shape[:-1])
+        n_batch = int(np.prod(batch_shape)) if batch_shape else 1
+        if use_fused is None:
+            use_fused = (n_batch >= FUSED_ROLLOUT_MIN_BATCH and
+                         self.supports_fused_loss())
+        if not use_fused:
+            raise NotImplementedError(_VMAPPED_NOT_PORTED)
+        if not self.supports_fused_loss():
+            raise ValueError("use_fused=True on a model the fused SoA path "
+                             "does not cover (see soa_terms.supports_fused)")
+        for name, t in (("x_0", x_0), ("params.theta", params.theta)):
+            if t.device != self.device:
+                raise ValueError(f"{name} is on {t.device}; the system runs "
+                                 f"on {self.device}")
+
+        space = self.space
+        dt = self.dt
+        x = x_0.reshape(n_batch, x_0.shape[-1])
+        w = torch.zeros((n_batch, self.model.n_v), dtype=x.dtype,
+                        device=x.device)
+        states = [x]
+        with torch.no_grad():
+            for _ in range(steps):
+                v_plus, w = soa_forward_dynamics_batch(
+                    self.model, params, x, w, dt, DYNAMICS_EPSILON,
+                    CONTACT_FILTER_EPS, DEFAULT_WARM_IPM_ITERATIONS,
+                    DEFAULT_WARM_NEWTON_ITERATIONS)
+                q_next = space.euler_step(space.q(x), v_plus, dt)
+                x = space.x(q_next, v_plus)
+                states.append(x)
+        trajectory = torch.stack(states, dim=1)
+        return trajectory.reshape(
+            batch_shape + (steps + 1, x_0.shape[-1]))
