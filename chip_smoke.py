@@ -6,25 +6,44 @@
 Run from the root of a checkout. It imports nothing of JAX and nothing of
 the JAX package, needs one CUDA card, and exits with a non-zero code,
 printing no result, when there is none or when the port is not beside it.
-Phases, each of which raises on failure:
+Phases, each of which raises on failure and reports its seconds:
 
 1. Device: the card's name and power limit as ``nvidia-smi`` reports them.
-2. Kernel against plain version: builds the warm hybrid cone-solve kernel
-   (``csrc/warm_hybrid_solve.cu``) from the checkout and runs it on the
-   contact QPs of a cube rollout step at 8,192 samples with the rollout
-   budget (14, 6), eps = 1e-4: in float64 against the plain PyTorch
-   version on the card, and in float32 against the plain float32 version,
-   with the samples where the two differ decided against the plain
-   float64 result. Times the kernel and the plain version with CUDA
+   Build: every kernel of ``dair_pll_tpu_torch/csrc/`` into one library,
+   with ``ptxas``'s register and spill report.
+2. Solve kernel against plain version (K5, ``csrc/warm_hybrid_solve.cu``):
+   the contact QPs of a cube rollout step at 8,192 samples with the
+   rollout budget (14, 6), eps = 1e-4: in float64 against the plain
+   PyTorch version on the card, and in float32 against the plain float32
+   version, with the samples where the two differ decided against the
+   plain float64 result. Times the kernel and the plain version with CUDA
    events and computes the kernel's bound from the bytes it moves and the
    operations the plain version counts.
 3. Rollouts: ``MultibodyLearnableSystem.from_urdfs(cube)`` on the card,
    ``simulate_batch`` over 8,192 trajectories x 128 steps in float32 (the
-   simulation-bench shape of the JAX package), with the kernel's launch
-   count read around that run alone; the first 10 steps of 8 trajectories
-   rerun in float64 on the card and on the CPU must agree. Then the
-   kernels on the card per step from a ``torch.profiler`` trace, and a
-   breakdown of one step's time into terms, solve and update.
+   simulation-bench shape of the JAX package), with K5's launch count read
+   around that run alone; the first 10 steps of 8 trajectories rerun in
+   float64 on the card and on the CPU must agree. Then the kernels on the
+   card per step from a ``torch.profiler`` trace, and a breakdown of one
+   step's time into terms, solve and update.
+4. Loss kernels against plain versions (K1, K3, K2,
+   ``csrc/contactnets_loss.cu``) on 8,192 cube transitions of the port's
+   own float64 rollout: K1 (cold, (10, 10)) and K3 (warm, (4, 10), from
+   K1's impulses at parameters one Adam step on) in float64 within 1e-9
+   (1 + |plain|) with equal valid masks, K2 against the plain autograd
+   backward within rtol 1e-6, atol 1e-9 and bit for bit from run to run;
+   in float32 the K5 rule for loss and impulses, and K2's batch gradient
+   no further from the float64 plain result than twice the plain float32
+   version's. Then their times at the training shape (float32, 2,097,152
+   samples), the plain versions' at 8,192, and their bounds. Then the
+   three kernels at the training shape against their plain versions run
+   over chunks of the batch, K2 with the mean's cotangent 1/B.
+5. Training: ``bench.py``'s workload on the card, float32, 2,097,152 cube
+   transitions: a cold step (K1, K2, Adam), the seed of the impulse cache
+   (the warm call from zeros at the cold budget, K3), then 8 epoch-warm
+   steps at (4, 10) (K3, K2, Adam); a warm-up round and a timed round,
+   with the launch counts read around the timed round; a
+   ``torch.profiler`` trace of one warm step.
 
 It prints, in this order: one JSON line per phase, the kernel table as
 one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
@@ -68,6 +87,34 @@ MAX_TAIL_SHARE = 1e-3
 #: float64 rollout on the card vs on the CPU (the JAX package's bar for
 #: its fused-vs-vmapped rollout parity).
 ROLLOUT_ATOL = 1e-7
+#: The ContactNets loss: regularization, cold and warm (ipm, newton)
+#: budgets, Adam's learning rate, the training batch and its warm steps
+#: per round (``bench.py``: batch 2,097,152, ``SCAN_STEPS = 8``).
+LOSS_EPS = 1e-3
+COLD_BUDGET = (10, 10)
+WARM_BUDGET = (4, 10)
+LR = 1e-3
+TRAIN_B = 2097152
+WARM_STEPS = 8
+#: K2 against the plain autograd backward in float64: the repo's gradient
+#: bar (the two sum in different orders: forward-mode duals against
+#: reverse mode).
+GRAD_RTOL, GRAD_ATOL = 1e-6, 1e-9
+#: K2's float32 batch gradient: its rel-l2 distance from the float64 plain
+#: result at most this many times the plain float32 version's.
+DP_FACTOR = 2.0
+#: At the training shape, with both runs at the same impulses, the float32
+#: gradients' rel-l2 from float64 is a few float32 ulps, and its ratio
+#: measures the order of the sums, not the kernel: there the float32 rule
+#: takes max(plain rel-l2, F32_GRAD_FLOOR), about 8 ulps, as the plain
+#: version's. A block partial of K2 lost from the batch sum would still
+#: move dp by some 1/32,768, 30 times this floor.
+F32_GRAD_FLOOR = 1e-6
+#: Samples per call when the plain versions run over the training batch:
+#: the forward under ``no_grad`` holds a few hundred batch rows at once,
+#: the backward every intermediate of the terms chain for autograd.
+PLAIN_FWD_CHUNK = 524288
+PLAIN_BWD_CHUNK = 131072
 #: H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
@@ -159,6 +206,56 @@ def rollout_qps(system, params, x0):
     return m, jc, qc, w_carry.T.contiguous()
 
 
+def float32_tails(k32, p32, p64):
+    """The float32 rule: ``k32``, ``p32``, ``p64`` are the kernel's, the
+    plain float32 and the plain float64 outputs, each a tuple of tensors
+    whose last axis is the batch followed by the valid mask. A sample
+    agrees when every output is within TOL32 (1 + |plain|) and the masks
+    match; the others are tails, at most MAX_TAIL_SHARE of the batch, over
+    which the kernel may be at most TAIL_FACTOR times further from float64
+    than the plain float32 version, at the median and at the maximum.
+    Returns ``(tail summary, tail mask)``."""
+    import torch
+    n = k32[-1].shape[0]
+
+    def per_sample(a, b):
+        out = torch.zeros(n, dtype=torch.float64, device=a[0].device)
+        for x, y in zip(a[:-1], b[:-1]):
+            d = (x.double() - y.double()).abs() / (1 + y.double().abs())
+            out = torch.maximum(out, d.reshape(-1, n).amax(dim=0))
+        return out
+
+    tails = (per_sample(k32, p32) > TOL32) | (k32[-1] != p32[-1])
+    n_tails = int(tails.sum().item())
+    tail = {"samples": n_tails}
+    if n_tails:
+        err_k = per_sample(k32, p64)[tails]
+        err_p = per_sample(p32, p64)[tails]
+        tail.update(kernel_median=err_k.median().item(),
+                    plain_median=err_p.median().item(),
+                    kernel_max=err_k.max().item(),
+                    plain_max=err_p.max().item())
+    if n_tails > MAX_TAIL_SHARE * n:
+        raise AssertionError(f"float32: {n_tails} of {n} samples differ "
+                             f"beyond {TOL32}: {tail}")
+    if n_tails and (
+            tail["kernel_median"] > TAIL_FACTOR * tail["plain_median"] or
+            tail["kernel_max"] > TAIL_FACTOR * tail["plain_max"]):
+        raise AssertionError(f"float32 tails: the kernel is further from "
+                             f"float64 than the plain version: {tail}")
+    return tail, tails
+
+
+def check_float64(name: str, got, ref) -> float:
+    """Raises unless ``|got - ref| <= TOL64 (1 + |ref|)`` everywhere;
+    returns the largest difference."""
+    err = (got - ref).abs()
+    if (err - TOL64 * (1 + ref.abs())).max().item() > 0:
+        raise AssertionError(f"float64 {name} differs from the plain version "
+                             f"by {err.max().item():.3e}")
+    return err.max().item()
+
+
 def phase_kernel(system, x0_64):
     import torch
     from dair_pll_tpu_torch.ops import soa_kernels
@@ -191,32 +288,7 @@ def phase_kernel(system, x0_64):
         raise AssertionError("float64 valid masks differ")
 
     # float32: per-sample agreement, tails decided against float64.
-    def per_sample(a, b):
-        out = torch.zeros(B, dtype=torch.float64, device=a[0].device)
-        for x, y in zip(a[:2], b[:2]):
-            d = (x.double() - y.double()).abs() / (1 + y.double().abs())
-            out = torch.maximum(out, d.reshape(-1, B).amax(dim=0))
-        return out
-
-    rel_k_p = per_sample(k32, p32)
-    tails = (rel_k_p > TOL32) | (k32[2] != p32[2])
-    n_tails = int(tails.sum().item())
-    err_k = per_sample(k32, p64)[tails]
-    err_p = per_sample(p32, p64)[tails]
-    tail = {"samples": n_tails}
-    if n_tails:
-        tail.update(kernel_median=err_k.median().item(),
-                    plain_median=err_p.median().item(),
-                    kernel_max=err_k.max().item(),
-                    plain_max=err_p.max().item())
-    if n_tails > MAX_TAIL_SHARE * B:
-        raise AssertionError(f"float32: {n_tails} of {B} samples differ "
-                             f"beyond {TOL32}: {tail}")
-    if n_tails and (
-            tail["kernel_median"] > TAIL_FACTOR * tail["plain_median"] or
-            tail["kernel_max"] > TAIL_FACTOR * tail["plain_max"]):
-        raise AssertionError(f"float32 tails: the kernel is further from "
-                             f"float64 than the plain version: {tail}")
+    tail, tails = float32_tails(k32, p32, p64)
     agree = ~tails
     err32 = max((g - r).abs().max().item() for g, r in zip(k32[:2], p32[:2]))
     err32_agreeing = max((g[..., agree] - r[..., agree]).abs().max().item()
@@ -380,6 +452,443 @@ def phase_breakdown(system, traj):
              for k, v in parts.items()}})
 
 
+def derived_vector(system, params):
+    """The packed derived scalars the loss kernels take, detached."""
+    from dair_pll_tpu_torch.multibody.soa_terms import derive_scalar_params
+    from dair_pll_tpu_torch.ops.soa_loss_kernels import pack_derived
+    return pack_derived(system.model,
+                        derive_scalar_params(system.model, params)).detach()
+
+
+def adam_step(system, params, x, x_plus) -> float:
+    """One training step through the entry point: mean cold loss,
+    backward, Adam; returns the loss."""
+    import torch
+    leaves = params.parameters()
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    optimizer = torch.optim.Adam(leaves, lr=LR)
+    u = x.new_zeros((x.shape[0], 0))
+    loss = torch.mean(system.contactnets_loss_batch(params, x, u, x_plus,
+                                                    use_fused=True))
+    loss.backward()
+    optimizer.step()
+    return loss.item()
+
+
+def phase_loss_kernels(system, x0_64):
+    """K1, K3 and K2 against their plain versions on 8,192 transitions of
+    the port's float64 rollout from states near the ground."""
+    import torch
+    from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
+    model = system.model
+    traj = system.simulate_batch(system.initial_params(torch.float64), x0_64,
+                                 4, use_fused=True)
+    x64, xp64 = traj[:, 3].contiguous(), traj[:, 4].contiguous()
+    # Parameters one Adam step from the initial ones (K1 and K2 on the
+    # entry point), where K3 warm-starts from K1's impulses.
+    params1 = system.initial_params(torch.float64)
+    adam_step(system, params1, x64, xp64)
+    pvecs = {torch.float64: (derived_vector(
+        system, system.initial_params(torch.float64)),
+        derived_vector(system, params1))}
+    pvecs[torch.float32] = tuple(p.float() for p in pvecs[torch.float64])
+
+    def sync(out):
+        torch.cuda.synchronize()
+        return out
+
+    runs = {}
+    for dtype in (torch.float64, torch.float32):
+        p0, p1 = pvecs[dtype]
+        xin, xp = (x64.T.to(dtype).contiguous(), xp64.T.to(dtype).contiguous())
+        ct = torch.ones(B, dtype=dtype, device=xin.device)
+        k1 = sync(lk.fused_loss_fwd(model, p0, xin, xp, DT, LOSS_EPS,
+                                    *COLD_BUDGET))
+        q1 = lk.plain_loss_fwd(model, p0, xin, xp, DT, LOSS_EPS, *COLD_BUDGET)
+        k3 = sync(lk.fused_loss_fwd_warm(model, p1, xin, xp, k1[1], DT,
+                                         LOSS_EPS, *WARM_BUDGET))
+        q3 = lk.plain_loss_fwd_warm(model, p1, xin, xp, k1[1], DT, LOSS_EPS,
+                                    *WARM_BUDGET)
+        k2 = sync(lk.fused_loss_bwd(model, p1, xin, xp, k3[1], k3[2], ct, DT,
+                                    LOSS_EPS))
+        k2_again = sync(lk.fused_loss_bwd(model, p1, xin, xp, k3[1], k3[2],
+                                          ct, DT, LOSS_EPS))
+        q2 = lk.plain_loss_bwd(model, p1, xin, xp, k3[1], k3[2], ct, DT,
+                               LOSS_EPS)
+        if not all(torch.equal(a, b) for a, b in zip(k2, k2_again)):
+            raise AssertionError(f"{dtype}: two K2 runs differ")
+        runs[dtype] = {"K1": (k1, q1), "K3": (k3, q3), "K2": (k2, q2)}
+
+    result = {}
+    for name in ("K1", "K3"):
+        (k64, q64), (k32, q32) = (runs[torch.float64][name],
+                                  runs[torch.float32][name])
+        err64 = max(check_float64(f"{name} {what}", k64[i], q64[i])
+                    for i, what in ((0, "loss"), (1, "impulse")))
+        if not torch.equal(k64[2], q64[2]):
+            raise AssertionError(f"float64 {name} valid masks differ")
+        tail, _ = float32_tails(k32, q32, q64)
+        err32 = max((g - r).abs().max().item()
+                    for g, r in zip(k32[:2], q32[:2]))
+        result[name] = {"max_abs_err_float64": err64, "max_abs_err": err32,
+                        "float32_tails": tail,
+                        "valid_share": k32[2].float().mean().item()}
+    (k64, q64), (k32, q32) = (runs[torch.float64]["K2"],
+                              runs[torch.float32]["K2"])
+    for what, got, ref in zip(("dp", "dxin", "dxp"), k64, q64):
+        excess = (got - ref).abs() - (GRAD_ATOL + GRAD_RTOL * ref.abs())
+        if excess.max().item() > 0:
+            raise AssertionError(f"float64 K2 {what} differs from the plain "
+                                 f"backward by {(got - ref).abs().max():.3e}")
+
+    def rel_l2(a, b):
+        return ((a.double() - b).norm() / b.norm()).item()
+
+    dp_kernel, dp_plain = rel_l2(k32[0], q64[0]), rel_l2(q32[0], q64[0])
+    if dp_kernel > DP_FACTOR * dp_plain:
+        raise AssertionError(f"float32 K2 batch gradient: rel-l2 "
+                             f"{dp_kernel:.3e} from float64, plain float32 "
+                             f"{dp_plain:.3e}")
+    result["K2"] = {
+        "max_abs_err_float64": max((g - r).abs().max().item()
+                                   for g, r in zip(k64, q64)),
+        "max_abs_err": max((g - r).abs().max().item()
+                           for g, r in zip(k32, q32)),
+        "dp_rel_l2_float32_kernel": dp_kernel,
+        "dp_rel_l2_float32_plain": dp_plain}
+    emit({"phase": "loss_kernels_vs_plain", "B": B, **result})
+    return result, (x64, xp64, pvecs[torch.float32][1])
+
+
+def phase_loss_timing(system, transitions, x_train, xp_train):
+    """K1, K3 and K2 at the training shape (float32), the plain versions
+    at 8,192, and each kernel's bound."""
+    import torch
+    from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
+    model = system.model
+    x64, xp64, pvec = transitions
+    xin, xp = x64.T.float().contiguous(), xp64.T.float().contiguous()
+    xin_t, xp_t = x_train.T.contiguous(), xp_train.T.contiguous()
+    n_train = xin_t.shape[1]
+    ct, ct_t = torch.ones_like(xin[0]), torch.ones_like(xin_t[0])
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    cold = lk.fused_loss_fwd(model, pvec, xin_t, xp_t, DT, LOSS_EPS,
+                             *COLD_BUDGET)
+    small = lk.fused_loss_fwd(model, pvec, xin, xp, DT, LOSS_EPS,
+                              *COLD_BUDGET)
+    calls = {
+        "K1": (lambda: lk.fused_loss_fwd(model, pvec, xin_t, xp_t, DT,
+                                         LOSS_EPS, *COLD_BUDGET),
+               lambda: lk.plain_loss_fwd(model, pvec, xin, xp, DT, LOSS_EPS,
+                                         *COLD_BUDGET),
+               nbytes(pvec, xin_t, xp_t, *cold)),
+        "K3": (lambda: lk.fused_loss_fwd_warm(model, pvec, xin_t, xp_t,
+                                              cold[1], DT, LOSS_EPS,
+                                              *WARM_BUDGET),
+               lambda: lk.plain_loss_fwd_warm(model, pvec, xin, xp, small[1],
+                                              DT, LOSS_EPS, *WARM_BUDGET),
+               nbytes(pvec, xin_t, xp_t, cold[1], *cold)),
+        "K2": (lambda: lk.fused_loss_bwd(model, pvec, xin_t, xp_t, cold[1],
+                                         cold[2], ct_t, DT, LOSS_EPS),
+               lambda: lk.plain_loss_bwd(model, pvec, xin, xp, small[1],
+                                         small[2], ct, DT, LOSS_EPS),
+               nbytes(pvec, xin_t, xp_t, cold[1], cold[2], ct_t, pvec, xin_t,
+                      xp_t)),
+    }
+    result = {}
+    for name, (kernel, plain, n_bytes) in calls.items():
+        ms = cuda_ms(kernel, reps=10)
+        plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        ops = count_operations(plain) * (n_train / B)
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_OPS_PER_S["float32"] * 1e3
+        result[name] = {
+            "ms": ms, "plain_ms": plain_ms, "plain_B": B, "bytes": n_bytes,
+            "operations": ops, "operations_per_sample": ops / n_train,
+            "bytes_ms": bytes_ms, "operations_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    emit({"phase": "loss_kernel_timing", "B": n_train, "dtype": "float32",
+          **result})
+    return result
+
+
+def plain_over_chunks(fn, chunk: int, *cols):
+    """``fn`` over blocks of ``chunk`` samples of the batch-minor ``cols``,
+    its outputs joined along the batch axis."""
+    import torch
+    n = cols[0].shape[-1]
+    outs = [fn(*(c[..., s:s + chunk].contiguous() for c in cols))
+            for s in range(0, n, chunk)]
+    return tuple(torch.cat(parts, dim=-1) for parts in zip(*outs))
+
+
+def phase_loss_full_batch(system, pvec, x_train, xp_train):
+    """K1, K3 and K2 at the training shape (2,097,152 samples) against
+    their plain versions, which run over chunks of the batch. Float32
+    inputs as the training step gives them, each also cast to float64:
+    K1 and K3 (warm-started from K1's float32 impulses) by the float32
+    rule (tails decided against the plain float64 result) and in float64
+    within TOL64; K2 at the impulses of the float32 K3 with ``ct = 1/B``
+    (the mean's cotangent), in float64 within the gradient bar and bit for
+    bit from run to run (its second pass then sums 32,768 block partials),
+    and in float32 with ``dp``, ``dxin`` and ``dxp`` each no further from
+    the float64 plain result, in rel-l2, than DP_FACTOR times the plain
+    float32 version's (or F32_GRAD_FLOOR). Reports every reading before it
+    raises."""
+    import torch
+    from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
+    model = system.model
+    n = x_train.shape[0]
+    inputs = {torch.float32: (pvec, x_train.T.contiguous(),
+                              xp_train.T.contiguous())}
+    inputs[torch.float64] = tuple(t.double() for t in inputs[torch.float32])
+    failures, result = [], {}
+
+    def check(ok, message):
+        if not ok:
+            failures.append(message)
+
+    def forward(name, kernel, plain, *extra):
+        out = {}
+        for dtype, (p, xin, xp) in inputs.items():
+            ext = tuple(t.to(dtype) for t in extra)
+            out[dtype] = (
+                kernel(model, p, xin, xp, *ext),
+                plain_over_chunks(lambda a, b, *c: plain(model, p, a, b, *c),
+                                  PLAIN_FWD_CHUNK, xin, xp, *ext))
+        torch.cuda.synchronize()
+        (k64, q64), (k32, q32) = out[torch.float64], out[torch.float32]
+        err64 = max((k64[i] - q64[i]).abs().max().item() for i in (0, 1))
+        check(all(((k64[i] - q64[i]).abs() <=
+                   TOL64 * (1 + q64[i].abs())).all().item() for i in (0, 1)),
+              f"float64 {name} differs from the plain version by {err64:.3e}")
+        check(torch.equal(k64[2], q64[2]), f"float64 {name} valid masks differ")
+        try:
+            tail, _ = float32_tails(k32, q32, q64)
+        except AssertionError as exc:
+            tail = str(exc)
+            failures.append(f"{name}: {exc}")
+        result[name] = {
+            "max_abs_err_float64": err64,
+            "max_abs_err": max((k32[i] - q32[i]).abs().max().item()
+                               for i in (0, 1)),
+            "float32_tails": tail,
+            "valid_share": k32[2].float().mean().item()}
+        return k32
+
+    def fwd_cold(m, p, xin, xp):
+        return lk.fused_loss_fwd(m, p, xin, xp, DT, LOSS_EPS, *COLD_BUDGET)
+
+    def plain_cold(m, p, xin, xp):
+        return lk.plain_loss_fwd(m, p, xin, xp, DT, LOSS_EPS, *COLD_BUDGET)
+
+    def fwd_warm(m, p, xin, xp, fprev):
+        return lk.fused_loss_fwd_warm(m, p, xin, xp, fprev, DT, LOSS_EPS,
+                                      *WARM_BUDGET)
+
+    def plain_warm(m, p, xin, xp, fprev):
+        return lk.plain_loss_fwd_warm(m, p, xin, xp, fprev, DT, LOSS_EPS,
+                                      *WARM_BUDGET)
+
+    k1 = forward("K1", fwd_cold, plain_cold)
+    k3 = forward("K3", fwd_warm, plain_warm, k1[1])
+    del k1
+
+    # K2 at K3's float32 impulses, ct = 1/B.
+    grads = {}
+    for dtype, (p, xin, xp) in inputs.items():
+        force, valid = k3[1].to(dtype), k3[2]
+        ct = torch.full((n,), 1.0 / n, dtype=dtype, device=xin.device)
+        kernel = lk.fused_loss_bwd(model, p, xin, xp, force, valid, ct, DT,
+                                   LOSS_EPS)
+        if dtype == torch.float64:
+            again = lk.fused_loss_bwd(model, p, xin, xp, force, valid, ct,
+                                      DT, LOSS_EPS)
+            check(all(torch.equal(a, b) for a, b in zip(kernel, again)),
+                  "two float64 K2 runs at the training shape differ")
+            del again
+        dps, dxins, dxps = [], [], []
+        for s in range(0, n, PLAIN_BWD_CHUNK):
+            cols = slice(s, s + PLAIN_BWD_CHUNK)
+            dp, dxin, dxp = lk.plain_loss_bwd(
+                model, p, xin[:, cols].contiguous(),
+                xp[:, cols].contiguous(), force[..., cols].contiguous(),
+                valid[cols].contiguous(), ct[cols].contiguous(), DT, LOSS_EPS)
+            dps.append(dp)
+            dxins.append(dxin)
+            dxps.append(dxp)
+        plain = (torch.stack(dps).sum(dim=0), torch.cat(dxins, dim=-1),
+                 torch.cat(dxps, dim=-1))
+        grads[dtype] = (kernel, plain)
+    torch.cuda.synchronize()
+    del k3
+    (k64, q64), (k32, q32) = grads[torch.float64], grads[torch.float32]
+    entry = {"max_abs_err_float64": max((g - r).abs().max().item()
+                                        for g, r in zip(k64, q64)),
+             "max_abs_err": max((g - r).abs().max().item()
+                                for g, r in zip(k32, q32))}
+    for what, g64, r64, g32, r32 in zip(("dp", "dxin", "dxp"), k64, q64,
+                                        k32, q32):
+        excess = (g64 - r64).abs() - (GRAD_ATOL + GRAD_RTOL * r64.abs())
+        check(excess.max().item() <= 0,
+              f"float64 K2 {what} at the training shape differs from the "
+              f"plain backward by {(g64 - r64).abs().max().item():.3e}")
+        ref_norm = r64.norm()
+        kernel_l2 = ((g32.double() - r64).norm() / ref_norm).item()
+        plain_l2 = ((r32.double() - r64).norm() / ref_norm).item()
+        entry[f"{what}_rel_l2_float32_kernel"] = kernel_l2
+        entry[f"{what}_rel_l2_float32_plain"] = plain_l2
+        check(kernel_l2 <= DP_FACTOR * max(plain_l2, F32_GRAD_FLOOR),
+              f"float32 K2 {what} at the training shape: rel-l2 "
+              f"{kernel_l2:.3e} from float64, plain float32 {plain_l2:.3e}")
+    result["K2"] = entry
+    emit({"phase": "loss_kernels_vs_plain_full", "B": n,
+          "ct": "1/B", "failures": failures, **result})
+    del grads, inputs
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return result
+
+
+def train_transitions(n: int, device):
+    """``bench.py``'s cube transitions in seeded numpy: random unit
+    quaternions, heights 0.06-0.11 m, ``x_plus`` a 0.005 perturbation."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((n, 13)).astype(np.float32)
+    quat = x[:, :4] / np.linalg.norm(x[:, :4], axis=-1, keepdims=True)
+    height = 0.06 + 0.05 * rng.random((n, 1), dtype=np.float32)
+    x = np.concatenate((quat, x[:, 4:6] * 0.1, height, x[:, 7:] * 0.5),
+                       axis=-1)
+    x_plus = x + 0.005 * rng.standard_normal((n, 13), dtype=np.float32)
+    x_plus[:, :4] /= np.linalg.norm(x_plus[:, :4], axis=-1, keepdims=True)
+    return (torch.tensor(x, device=device),
+            torch.tensor(x_plus, device=device))
+
+
+def phase_train(system, x, x_plus):
+    """``bench.py``'s training workload: a cold seed step and WARM_STEPS
+    epoch-warm steps, once to warm up and once timed; returns the launch
+    counts of the timed round."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dair_pll_tpu_torch.ops import soa_kernels
+    from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
+    n = x.shape[0]
+    u = x.new_zeros((n, 0))
+    params = system.initial_params(torch.float32)
+    leaves = params.parameters()
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    start = [leaf.detach().clone() for leaf in leaves]
+    optimizer = torch.optim.Adam(leaves, lr=LR)
+
+    def cold_step():
+        optimizer.zero_grad()
+        loss = torch.mean(system.contactnets_loss_batch(params, x, u, x_plus))
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    def seed():
+        # bench.py's seed: the warm call from zeros at the cold budget.
+        with torch.no_grad():
+            return system.contactnets_loss_batch_warm(
+                params, x, u, x_plus,
+                x.new_zeros((3, system.model.n_contacts, n)),
+                budget=COLD_BUDGET)[1]
+
+    def warm_step(cache):
+        optimizer.zero_grad()
+        loss, cache = system.contactnets_loss_batch_warm(params, x, u,
+                                                         x_plus, cache)
+        loss = torch.mean(loss)
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), cache
+
+    def round_():
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        loss = cold_step()
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - c0
+        cache = seed()
+        torch.cuda.synchronize()
+        seed_s = time.perf_counter() - c0 - cold_s
+        losses, warm_s = [loss], []
+        for _ in range(WARM_STEPS):
+            w0 = time.perf_counter()
+            loss, cache = warm_step(cache)
+            torch.cuda.synchronize()
+            warm_s.append(time.perf_counter() - w0)
+            losses.append(loss)
+        return cold_s, seed_s, warm_s, torch.stack(losses), cache
+
+    counters = (lk.fused_loss_fwd, lk.fused_loss_fwd_warm, lk.fused_loss_bwd,
+                soa_kernels.solve_warm_hybrid_soa_cuda)
+    round_()                                             # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    for counter in counters:
+        counter.launches = 0
+    cold_s, seed_s, warm_s, losses, cache = round_()
+    launches = {"K1": counters[0].launches, "K3": counters[1].launches,
+                "K2": counters[2].launches, "K5": counters[3].launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"non-finite training losses {losses.tolist()}")
+    if any(torch.equal(a, b.detach()) for a, b in zip(start, leaves)):
+        raise AssertionError("a parameter tensor did not move in training")
+    # K3 runs once for the seed and once per warm step.
+    expected = {"K1": 1, "K3": 1 + WARM_STEPS, "K2": 1 + WARM_STEPS,
+                "K5": 0}
+    if launches != expected:
+        raise AssertionError(f"launches {launches}, expected {expected}")
+
+    # Kernels on the card in one warm step, and their share of its time.
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        warm_step(cache)
+        torch.cuda.synchronize()
+    profiled_ms = (time.perf_counter() - h0) * 1e3
+    per_name = collections.Counter()
+    kernels = 0
+    for event in prof.events():
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            per_name[event.name] += event.time_range.elapsed_us()
+            kernels += 1
+    device_ms = sum(per_name.values()) / 1e3
+    warm_median = statistics.median(warm_s)
+    emit({"phase": "train", "B": n, "dtype": "float32",
+          "warm_budget": list(WARM_BUDGET), "warm_steps": WARM_STEPS,
+          "cold_step_ms": cold_s * 1e3, "seed_ms": seed_s * 1e3,
+          "warm_step_median_ms": warm_median * 1e3,
+          "warm_step_ms": [w * 1e3 for w in warm_s],
+          "cold_transitions_per_s": n / cold_s,
+          "warm_transitions_per_s": n * WARM_STEPS / sum(warm_s),
+          "losses": losses.tolist(), "launches": launches,
+          "max_memory_allocated_bytes": peak,
+          "profiled_warm_step": {
+              "host_ms_profiled": profiled_ms, "device_ms": device_ms,
+              "device_kernels": kernels,
+              "device_busy_share": (device_ms / (warm_median * 1e3)
+                                    if kernels else None),
+              "top_kernels_ms": [[name[:80], us / 1e3]
+                                 for name, us in per_name.most_common(6)]}})
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -399,19 +908,36 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    smi = phase_device()
-    build_kernels()
+    seconds_of = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds_of[name] = time.perf_counter() - t0
+        return out
+
+    smi = run("device", phase_device)
+    run("build", build_kernels)
     system = MultibodyLearnableSystem.from_urdfs(
         {"cube": assets.get_asset("cube")}, DT)
     x0_64 = torch.tensor(
         assets.cube_states_near_ground(np.random.default_rng(0), B),
         dtype=torch.float64, device=system.device)
-    k = phase_kernel(system, x0_64)
-    traj, launches, seconds = phase_rollout(system, x0_64)
-    phase_profile(system, x0_64, seconds / STEPS)
-    phase_breakdown(system, traj)
+    k = run("kernel_vs_plain+kernel_timing", phase_kernel, system, x0_64)
+    traj, launches, seconds = run("rollout", phase_rollout, system, x0_64)
+    run("profile", phase_profile, system, x0_64, seconds / STEPS)
+    run("step_breakdown", phase_breakdown, system, traj)
+    loss_errors, transitions = run("loss_kernels_vs_plain",
+                                   phase_loss_kernels, system, x0_64)
+    x_train, xp_train = train_transitions(TRAIN_B, system.device)
+    loss_times = run("loss_kernel_timing", phase_loss_timing, system,
+                     transitions, x_train, xp_train)
+    run("loss_kernels_vs_plain_full", phase_loss_full_batch, system,
+        transitions[2], x_train, xp_train)
+    train_launches = run("train", phase_train, system, x_train, xp_train)
+    emit({"phase": "seconds", **seconds_of})
 
-    emit({"kernels": [{
+    table = [{
         "name": "warm_hybrid_solve",
         "route": "cuda",
         "source": "dair_pll_tpu_torch/csrc/warm_hybrid_solve.cu",
@@ -425,7 +951,26 @@ def main() -> int:
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
         "library_ms": None,
-    }]})
+    }]
+    for name, entry, line in (
+            ("K1", "contactnets_loss_fwd", 129),
+            ("K3", "contactnets_loss_fwd_warm", 150),
+            ("K2", "contactnets_loss_bwd", 180)):
+        table.append({
+            "name": entry,
+            "route": "cuda",
+            "source": "dair_pll_tpu_torch/csrc/contactnets_loss.cu",
+            "replaces": f"dair_pll_tpu/ops/soa_loss_pallas.py:{line}",
+            "launches": train_launches[name],
+            "max_abs_err": loss_errors[name]["max_abs_err"],
+            "max_abs_err_float64": loss_errors[name]["max_abs_err_float64"],
+            "ms": loss_times[name]["ms"],
+            "plain_ms": loss_times[name]["plain_ms"],
+            "bound_ms": loss_times[name]["bound_ms"],
+            "bound_by": loss_times[name]["bound_by"],
+            "library_ms": None,
+        })
+    emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

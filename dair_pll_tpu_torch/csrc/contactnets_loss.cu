@@ -1,0 +1,285 @@
+// ContactNets loss kernels of the cube, one CUDA thread per sample:
+//
+//   K1 contactnets_loss_fwd_kernel       replaces `_fwd_kernel` of
+//      dair_pll_tpu/ops/soa_loss_pallas.py: terms at the observed next
+//      state, the detached cold hybrid solve, the loss.
+//   K3 contactnets_loss_fwd_warm_kernel  replaces `_fwd_kernel_warm`: as K1,
+//      with the solve warm-started from the impulse of a previous visit.
+//   K2 contactnets_loss_bwd_kernel (+ reduce_partials_kernel) replaces
+//      `_bwd_kernel`: the gradient of sum(ct * loss) at the saved impulse
+//      with respect to the derived scalars (summed over the batch) and the
+//      states.
+//
+// Each computes what its plain PyTorch version in
+// dair_pll_tpu_torch/ops/soa_loss_kernels.py computes, with the terms and
+// the assembly of cube_terms.cuh and the solves of hybrid_solve.cuh.
+//
+// The TPU kernel K2 calls jax.grad inside the kernel body. Here the
+// derivatives come from forward-mode dual numbers through the same
+// templated terms and assembly, one input direction per pass: 15 derived
+// scalars, the 6 velocity rows of x, the 13 rows of x+ (34 passes per
+// sample, no solve). The configuration rows of x get exactly 0, as in JAX.
+// The TPU kernel sums the parameter gradient over its sequential grid; the
+// blocks here run in no order, so each block sums its samples in shared
+// memory in a fixed tree order and a second pass sums the blocks' partials
+// in a fixed order. No atomics: float64 results repeat bit for bit.
+//
+// What bounds them on an H100 (cube, float32, B = 2,097,152): K1 and K3
+// read 26 and 38 values and write 14 per sample (K3: 436 MB, 0.13 ms at
+// 3.35 TB/s); K2 reads 40 and writes 26 (553 MB, 0.17 ms). Their
+// arithmetic is larger: the solve's ~10^5 operations per sample in K1 and
+// K3, and 34 dual passes of the terms in K2, so each is bound by
+// operations (chip_smoke.py counts them on the plain versions). This first
+// design keeps the JAX public batch-minor layout, so that neighbouring
+// threads read neighbouring addresses, loads the 15 derived scalars into
+// shared memory once per block, and masks the ragged edge instead of
+// padding. One thread carries a whole sample, so its few hundred live
+// scalars (more in dual arithmetic) spill to local memory; several threads
+// per sample, a reverse-mode K2 derived by hand and occupancy tuning are
+// later work.
+
+#include "cube_terms.cuh"
+
+namespace {
+
+constexpr int kThreads = 64;
+
+template <typename S>
+__device__ __forceinline__ void load_params(const S* __restrict__ pvec,
+                                            S (&p)[kCubeP]) {
+  __shared__ S shared_p[kCubeP];
+  if (threadIdx.x < kCubeP) shared_p[threadIdx.x] = pvec[threadIdx.x];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kCubeP; ++i) p[i] = shared_p[i];
+}
+
+template <typename S>
+__device__ __forceinline__ void load_states(const S* __restrict__ xin,
+                                            const S* __restrict__ xp,
+                                            long long B, long long b,
+                                            S (&x)[kCubeNX],
+                                            S (&x_plus)[kCubeNX]) {
+#pragma unroll
+  for (int i = 0; i < kCubeNX; ++i) {
+    x[i] = xin[i * B + b];
+    x_plus[i] = xp[i * B + b];
+  }
+}
+
+template <typename S>
+__device__ __forceinline__ void store_solution(S loss, const S (&f)[3][kCubeK],
+                                               bool valid, long long B,
+                                               long long b, S* __restrict__ l,
+                                               S* __restrict__ force,
+                                               unsigned char* __restrict__ v) {
+  l[b] = loss;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int c = 0; c < kCubeK; ++c) force[(i * kCubeK + c) * B + b] = f[i][c];
+  v[b] = valid ? 1 : 0;
+}
+
+// K1.
+template <typename S>
+__global__ void __launch_bounds__(kThreads) contactnets_loss_fwd_kernel(
+    const S* __restrict__ pvec, const S* __restrict__ xin,
+    const S* __restrict__ xp, S* __restrict__ loss, S* __restrict__ force,
+    unsigned char* __restrict__ valid, long long B, double dt, double eps,
+    int ipm_iterations, int newton_iterations) {
+  S p[kCubeP];
+  load_params<S>(pvec, p);
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  S x[kCubeNX], x_plus[kCubeNX], f[3][kCubeK];
+  load_states<S>(xin, xp, B, b, x, x_plus);
+  bool ok;
+  const S l = cube_loss_cold<S>(p, x, x_plus, S(dt), eps, ipm_iterations,
+                                newton_iterations, f, ok);
+  store_solution<S>(l, f, ok, B, b, loss, force, valid);
+}
+
+// K3.
+template <typename S>
+__global__ void __launch_bounds__(kThreads) contactnets_loss_fwd_warm_kernel(
+    const S* __restrict__ pvec, const S* __restrict__ xin,
+    const S* __restrict__ xp, const S* __restrict__ fprev,
+    S* __restrict__ loss, S* __restrict__ force,
+    unsigned char* __restrict__ valid, long long B, double dt, double eps,
+    int ipm_iterations, int newton_iterations) {
+  S p[kCubeP];
+  load_params<S>(pvec, p);
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  S x[kCubeNX], x_plus[kCubeNX], f_prev[3][kCubeK], f[3][kCubeK];
+  load_states<S>(xin, xp, B, b, x, x_plus);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int c = 0; c < kCubeK; ++c)
+      f_prev[i][c] = fprev[(i * kCubeK + c) * B + b];
+  bool ok;
+  const S l = cube_loss_warm<S>(p, x, x_plus, f_prev, S(dt), eps,
+                                ipm_iterations, newton_iterations, f, ok);
+  store_solution<S>(l, f, ok, B, b, loss, force, valid);
+}
+
+// K2, first pass: per-sample state gradients, and per-block sums of the
+// derived-scalar gradient in partial (n_blocks, 15).
+template <typename S>
+__global__ void __launch_bounds__(kThreads) contactnets_loss_bwd_kernel(
+    const S* __restrict__ pvec, const S* __restrict__ xin,
+    const S* __restrict__ xp, const S* __restrict__ force,
+    const unsigned char* __restrict__ valid, const S* __restrict__ ct,
+    S* __restrict__ partial, S* __restrict__ dxin, S* __restrict__ dxp,
+    long long B, double dt, double eps) {
+  __shared__ S shared_dp[kCubeP][kThreads];
+  S p[kCubeP];
+  load_params<S>(pvec, p);
+  const int tid = threadIdx.x;
+  const long long b = (long long)blockIdx.x * blockDim.x + tid;
+  if (b < B) {
+    S x[kCubeNX], x_plus[kCubeNX], f[3][kCubeK];
+    load_states<S>(xin, xp, B, b, x, x_plus);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int c = 0; c < kCubeK; ++c) f[i][c] = force[(i * kCubeK + c) * B + b];
+    const bool ok = valid[b] != 0;
+    const S weight = ct[b];
+#pragma unroll 1
+    for (int s = 0; s < kCubeDirections; ++s) {
+      const S g = cube_loss_grad<S>(p, x, x_plus, f, ok, weight, S(dt),
+                                    S(eps), s);
+      if (s < kCubeP) {
+        shared_dp[s][tid] = g;
+      } else if (s < kCubeP + kCubeNV) {
+        dxin[(kCubeNQ + s - kCubeP) * B + b] = g;
+      } else {
+        dxp[(s - kCubeP - kCubeNV) * B + b] = g;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kCubeNQ; ++i) dxin[i * B + b] = S(0);
+  } else {
+#pragma unroll
+    for (int s = 0; s < kCubeP; ++s) shared_dp[s][tid] = S(0);
+  }
+  __syncthreads();
+  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
+    if (tid < stride)
+#pragma unroll
+      for (int s = 0; s < kCubeP; ++s)
+        shared_dp[s][tid] = shared_dp[s][tid] + shared_dp[s][tid + stride];
+    __syncthreads();
+  }
+  if (tid < kCubeP) partial[blockIdx.x * (long long)kCubeP + tid] =
+      shared_dp[tid][0];
+}
+
+// K2, second pass: one block per derived scalar sums the blocks' partials,
+// each thread a fixed stride of them in order, then a fixed tree.
+constexpr int kReduceThreads = 256;
+
+template <typename S>
+__global__ void __launch_bounds__(kReduceThreads) reduce_partials_kernel(
+    const S* __restrict__ partial, long long n_blocks, S* __restrict__ dp) {
+  __shared__ S sums[kReduceThreads];
+  const int tid = threadIdx.x;
+  S acc = S(0);
+  for (long long j = tid; j < n_blocks; j += kReduceThreads)
+    acc = acc + partial[j * kCubeP + blockIdx.x];
+  sums[tid] = acc;
+  __syncthreads();
+  for (int stride = kReduceThreads / 2; stride > 0; stride >>= 1) {
+    if (tid < stride) sums[tid] = sums[tid] + sums[tid + stride];
+    __syncthreads();
+  }
+  if (tid == 0) dp[blockIdx.x] = sums[0];
+}
+
+long long n_blocks_for(long long B) { return (B + kThreads - 1) / kThreads; }
+
+template <typename S>
+int launch_fwd(const void* pvec, const void* xin, const void* xp, void* loss,
+               void* force, void* valid, long long B, double dt, double eps,
+               int ipm_iterations, int newton_iterations, void* stream) {
+  contactnets_loss_fwd_kernel<S>
+      <<<(unsigned)n_blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+          (const S*)pvec, (const S*)xin, (const S*)xp, (S*)loss, (S*)force,
+          (unsigned char*)valid, B, dt, eps, ipm_iterations,
+          newton_iterations);
+  return (int)cudaGetLastError();
+}
+
+template <typename S>
+int launch_fwd_warm(const void* pvec, const void* xin, const void* xp,
+                    const void* fprev, void* loss, void* force, void* valid,
+                    long long B, double dt, double eps, int ipm_iterations,
+                    int newton_iterations, void* stream) {
+  contactnets_loss_fwd_warm_kernel<S>
+      <<<(unsigned)n_blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+          (const S*)pvec, (const S*)xin, (const S*)xp, (const S*)fprev,
+          (S*)loss, (S*)force, (unsigned char*)valid, B, dt, eps,
+          ipm_iterations, newton_iterations);
+  return (int)cudaGetLastError();
+}
+
+template <typename S>
+int launch_bwd(const void* pvec, const void* xin, const void* xp,
+               const void* force, const void* valid, const void* ct,
+               void* partial, void* dp, void* dxin, void* dxp, long long B,
+               double dt, double eps, void* stream) {
+  const long long n_blocks = n_blocks_for(B);
+  contactnets_loss_bwd_kernel<S>
+      <<<(unsigned)n_blocks, kThreads, 0, (cudaStream_t)stream>>>(
+          (const S*)pvec, (const S*)xin, (const S*)xp, (const S*)force,
+          (const unsigned char*)valid, (const S*)ct, (S*)partial, (S*)dxin,
+          (S*)dxp, B, dt, eps);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  reduce_partials_kernel<S>
+      <<<kCubeP, kReduceThreads, 0, (cudaStream_t)stream>>>(
+          (const S*)partial, n_blocks, (S*)dp);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes). Tensors are contiguous and
+// batch-minor: pvec (15,), xin (13, B), xp (13, B), fprev and force
+// (3, 4, B), loss and ct (B,), valid (B,) as bytes; the backward's scratch
+// `partial` holds contactnets_loss_bwd_scratch(B) values. Each returns
+// cudaGetLastError() after its launches.
+extern "C" long long contactnets_loss_bwd_scratch(long long B) {
+  return n_blocks_for(B) * kCubeP;
+}
+
+#define DEFINE_ENTRIES(S, SUFFIX)                                            \
+  extern "C" int contactnets_loss_fwd_cube_##SUFFIX(                         \
+      const void* pvec, const void* xin, const void* xp, void* loss,         \
+      void* force, void* valid, long long B, double dt, double eps,          \
+      int ipm_iterations, int newton_iterations, void* stream) {             \
+    return launch_fwd<S>(pvec, xin, xp, loss, force, valid, B, dt, eps,      \
+                         ipm_iterations, newton_iterations, stream);         \
+  }                                                                          \
+  extern "C" int contactnets_loss_fwd_warm_cube_##SUFFIX(                    \
+      const void* pvec, const void* xin, const void* xp, const void* fprev,  \
+      void* loss, void* force, void* valid, long long B, double dt,          \
+      double eps, int ipm_iterations, int newton_iterations, void* stream) { \
+    return launch_fwd_warm<S>(pvec, xin, xp, fprev, loss, force, valid, B,   \
+                              dt, eps, ipm_iterations, newton_iterations,    \
+                              stream);                                       \
+  }                                                                          \
+  extern "C" int contactnets_loss_bwd_cube_##SUFFIX(                         \
+      const void* pvec, const void* xin, const void* xp, const void* force,  \
+      const void* valid, const void* ct, void* partial, void* dp,            \
+      void* dxin, void* dxp, long long B, double dt, double eps,             \
+      void* stream) {                                                        \
+    return launch_bwd<S>(pvec, xin, xp, force, valid, ct, partial, dp, dxin, \
+                         dxp, B, dt, eps, stream);                           \
+  }
+
+DEFINE_ENTRIES(float, f32)
+DEFINE_ENTRIES(double, f64)

@@ -1,4 +1,5 @@
-r"""Learnable multibody system: fused Anitescu rollouts (PyTorch).
+r"""Learnable multibody system: fused rollouts and the ContactNets loss
+(PyTorch).
 
 Counterpart of the rollout part of
 ``dair_pll_tpu/multibody/learnable_system.py``. The next-step contact
@@ -14,12 +15,16 @@ the device.
 
 Ported: the fused batch-minor rollout (``simulate_batch`` with
 ``use_fused``), whose every step runs the hand-written CUDA solve kernel
-on the card. Not ported yet: the vmapped integrator path and the
-ContactNets loss.
+on the card, and the fused ContactNets loss (``contactnets_loss_batch``,
+cold, and ``contactnets_loss_batch_warm``, epoch-warm), which on the card
+runs one CUDA kernel forward and one backward per step. A training step
+is the mean loss, ``backward`` and a ``torch.optim.Adam`` step on
+``params.parameters()``. Not ported yet: the vmapped integrator and loss
+paths.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +32,10 @@ from torch import Tensor
 
 from dair_pll_tpu_torch.multibody.model import MultibodyModel, MultibodyParams
 from dair_pll_tpu_torch.multibody.soa_terms import (
+    soa_contactnets_loss, soa_contactnets_loss_warm,
     soa_forward_dynamics_batch, supports_fused)
+from dair_pll_tpu_torch.ops.soa_loss_kernels import (
+    fused_contactnets_loss_kernel, fused_contactnets_loss_kernel_warm)
 
 DYNAMICS_EPSILON = 1e-4    # dynamics QP regularization
 CONTACT_FILTER_EPS = 1e6   # phi activation threshold
@@ -40,10 +48,29 @@ DEFAULT_WARM_NEWTON_ITERATIONS = 6
 #: Flattened batch size from which ``simulate_batch`` takes the fused
 #: path when ``use_fused`` is not given.
 FUSED_ROLLOUT_MIN_BATCH = 1024
+#: Regularization of the ContactNets loss QP.
+LOSS_EPSILON = 1e-3
+#: (ipm, newton) budget of cold ContactNets loss solves. The JAX package
+#: measured that a polish of 6 leaves ~4.7% rel-l2 batch-gradient error
+#: on real data at wrong-init parameters and 10 cuts it to ~6e-4.
+DEFAULT_LOSS_IPM_ITERATIONS = 10
+DEFAULT_LOSS_NEWTON_ITERATIONS = 10
+#: (ipm, newton) budget of epoch-warm loss solves: a 4-step central path
+#: hands Newton a centred fallback; the JAX package measured (4, 10)
+#: tracking cold training to <1% where (0, 10) diverges.
+DEFAULT_LOSS_WARM_BUDGET = (4, 10)
+#: Flattened batch size from which the ContactNets loss takes the fused
+#: path when ``use_fused`` is not given.
+FUSED_LOSS_MIN_BATCH = 2048
 
 _VMAPPED_NOT_PORTED = (
     "the vmapped integrator rollout (use_fused=False, and the default "
     "below FUSED_ROLLOUT_MIN_BATCH) is not ported to dair_pll_tpu_torch yet "
+    "(ROADMAP.md, Queue 1: 'Vmapped simulation and IFT gradients'); pass "
+    "use_fused=True")
+_VMAPPED_LOSS_NOT_PORTED = (
+    "the vmapped ContactNets loss (use_fused=False, and the default below "
+    "FUSED_LOSS_MIN_BATCH) is not ported to dair_pll_tpu_torch yet "
     "(ROADMAP.md, Queue 1: 'Vmapped simulation and IFT gradients'); pass "
     "use_fused=True")
 
@@ -96,6 +123,97 @@ class MultibodyLearnableSystem:
         """Whether the batch-minor fused SoA path covers this model."""
         return supports_fused(self.model)
 
+    def _check_on_device(self, **tensors: Tensor) -> None:
+        for name, t in tensors.items():
+            if t.device != self.device:
+                raise ValueError(f"{name} is on {t.device}; the system runs "
+                                 f"on {self.device}")
+
+    def _check_params_on_device(self, params: MultibodyParams) -> None:
+        self._check_on_device(**{f"params.parameters()[{i}]": leaf
+                                 for i, leaf in enumerate(params.parameters())})
+
+    def _flat_transitions(self, params: MultibodyParams, x: Tensor,
+                          u: Tensor, x_plus: Tensor,
+                          use_fused: Optional[bool]):
+        """Flattens ``(*, n)`` batches and checks the route: the fused
+        path only, with the parameters and the states on this system's
+        device."""
+        batch_shape = tuple(x.shape[:-1])
+        n_batch = int(np.prod(batch_shape)) if batch_shape else 1
+        if use_fused is None:
+            use_fused = (n_batch >= FUSED_LOSS_MIN_BATCH and
+                         self.supports_fused_loss())
+        if not use_fused:
+            raise NotImplementedError(_VMAPPED_LOSS_NOT_PORTED)
+        if not self.supports_fused_loss():
+            raise ValueError("use_fused=True on a model the fused SoA path "
+                             "does not cover (see soa_terms.supports_fused)")
+        self._check_on_device(x=x, u=u, x_plus=x_plus)
+        self._check_params_on_device(params)
+        return (batch_shape, x.reshape(n_batch, x.shape[-1]),
+                u.reshape(n_batch, u.shape[-1]),
+                x_plus.reshape(n_batch, x_plus.shape[-1]))
+
+    def contactnets_loss_batch(self, params: MultibodyParams, x: Tensor,
+                               u: Tensor, x_plus: Tensor,
+                               use_fused: Optional[bool] = None) -> Tensor:
+        """Batched ContactNets loss ``(*, n_x) -> (*,)`` on the fused
+        batch-minor path, with the cold solve budget
+        ``(DEFAULT_LOSS_IPM_ITERATIONS, DEFAULT_LOSS_NEWTON_ITERATIONS)``.
+
+        CUDA tensors run the loss kernel K1 forward and K2 backward
+        (``ops/soa_loss_kernels.py``), float32 or float64; a model outside
+        the kernels' instantiation raises. CPU tensors run the plain
+        version (``soa_terms.soa_contactnets_loss``) under torch autograd.
+        """
+        batch_shape, x, u, x_plus = self._flat_transitions(
+            params, x, u, x_plus, use_fused)
+        args = (self.model, params, x, u, x_plus, self.dt, LOSS_EPSILON,
+                DEFAULT_LOSS_IPM_ITERATIONS, DEFAULT_LOSS_NEWTON_ITERATIONS)
+        if x.device.type == "cpu":
+            loss, _, _ = soa_contactnets_loss(*args)
+        else:
+            loss = fused_contactnets_loss_kernel(*args)
+        return loss.reshape(batch_shape)
+
+    def contactnets_loss_batch_warm(
+            self, params: MultibodyParams, x: Tensor, u: Tensor,
+            x_plus: Tensor, force_prev: Tensor,
+            budget: Optional[Tuple[int, int]] = None
+            ) -> Tuple[Tensor, Tensor]:
+        """Epoch-warm-started batched ContactNets loss.
+
+        Training revisits every sample each epoch with parameters moved by
+        one optimizer step, so the previous visit's impulse is a near
+        solution: the solve warm-starts from it at the reduced ``budget``
+        (default ``DEFAULT_LOSS_WARM_BUDGET``). ``force_prev`` is the
+        ``(3, k, n_batch)`` impulse cache (zeros for cold samples). Returns
+        ``(loss (*batch,), force (3, k, n_batch))``, ``force`` the
+        detached refreshed cache. CUDA tensors run the kernel K3 forward
+        and K2 backward; CPU tensors the plain version
+        (``soa_terms.soa_contactnets_loss_warm``).
+
+        The cache is seeded, as ``bench.py`` seeds it, by a call from zeros
+        at the cold budget, ``budget=(DEFAULT_LOSS_IPM_ITERATIONS,
+        DEFAULT_LOSS_NEWTON_ITERATIONS)``.
+        """
+        ipm, newton = budget or DEFAULT_LOSS_WARM_BUDGET
+        batch_shape, x, u, x_plus = self._flat_transitions(
+            params, x, u, x_plus, True)
+        self._check_on_device(force_prev=force_prev)
+        force_prev = force_prev.reshape(3, -1, x.shape[0])
+        args = (self.model, params, x, u, x_plus, self.dt, LOSS_EPSILON, ipm,
+                newton)
+        if x.device.type == "cpu":
+            loss, force, _ = soa_contactnets_loss_warm(
+                *args, list(force_prev.unbind(0)))
+            force = torch.stack(force)
+        else:
+            loss, force = fused_contactnets_loss_kernel_warm(*args,
+                                                             force_prev)
+        return loss.reshape(batch_shape), force
+
     def simulate_batch(self, params: MultibodyParams, x_0: Tensor,
                        steps: int,
                        use_fused: Optional[bool] = None) -> Tensor:
@@ -118,10 +236,8 @@ class MultibodyLearnableSystem:
         if not self.supports_fused_loss():
             raise ValueError("use_fused=True on a model the fused SoA path "
                              "does not cover (see soa_terms.supports_fused)")
-        for name, t in (("x_0", x_0), ("params.theta", params.theta)):
-            if t.device != self.device:
-                raise ValueError(f"{name} is on {t.device}; the system runs "
-                                 f"on {self.device}")
+        self._check_on_device(x_0=x_0)
+        self._check_params_on_device(params)
 
         space = self.space
         dt = self.dt

@@ -18,7 +18,7 @@ Conventions (as in the JAX package):
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -180,6 +180,15 @@ class MultibodyParams:
     def pi_cm(self) -> torch.Tensor:
         """Inertial parameters in ``pi_cm`` format, ``(n_bodies, 10)``."""
         return inertia_mod.theta_to_pi_cm(self.theta)
+
+    def parameters(self) -> List[torch.Tensor]:
+        """The leaf tensors in a fixed order, for a ``torch.optim``
+        optimizer: ``theta``, ``friction``, then each geometry's tensors in
+        geometry order (keys in insertion order)."""
+        leaves = [self.theta, self.friction]
+        for entry in self.geometry:
+            leaves.extend((entry or {}).values())
+        return leaves
 
 
 def params_from_numpy(model: MultibodyModel, theta, friction,

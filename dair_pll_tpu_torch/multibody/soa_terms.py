@@ -1,16 +1,21 @@
-r"""Batch-minor (SoA) multibody terms and fused forward dynamics (PyTorch).
+r"""Batch-minor (SoA) multibody terms, fused forward dynamics and the fused
+ContactNets loss (PyTorch).
 
-Counterpart of the forward parts of ``dair_pll_tpu/multibody/soa_terms.py``:
-every per-sample scalar is a ``(B,)`` tensor, all small-dimension
-structure unrolls in Python (``ops/soa.py``), and one rollout step runs
-forward kinematics, the mass matrix, the Coriolis terms (a forward-mode
-JVP through the kinematics), the box witness-point contact terms, the
-warm-started hybrid cone solve (the CUDA kernel of ``ops/soa_kernels.py``
-for CUDA tensors) and the velocity update.
+Counterpart of ``dair_pll_tpu/multibody/soa_terms.py``: every per-sample
+scalar is a ``(B,)`` tensor, all small-dimension structure unrolls in
+Python (``ops/soa.py``). One rollout step runs forward kinematics, the mass
+matrix, the Coriolis terms (a forward-mode JVP through the kinematics), the
+box witness-point contact terms, the warm-started hybrid cone solve (the
+CUDA kernel of ``ops/soa_kernels.py`` for CUDA tensors) and the velocity
+update. The ContactNets loss (:func:`soa_contactnets_loss`,
+:func:`soa_contactnets_loss_warm`) runs the same terms at the observed next
+state, a detached hybrid solve and the loss assembly; its gradient comes
+from torch autograd through the terms and the assembly. These loss
+functions are the plain versions that the CUDA loss kernels of
+``ops/soa_loss_kernels.py`` are held against.
 
 Supported models (``supports_fused``): kinematic trees of free, revolute,
 prismatic and fixed joints whose collision pairs are all plane-vs-convex.
-The ContactNets loss functions of the JAX module are not ported yet.
 """
 from __future__ import annotations
 
@@ -597,3 +602,122 @@ def soa_forward_dynamics_batch(model: MultibodyModel,
     dv = soa.spd_solve(M, soa_solver.jt_dot(Jc, gamma))
     v_plus = torch.stack([v_minus[i] + dv[i] for i in range(n_v)], dim=-1)
     return v_plus, w.T
+
+
+# -- ContactNets loss -------------------------------------------------------------
+def soa_loss_parts(model: MultibodyModel, sp: dict, v: Svec, q_plus: Svec,
+                   v_plus: Svec, u_soa: Svec, dt: float):
+    """Everything before the cone solve: terms at the observed next state
+    and the ContactNets QP pieces.
+
+    Returns:
+        ``(M, Jc, phi, qc, dv)``: mass smat, cone-major Jacobian, signed
+        distances ``(k, B)``, QP linear cone field, velocity residual.
+    """
+    n_v = model.n_v
+    M, Jc, phi, a_nc = soa_multibody_terms_scalar(model, sp, q_plus, v_plus,
+                                                  u_soa)
+
+    # q_vec = q_pred + q_comp + q_diss, assembled as a cone field.
+    dv = [v_plus[i] - (v[i] + a_nc[i] * dt) for i in range(n_v)]
+    j_dv = soa_solver.j_dot(Jc, dv)
+    j_vplus = soa_solver.j_dot(Jc, v_plus)
+
+    s1, s2 = j_vplus[1], j_vplus[2]            # (k, B) sliding velocities
+    sliding_sq = s1 * s1 + s2 * s2
+    # Safe norm at exactly resting contacts (value exact, gradient 0).
+    at_rest = sliding_sq < 1e-24
+    sliding_speed = torch.sqrt(torch.where(at_rest, 1.0, sliding_sq))
+    sliding_speed = torch.where(at_rest, 0.0, sliding_speed)
+    qc = [-j_dv[0] + torch.abs(phi) + dt * sliding_speed,
+          -j_dv[1] + dt * s1,
+          -j_dv[2] + dt * s2]
+    return M, Jc, phi, qc, dv
+
+
+def soa_loss_assemble(M: Smat, Jc, phi: Tensor, qc, dv: Svec, force,
+                      valid: Tensor, eps: float) -> Tensor:
+    """Loss ``(B,)`` given the (detached) solve result: ``0.5 f'(D + eps I)
+    f + f'q + 0.5 dv'M dv + sum max(-phi, 0)^2`` with ``f'D f`` computed
+    matrix-free as ``(J'f)' M^{-1} (J'f)``; 0 where the solve failed."""
+    jtf = soa_solver.jt_dot(Jc, force)
+    minv_jtf = soa.spd_solve(M, jtf)
+    f_sq = torch.sum(force[0] ** 2 + force[1] ** 2 + force[2] ** 2, dim=0)
+    f_dot_q = torch.sum(force[0] * qc[0] + force[1] * qc[1] +
+                        force[2] * qc[2], dim=0)
+    quad = soa.dot(jtf, minv_jtf) + eps * f_sq
+
+    penetration = torch.sum(torch.clamp_min(-phi, 0.0) ** 2, dim=0)
+    constant = 0.5 * soa.dot(dv, soa.matvec(M, dv)) + penetration
+
+    loss = 0.5 * quad + f_dot_q + constant
+    return torch.where(valid, loss, 0.0)
+
+
+def _loss_inputs(model: MultibodyModel, params: MultibodyParams, x: Tensor,
+                 u: Tensor, x_plus: Tensor):
+    """``(sp, v, q_plus, v_plus, u_soa)`` from ``(B, n_x)`` states."""
+    n_q, n_v = model.n_q, model.n_v
+    xT = x.T
+    xpT = x_plus.T
+    v = soa.unstack(xT[n_q:n_q + n_v])
+    q_plus = soa.unstack(xpT[:n_q])
+    v_plus = soa.unstack(xpT[n_q:n_q + n_v])
+    u_soa = soa.unstack(u.T) if model.n_u > 0 else []
+    sp = scalarize_derived(model, derive_scalar_params(model, params))
+    return sp, v, q_plus, v_plus, u_soa
+
+
+def soa_contactnets_loss(model: MultibodyModel, params: MultibodyParams,
+                         x: Tensor, u: Tensor, x_plus: Tensor, dt: float,
+                         loss_epsilon: float, ipm_iterations: int,
+                         newton_iterations: int
+                         ) -> Tuple[Tensor, List[Tensor], Tensor]:
+    """Fused batched ContactNets loss: ``(B, n_x) -> (B,)``.
+
+    Terms at the observed next state, the detached cold hybrid solve (the
+    gradient flows only through the terms and the assembly at the solved
+    impulse: the envelope theorem), then the loss assembly. Returns
+    ``(loss (B,), force cone field, valid (B,))``; ``force`` is detached,
+    so a caller can seed an impulse cache for
+    :func:`soa_contactnets_loss_warm` with it (the JAX function returns
+    the loss alone).
+    """
+    sp, v, q_plus, v_plus, u_soa = _loss_inputs(model, params, x, u, x_plus)
+    M, Jc, phi, qc, dv = soa_loss_parts(model, sp, v, q_plus, v_plus, u_soa,
+                                        dt)
+    with torch.no_grad():
+        force, valid = soa_solver.solve_contact_impulse_soa(
+            M, Jc, qc, loss_epsilon, ipm_iterations, newton_iterations)
+    loss = soa_loss_assemble(M, Jc, phi, qc, dv, force, valid, loss_epsilon)
+    return loss, force, valid
+
+
+def soa_contactnets_loss_warm(model: MultibodyModel,
+                              params: MultibodyParams, x: Tensor, u: Tensor,
+                              x_plus: Tensor, dt: float, loss_epsilon: float,
+                              ipm_iterations: int, newton_iterations: int,
+                              force_prev: List[Tensor]
+                              ) -> Tuple[Tensor, List[Tensor], Tensor]:
+    """Epoch-warm-started fused ContactNets loss.
+
+    Like :func:`soa_contactnets_loss`, but the detached hybrid solve
+    warm-starts from the impulses the same samples solved to on a previous
+    visit: the carried primal is ``w = M^{-1} J^T f_prev`` at the current
+    parameters, and SAP-Newton starts from the better (by primal cost) of
+    that and a short ``ipm_iterations`` central path
+    (:func:`~dair_pll_tpu_torch.ops.soa_solver.solve_warm_hybrid_soa`).
+    ``force_prev`` is a cone field of ``(k, B)`` leaves (zeros for cold
+    samples). Returns ``(loss (B,), force cone field, valid (B,))``;
+    ``force`` is detached.
+    """
+    sp, v, q_plus, v_plus, u_soa = _loss_inputs(model, params, x, u, x_plus)
+    M, Jc, phi, qc, dv = soa_loss_parts(model, sp, v, q_plus, v_plus, u_soa,
+                                        dt)
+    with torch.no_grad():
+        w_carry = soa.spd_solve(M, soa_solver.jt_dot(Jc, force_prev))
+        force, _, valid = soa_solver.solve_warm_hybrid_soa(
+            M, Jc, qc, w_carry, loss_epsilon, ipm_iterations,
+            newton_iterations)
+    loss = soa_loss_assemble(M, Jc, phi, qc, dv, force, valid, loss_epsilon)
+    return loss, force, valid

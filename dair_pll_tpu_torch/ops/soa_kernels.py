@@ -1,15 +1,21 @@
-r"""Hand-written CUDA kernel for the warm-started hybrid cone solve.
+r"""The port's CUDA kernel library, and the warm hybrid cone-solve kernel.
 
-Counterpart of ``dair_pll_tpu/ops/soa_pallas.py``'s
-``solve_warm_hybrid_soa_pallas`` (the TPU kernel ``_warm_kernel``): the
-whole solve of ``ops/soa_solver.solve_warm_hybrid_soa`` runs in one launch
-of ``csrc/warm_hybrid_solve.cu``, one CUDA thread per sample.
+Every source under ``dair_pll_tpu_torch/csrc/`` builds into one shared
+library at first use: ``nvcc`` compiles each ``.cu`` file (all started
+together), links them into ``build/kernels/`` (listed in ``.gitignore``),
+and ``ctypes`` binds their plain C entry points. The library's file name
+carries a hash of every file under ``csrc/`` (headers included), the
+compiler's path and its flags, so a change to any of them builds anew.
 
-The kernel is built at first use from the repository's source with
-``nvcc`` into ``build/kernels/`` (listed in ``.gitignore``) and bound with
-``ctypes``. For tensors on the CPU the wrapper calls the plain version in
-``ops/soa_solver.py``; for CUDA tensors it launches the kernel or raises.
-``solve_warm_hybrid_soa_cuda.launches`` counts launches.
+The warm hybrid solve kernel here is the counterpart of
+``dair_pll_tpu/ops/soa_pallas.py``'s ``solve_warm_hybrid_soa_pallas`` (the
+TPU kernel ``_warm_kernel``): the whole solve of
+``ops/soa_solver.solve_warm_hybrid_soa`` runs in one launch of
+``csrc/warm_hybrid_solve.cu``, one CUDA thread per sample. For tensors on
+the CPU the wrapper calls the plain version in ``ops/soa_solver.py``; for
+CUDA tensors it launches the kernel or raises.
+``solve_warm_hybrid_soa_cuda.launches`` counts launches. The ContactNets
+loss kernels' wrappers are in ``ops/soa_loss_kernels.py``.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from typing import List, Optional, Tuple
 
 import torch
@@ -26,13 +33,30 @@ from torch import Tensor
 from dair_pll_tpu_torch.ops import soa, soa_solver
 
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PACKAGE_DIR, "csrc", "warm_hybrid_solve.cu")
+SOURCE_DIR = os.path.join(_PACKAGE_DIR, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "kernels")
 
 #: Problem sizes the kernel is instantiated for: (n_v, k) of the cube.
 KERNEL_SHAPES = ((6, 4),)
 _ENTRY = {torch.float32: "warm_hybrid_solve_nv6_k4_f32",
           torch.float64: "warm_hybrid_solve_nv6_k4_f64"}
+_P, _I, _LL, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_double)
+#: ``ctypes`` signatures of the library's entry points: argument types and
+#: return type. Pointers and the stream are ``c_void_p``.
+SIGNATURES = {
+    **{name: ([_P] * 7 + [_LL, _D, _I, _I, _P], _I)
+       for name in _ENTRY.values()},
+    **{f"contactnets_loss_fwd_cube_{s}": ([_P] * 6 + [_LL, _D, _D, _I, _I,
+                                                      _P], _I)
+       for s in ("f32", "f64")},
+    **{f"contactnets_loss_fwd_warm_cube_{s}": ([_P] * 7 + [_LL, _D, _D, _I,
+                                                           _I, _P], _I)
+       for s in ("f32", "f64")},
+    **{f"contactnets_loss_bwd_cube_{s}": ([_P] * 10 + [_LL, _D, _D, _P], _I)
+       for s in ("f32", "f64")},
+    "contactnets_loss_bwd_scratch": ([_LL], _LL),
+}
 
 
 class _Library:
@@ -48,54 +72,91 @@ def _nvcc() -> str:
                                    "bin", "nvcc")):
         if candidate and os.path.exists(candidate):
             return candidate
-    raise RuntimeError("nvcc not found: the CUDA kernel cannot be built "
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
-#: ``nvcc`` flags. No fast math: the solver relies on ``isfinite``, NaN
-#: comparisons and the ``|f| > 1e3`` failure mask. No contraction into
-#: fused multiply-adds either (``-fmad=false``): the plain version rounds
-#: every product and sum on its own, and the line search amplifies
-#: one-ulp differences.
+#: ``nvcc`` flags of each source's compile. No fast math: the solver
+#: relies on ``isfinite``, NaN comparisons and the ``|f| > 1e3`` failure
+#: mask. No contraction into fused multiply-adds either (``-fmad=false``):
+#: the plain versions round every product and sum on their own, and the
+#: line search amplifies one-ulp differences.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: Flags of the link into one shared library.
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 
-def build_command(output: str) -> List[str]:
-    """The ``nvcc`` command that builds the kernel library."""
-    return [_nvcc(), *NVCC_FLAGS, "-o", output, _SOURCE]
+def _sources(source_dir: str) -> List[str]:
+    return sorted(os.path.join(source_dir, name)
+                  for name in os.listdir(source_dir) if name.endswith(".cu"))
+
+
+def library_path(source_dir: str = SOURCE_DIR,
+                 nvcc: Optional[str] = None) -> str:
+    """Where the library built from ``source_dir`` lives: its name hashes
+    every file under ``source_dir`` (names and bytes), the compiler's path
+    and the flags."""
+    hasher = hashlib.sha256()
+    for root, dirs, files in os.walk(source_dir):
+        dirs.sort()
+        for name in sorted(files):
+            path = os.path.join(root, name)
+            hasher.update(os.path.relpath(path, source_dir).encode() + b"\0")
+            with open(path, "rb") as handle:
+                hasher.update(handle.read() + b"\0")
+    hasher.update("\0".join((nvcc or _nvcc(),) + NVCC_FLAGS + LINK_FLAGS)
+                  .encode())
+    return os.path.join(_BUILD_DIR,
+                        f"libdair_pll_kernels_{hasher.hexdigest()[:16]}.so")
+
+
+def _build(path: str) -> str:
+    """Compiles every source at once (one ``nvcc`` each), then links them
+    into ``path``; returns the compilers' output."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as work:
+        procs = []
+        for source in _sources(SOURCE_DIR):
+            obj = os.path.join(work, os.path.basename(source) + ".o")
+            procs.append((source, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, source],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        failed = []
+        for source, _, proc in procs:
+            out, _ = proc.communicate()
+            log.append(f"== {os.path.basename(source)}\n{out}")
+            if proc.returncode != 0:
+                failed.append(source)
+        if failed:
+            raise RuntimeError(f"nvcc failed to build {failed}:\n"
+                               + "\n".join(log))
+        tmp = os.path.join(work, "lib.so")
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp,
+                               *(obj for _, obj, _ in procs)],
+                              capture_output=True, text=True, check=False)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link the kernel library:\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(tmp, path)
+    return "\n".join(log)
 
 
 def load_library() -> ctypes.CDLL:
-    """Builds (if needed) and loads the kernel library. The file name
-    carries a hash of the source, the compiler's path and its flags, so a
-    change to any of them is rebuilt."""
+    """Builds (if needed) and loads the kernel library."""
     if _Library.lib is not None:
         return _Library.lib
-    hasher = hashlib.sha256()
-    with open(_SOURCE, "rb") as handle:
-        hasher.update(handle.read())
-    hasher.update("\0".join((_nvcc(),) + NVCC_FLAGS).encode())
-    digest = hasher.hexdigest()[:16]
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    path = os.path.join(_BUILD_DIR, f"libwarm_hybrid_solve_{digest}.so")
+    path = library_path()
     if not os.path.exists(path):
-        tmp = f"{path}.tmp.{os.getpid()}"
-        proc = subprocess.run(build_command(tmp), capture_output=True,
-                              text=True, check=False)
-        _Library.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed to build "
-                               f"{_SOURCE}:\n{_Library.build_log}")
-        os.replace(tmp, path)
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        _Library.build_log = _build(path)
     lib = ctypes.CDLL(path)
-    for name in _ENTRY.values():
+    for name, (argtypes, restype) in SIGNATURES.items():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 7 + [
-            ctypes.c_longlong, ctypes.c_double, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        fn.restype = restype
     _Library.lib = lib
     return lib
 
@@ -106,7 +167,9 @@ def build_log() -> str:
     return _Library.build_log
 
 
-def _check(name: str, t: Tensor, shape, dtype, device) -> None:
+def check_tensor(name: str, t: Tensor, shape, dtype, device) -> None:
+    """Raises unless ``t`` has the device, dtype and shape a kernel takes
+    and is contiguous."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -116,6 +179,20 @@ def _check(name: str, t: Tensor, shape, dtype, device) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def on_cpu(*tensors: Tensor) -> bool:
+    """The route of a wrapper's call: ``True`` (the plain version) when
+    every tensor lies on the CPU, ``False`` (the kernel) when every tensor
+    lies on one CUDA card; raises for a mix of devices or another kind."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError("a kernel's inputs lie on several devices: "
+                         f"{sorted(str(d) for d in devices)}")
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device.type == "cpu"
 
 
 def pack_qp(M, Jc, qc) -> Tuple[Tensor, Tensor, Tensor]:
@@ -161,11 +238,9 @@ def solve_warm_hybrid_soa_cuda_packed(
     CPU tensors go to the plain version; CUDA tensors launch the kernel
     on the current stream (float32 or float64, ``(n_v, k) = (6, 4)``,
     contiguous) or raise."""
-    if m.device.type == "cpu":
+    if on_cpu(m, jc, qc, w0):
         return plain_packed(m, jc, qc, w0, eps, ipm_iterations,
                             newton_iterations)
-    if m.device.type != "cuda":
-        raise ValueError(f"unsupported device {m.device}")
     n_v, B = w0.shape
     k = qc.shape[1]
     if (n_v, k) not in KERNEL_SHAPES:
@@ -174,10 +249,10 @@ def solve_warm_hybrid_soa_cuda_packed(
     dtype = m.dtype
     if dtype not in _ENTRY:
         raise TypeError(f"no kernel for dtype {dtype}")
-    _check("m", m, (n_v * n_v, B), dtype, m.device)
-    _check("jc", jc, (3, n_v, k, B), dtype, m.device)
-    _check("qc", qc, (3, k, B), dtype, m.device)
-    _check("w0", w0, (n_v, B), dtype, m.device)
+    check_tensor("m", m, (n_v * n_v, B), dtype, m.device)
+    check_tensor("jc", jc, (3, n_v, k, B), dtype, m.device)
+    check_tensor("qc", qc, (3, k, B), dtype, m.device)
+    check_tensor("w0", w0, (n_v, B), dtype, m.device)
 
     force = torch.empty((3, k, B), dtype=dtype, device=m.device)
     w = torch.empty((n_v, B), dtype=dtype, device=m.device)

@@ -3,9 +3,46 @@ states and parameters that feed the JAX package and its PyTorch port
 alike (the two frameworks' generators differ, so inputs come from
 numpy). Cube states near the ground come from the port's
 ``assets.cube_states_near_ground``, which ``chip_smoke.py`` uses too."""
+import jax.numpy as jnp
 import numpy as np
+import torch
+
+from dair_pll_tpu.multibody.model import MultibodyParams as JParams
 
 DT = 0.0068
+
+
+def cube_transitions(rng: np.random.Generator, n: int = 8):
+    """``(x, x_plus)``, each ``(2 n, 13)``: ``n`` transitions of the JAX
+    package's ``tests/test_fused_kernel.py`` recipe (random states at
+    heights straddling contact, ``x_plus`` a small random perturbation)
+    and ``n`` cube states near the ground with their next state from one
+    step of the port's float64 rollout (active contacts)."""
+    from dair_pll_tpu_torch import assets
+    from dair_pll_tpu_torch.multibody.learnable_system import (
+        MultibodyLearnableSystem)
+    x = rng.standard_normal((n, 13))
+    x[:, :4] /= np.linalg.norm(x[:, :4], axis=-1, keepdims=True)
+    x[:, 6] = 0.02 + 0.08 * rng.random(n)
+    x_plus = x + 0.005 * rng.standard_normal((n, 13))
+    x_plus[:, :4] /= np.linalg.norm(x_plus[:, :4], axis=-1, keepdims=True)
+
+    system = MultibodyLearnableSystem.from_urdfs(
+        {"cube": assets.get_asset("cube")}, DT, device="cpu")
+    near = assets.cube_states_near_ground(rng, n)
+    step = system.simulate_batch(system.initial_params(torch.float64),
+                                 torch.tensor(near), 1, use_fused=True)
+    return (np.concatenate([x, near]),
+            np.concatenate([x_plus, step[:, 1].numpy()]))
+
+
+def jax_params(numpy_params) -> JParams:
+    """``(theta, friction, geometry)`` numpy -> JAX ``MultibodyParams``."""
+    theta, friction, geometry = numpy_params
+    return JParams(theta=jnp.asarray(theta), friction=jnp.asarray(friction),
+                   geometry=tuple(None if g is None else
+                                  {k: jnp.asarray(v) for k, v in g.items()}
+                                  for g in geometry))
 
 
 def perturbed_params(rng: np.random.Generator, theta, friction, geometry):
