@@ -6,7 +6,11 @@
 Run from the root of a checkout. It imports nothing of JAX and nothing of
 the JAX package, needs one CUDA card, and exits with a non-zero code,
 printing no result, when there is none or when the port is not beside it.
-Phases, each of which raises on failure and reports its seconds:
+Phases, in this order, each of which raises on failure and reports its
+seconds. Every phase whose rate the host bounds (the eager rollouts, the
+ICNN training step) runs before the first ``torch.profiler`` trace: on
+the H100 a trace leaves later kernel launches in the process 10-30%
+slower (PERF.md).
 
 1. Device: the card's name and power limit as ``nvidia-smi`` reports them.
    Build: every kernel of ``dair_pll_tpu_torch/csrc/`` into one library,
@@ -23,10 +27,33 @@ Phases, each of which raises on failure and reports its seconds:
    ``simulate_batch`` over 8,192 trajectories x 128 steps in float32 (the
    simulation-bench shape of the JAX package), with K5's launch count read
    around that run alone; the first 10 steps of 8 trajectories rerun in
-   float64 on the card and on the CPU must agree. Then the kernels on the
-   card per step from a ``torch.profiler`` trace, and a breakdown of one
+   float64 on the card and on the CPU must agree. Then a breakdown of one
    step's time into terms, solve and update.
-4. Loss kernels against plain versions (K1, K3, K2,
+4. Cold solve kernel against plain version (K4, ``csrc/cold_hybrid_solve.cu``)
+   on the deep-support (ICNN) cube's cold loss QPs at 8,192 samples of its
+   own float64 rollout, (10, 10) at eps = 1e-3: float64 within 1e-9 (1 +
+   |plain|) with equal valid masks, float32 by the K5 rule; the same at
+   the ICNN training batch of 262,144, on the QPs the training step's cold
+   loss hands K4 (float32, and the same cast to float64), against the
+   plain version run over chunks. Then its times at the training batch
+   (float32 and float64), the plain version's at 8,192, and its bound.
+   Then the ICNN cube's cold and warm loss in float64 on 16 transitions
+   (8 of the training batch, 8 rollout steps in contact), with every
+   leaf's gradient, on the card (K4, K5) against the CPU at the same
+   parameters, at the CPU loss tests' bars.
+5. ICNN rollouts: ``from_urdfs(cube_mesh)`` (depth 2, width 256, 4
+   witness queries), 8,192 trajectories x 32 steps in float32 (K5), and
+   the first 10 steps of 8 trajectories in float64 on the card and on the
+   CPU.
+6. ICNN training, float32, 262,144 transitions of the training recipe: a
+   cold step (plain terms under autograd, K4), the cache's seed (K5) and 8
+   epoch-warm steps (K5), Adam on every leaf; a warm-up round and a timed
+   round with the launch counts; one step at the reference recipe's batch
+   of 256 (``use_fused=True``); a URDF export of the trained shape; a
+   ``torch.profiler`` trace of one warm step.
+7. The box cube's rollout step from a ``torch.profiler`` trace: the
+   kernels on the card per step.
+8. Loss kernels against plain versions (K1, K3, K2,
    ``csrc/contactnets_loss.cu``) on 8,192 cube transitions of the port's
    own float64 rollout: K1 (cold, (10, 10)) and K3 (warm, (4, 10), from
    K1's impulses at parameters one Adam step on) in float64 within 1e-9
@@ -38,12 +65,13 @@ Phases, each of which raises on failure and reports its seconds:
    samples), the plain versions' at 8,192, and their bounds. Then the
    three kernels at the training shape against their plain versions run
    over chunks of the batch, K2 with the mean's cotangent 1/B.
-5. Training: ``bench.py``'s workload on the card, float32, 2,097,152 cube
+9. Training: ``bench.py``'s workload on the card, float32, 2,097,152 cube
    transitions: a cold step (K1, K2, Adam), the seed of the impulse cache
    (the warm call from zeros at the cold budget, K3), then 8 epoch-warm
    steps at (4, 10) (K3, K2, Adam); a warm-up round and a timed round,
    with the launch counts read around the timed round; a
-   ``torch.profiler`` trace of one warm step.
+   ``torch.profiler`` trace of one warm step. The card bounds this step,
+   so the earlier traces do not move it.
 
 It prints, in this order: one JSON line per phase, the kernel table as
 one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
@@ -115,6 +143,23 @@ F32_GRAD_FLOOR = 1e-6
 #: the backward every intermediate of the terms chain for autograd.
 PLAIN_FWD_CHUNK = 524288
 PLAIN_BWD_CHUNK = 131072
+#: The deep-support (ICNN) cube: its training batch (ContactNets at a
+#: quarter of the box cube's 2,097,152, since a (B 4, 256) float32
+#: activation of its support points is 1 GiB), the reference recipe's
+#: batch (``scripts/mesh_real_cube.py``, 256, below FUSED_LOSS_MIN_BATCH,
+#: so ``use_fused=True``) and its rollout length.
+ICNN_TRAIN_B = 262144
+ICNN_REF_B = 256
+ICNN_STEPS = 32
+#: K4's plain version over the ICNN training batch runs on blocks of this
+#: many samples.
+ICNN_PLAIN_CHUNK = 65536
+#: The ICNN loss on the card against the CPU, in float64: this many
+#: training transitions, at the CPU loss tests' bars (loss rtol 1e-8,
+#: atol 1e-12; gradients rtol GRAD_RTOL, atol 1e-10).
+ICNN_CHECK_B = 16
+LOSS_RTOL, LOSS_ATOL = 1e-8, 1e-12
+CPU_GRAD_ATOL = 1e-10
 #: H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
@@ -374,39 +419,30 @@ def phase_rollout(system, x0_64):
 def phase_profile(system, x0_64, step_seconds: float) -> None:
     """Kernels on the card per rollout step, from a ``torch.profiler``
     trace of one step; the busy share divides their time by the host's
-    time per step in the unprofiled rollout."""
-    import collections
+    time per step in the unprofiled rollout. Then 16 rollout steps timed
+    after the trace, beside the rate of the rollout phase before any
+    trace."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
     params = system.initial_params(torch.float32)
     x0 = x0_64.float()
-    steps = 1
     system.simulate_batch(params, x0, 1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        system.simulate_batch(params, x0, steps)
-        torch.cuda.synchronize()
-    events = prof.events()
-    per_name = collections.Counter()
-    launches = 0
-    for event in events:
-        if event.device_type == torch.autograd.DeviceType.CUDA:
-            per_name[event.name] += event.time_range.elapsed_us()
-            launches += 1
-    device_ms = sum(per_name.values()) / 1e3 / steps
-    emit({"phase": "profile", "B": B, "steps": steps,
-          "seconds": time.perf_counter() - t0,
-          "device_kernels_per_step": launches / steps,
-          "device_ms_per_step": device_ms,
+    profiled = profile_step(lambda: system.simulate_batch(params, x0, 1),
+                            step_seconds)
+    seconds = time.perf_counter() - t0
+    after = 16
+    a0 = time.perf_counter()
+    system.simulate_batch(params, x0, after)
+    torch.cuda.synchronize()
+    emit({"phase": "profile", "B": B, "steps": 1, "seconds": seconds,
+          "steps_per_s_before_trace": 1 / step_seconds,
+          "steps_per_s_after_trace": after / (time.perf_counter() - a0),
+          "device_kernels_per_step": profiled["device_kernels"],
+          "device_ms_per_step": profiled["device_ms"],
           "host_ms_per_step": step_seconds * 1e3,
-          "device_busy_share": (device_ms / (step_seconds * 1e3)
-                                if launches else None),
-          "top_kernels_ms_per_step": [
-              [name[:80], us / 1e3 / steps]
-              for name, us in per_name.most_common(6)]})
+          "device_busy_share": profiled["device_busy_share"],
+          "top_kernels_ms_per_step": profiled["top_kernels_ms"]})
 
 
 def phase_breakdown(system, traj):
@@ -756,6 +792,26 @@ def phase_loss_full_batch(system, pvec, x_train, xp_train):
     return result
 
 
+def launch_counters() -> dict:
+    """Every kernel wrapper's launch counter, by kernel."""
+    from dair_pll_tpu_torch.ops import soa_kernels
+    from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
+    return {"K1": lk.fused_loss_fwd, "K3": lk.fused_loss_fwd_warm,
+            "K2": lk.fused_loss_bwd,
+            "K4": soa_kernels.solve_contact_impulse_soa_cuda,
+            "K5": soa_kernels.solve_warm_hybrid_soa_cuda}
+
+
+def reset_launches() -> None:
+    for counter in launch_counters().values():
+        counter.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: counter.launches
+            for name, counter in launch_counters().items()}
+
+
 def train_transitions(n: int, device):
     """``bench.py``'s cube transitions in seeded numpy: random unit
     quaternions, heights 0.06-0.11 m, ``x_plus`` a 0.005 perturbation."""
@@ -773,93 +829,145 @@ def train_transitions(n: int, device):
             torch.tensor(x_plus, device=device))
 
 
-def phase_train(system, x, x_plus):
-    """``bench.py``'s training workload: a cold seed step and WARM_STEPS
-    epoch-warm steps, once to warm up and once timed; returns the launch
-    counts of the timed round."""
-    import collections
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from dair_pll_tpu_torch.ops import soa_kernels
-    from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
-    n = x.shape[0]
-    u = x.new_zeros((n, 0))
-    params = system.initial_params(torch.float32)
-    leaves = params.parameters()
-    for leaf in leaves:
-        leaf.requires_grad_(True)
-    start = [leaf.detach().clone() for leaf in leaves]
-    optimizer = torch.optim.Adam(leaves, lr=LR)
+class TrainingRun:
+    """Adam at lr LR on a system's float32 initial parameters over the
+    transitions ``(x, x_plus)``, through the training entry points: a cold
+    step, the impulse cache's seed (``bench.py``'s: the warm call from
+    zeros at the cold budget) and WARM_STEPS epoch-warm steps."""
 
-    def cold_step():
-        optimizer.zero_grad()
-        loss = torch.mean(system.contactnets_loss_batch(params, x, u, x_plus))
+    def __init__(self, system, x, x_plus):
+        import torch
+        self.system, self.x, self.x_plus = system, x, x_plus
+        self.u = x.new_zeros((x.shape[0], 0))
+        self.params = system.initial_params(torch.float32)
+        self.leaves = self.params.parameters()
+        for leaf in self.leaves:
+            leaf.requires_grad_(True)
+        self.start = [leaf.detach().clone() for leaf in self.leaves]
+        self.optimizer = torch.optim.Adam(self.leaves, lr=LR)
+
+    def cold_step(self, n=None, use_fused=None):
+        """A cold step on the first ``n`` transitions (all by default)."""
+        import torch
+        self.optimizer.zero_grad()
+        loss = torch.mean(self.system.contactnets_loss_batch(
+            self.params, self.x[:n], self.u[:n], self.x_plus[:n], use_fused))
         loss.backward()
-        optimizer.step()
+        self.optimizer.step()
         return loss.detach()
 
-    def seed():
-        # bench.py's seed: the warm call from zeros at the cold budget.
+    def seed(self):
+        import torch
         with torch.no_grad():
-            return system.contactnets_loss_batch_warm(
-                params, x, u, x_plus,
-                x.new_zeros((3, system.model.n_contacts, n)),
+            return self.system.contactnets_loss_batch_warm(
+                self.params, self.x, self.u, self.x_plus,
+                self.x.new_zeros((3, self.system.model.n_contacts,
+                                  self.x.shape[0])),
                 budget=COLD_BUDGET)[1]
 
-    def warm_step(cache):
-        optimizer.zero_grad()
-        loss, cache = system.contactnets_loss_batch_warm(params, x, u,
-                                                         x_plus, cache)
+    def warm_step(self, cache):
+        import torch
+        self.optimizer.zero_grad()
+        loss, cache = self.system.contactnets_loss_batch_warm(
+            self.params, self.x, self.u, self.x_plus, cache)
         loss = torch.mean(loss)
         loss.backward()
-        optimizer.step()
+        self.optimizer.step()
         return loss.detach(), cache
 
-    def round_():
+    def round(self):
+        """A cold step, the seed and the warm steps, each timed."""
+        import torch
         torch.cuda.synchronize()
         c0 = time.perf_counter()
-        loss = cold_step()
+        loss = self.cold_step()
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - c0
-        cache = seed()
+        cache = self.seed()
         torch.cuda.synchronize()
         seed_s = time.perf_counter() - c0 - cold_s
         losses, warm_s = [loss], []
         for _ in range(WARM_STEPS):
             w0 = time.perf_counter()
-            loss, cache = warm_step(cache)
+            loss, cache = self.warm_step(cache)
             torch.cuda.synchronize()
             warm_s.append(time.perf_counter() - w0)
             losses.append(loss)
         return cold_s, seed_s, warm_s, torch.stack(losses), cache
 
-    counters = (lk.fused_loss_fwd, lk.fused_loss_fwd_warm, lk.fused_loss_bwd,
-                soa_kernels.solve_warm_hybrid_soa_cuda)
-    round_()                                             # warm-up
-    torch.cuda.reset_peak_memory_stats()
-    for counter in counters:
-        counter.launches = 0
-    cold_s, seed_s, warm_s, losses, cache = round_()
-    launches = {"K1": counters[0].launches, "K3": counters[1].launches,
-                "K2": counters[2].launches, "K5": counters[3].launches}
-    peak = torch.cuda.max_memory_allocated()
+    def timed(self):
+        """A warm-up round, then a timed round with the launch counts and
+        the peak memory read around it. Returns ``(report, cache)``."""
+        import torch
+        self.round()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        cold_s, seed_s, warm_s, losses, cache = self.round()
+        launches = read_launches()
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"non-finite losses {losses.tolist()}")
+        n = self.x.shape[0]
+        return {"B": n, "dtype": "float32",
+                "warm_budget": list(WARM_BUDGET), "warm_steps": WARM_STEPS,
+                "cold_step_ms": cold_s * 1e3, "seed_ms": seed_s * 1e3,
+                "warm_step_median_ms": statistics.median(warm_s) * 1e3,
+                "warm_step_ms": [w * 1e3 for w in warm_s],
+                "cold_transitions_per_s": n / cold_s,
+                "warm_transitions_per_s": n * WARM_STEPS / sum(warm_s),
+                "losses": losses.tolist(), "launches": launches,
+                "max_memory_allocated_bytes":
+                    torch.cuda.max_memory_allocated()}, cache
 
-    if not bool(torch.isfinite(losses).all()):
-        raise AssertionError(f"non-finite training losses {losses.tolist()}")
-    if any(torch.equal(a, b.detach()) for a, b in zip(start, leaves)):
+    def moved(self):
+        """Per leaf, whether training moved it."""
+        import torch
+        return [not torch.equal(a, b.detach())
+                for a, b in zip(self.start, self.leaves)]
+
+
+def phase_train(system, x, x_plus):
+    """``bench.py``'s training workload (:class:`TrainingRun`), with a
+    trace of one warm step; returns the launch counts of the timed
+    round."""
+    run = TrainingRun(system, x, x_plus)
+    report, cache = run.timed()
+    if not all(run.moved()):
         raise AssertionError("a parameter tensor did not move in training")
     # K3 runs once for the seed and once per warm step.
     expected = {"K1": 1, "K3": 1 + WARM_STEPS, "K2": 1 + WARM_STEPS,
-                "K5": 0}
-    if launches != expected:
-        raise AssertionError(f"launches {launches}, expected {expected}")
+                "K4": 0, "K5": 0}
+    if report["launches"] != expected:
+        raise AssertionError(f"launches {report['launches']}, expected "
+                             f"{expected}")
+    emit({"phase": "train", **report,
+          "profiled_warm_step": profile_step(
+              lambda: run.warm_step(cache),
+              report["warm_step_median_ms"] / 1e3)})
+    return report["launches"]
 
-    # Kernels on the card in one warm step, and their share of its time.
+
+def kernel_kind(name: str) -> str:
+    """A kernel's kind by its name: the port's own kernels, matrix
+    products (cuBLAS and CUTLASS), or PyTorch's other kernels
+    (elementwise, reductions, copies)."""
+    if "hybrid_solve" in name or "contactnets_loss" in name:
+        return "port_kernels"
+    if "gemm" in name:
+        return "matmul"
+    return "other"
+
+
+def profile_step(step, step_seconds: float) -> dict:
+    """Kernels on the card in one ``step()``, from a ``torch.profiler``
+    trace, and their share of the unprofiled step's ``step_seconds``."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     h0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        warm_step(cache)
+        step()
         torch.cuda.synchronize()
     profiled_ms = (time.perf_counter() - h0) * 1e3
     per_name = collections.Counter()
@@ -869,23 +977,368 @@ def phase_train(system, x, x_plus):
             per_name[event.name] += event.time_range.elapsed_us()
             kernels += 1
     device_ms = sum(per_name.values()) / 1e3
-    warm_median = statistics.median(warm_s)
-    emit({"phase": "train", "B": n, "dtype": "float32",
-          "warm_budget": list(WARM_BUDGET), "warm_steps": WARM_STEPS,
-          "cold_step_ms": cold_s * 1e3, "seed_ms": seed_s * 1e3,
-          "warm_step_median_ms": warm_median * 1e3,
-          "warm_step_ms": [w * 1e3 for w in warm_s],
-          "cold_transitions_per_s": n / cold_s,
-          "warm_transitions_per_s": n * WARM_STEPS / sum(warm_s),
-          "losses": losses.tolist(), "launches": launches,
-          "max_memory_allocated_bytes": peak,
-          "profiled_warm_step": {
-              "host_ms_profiled": profiled_ms, "device_ms": device_ms,
-              "device_kernels": kernels,
-              "device_busy_share": (device_ms / (warm_median * 1e3)
-                                    if kernels else None),
-              "top_kernels_ms": [[name[:80], us / 1e3]
-                                 for name, us in per_name.most_common(6)]}})
+    by_kind = collections.Counter()
+    for name, us in per_name.items():
+        by_kind[kernel_kind(name)] += us / 1e3
+    return {"host_ms_profiled": profiled_ms, "device_ms": device_ms,
+            "device_kernels": kernels, "device_ms_by_kind": by_kind,
+            "device_busy_share": (device_ms / (step_seconds * 1e3)
+                                  if kernels else None),
+            "top_kernels_ms": [[name[:80], us / 1e3]
+                               for name, us in per_name.most_common(6)]}
+
+
+def icnn_states(system, params, n: int):
+    """``(n, 13)`` float64 states of the ICNN cube near the ground at
+    ``params``."""
+    import numpy as np
+    import torch
+    from dair_pll_tpu_torch import assets
+    return torch.tensor(assets.icnn_states_near_ground(
+        np.random.default_rng(2), n, params.geometry[1]["icnn"],
+        system.model.geometries[1].icnn_negative_slope),
+        dtype=torch.float64, device=system.device)
+
+
+def cold_loss_qps(system, params, x, x_plus):
+    """The packed QPs ``(m, jc, qc)`` that the cold ContactNets loss of
+    transitions ``(x, x_plus)`` hands its solve: captured at
+    ``solve_contact_impulse_soa_cuda_packed`` in one call of
+    ``contactnets_loss_batch``, which launches K4 once."""
+    import torch
+    from dair_pll_tpu_torch.ops import soa_kernels
+    solve = soa_kernels.solve_contact_impulse_soa_cuda_packed
+    captured = []
+
+    def capture(m, jc, qc, *args):
+        captured.append((m, jc, qc))
+        return solve(m, jc, qc, *args)
+
+    soa_kernels.solve_contact_impulse_soa_cuda_packed = capture
+    try:
+        with torch.no_grad():
+            system.contactnets_loss_batch(
+                params, x, x.new_zeros((x.shape[0], 0)), x_plus,
+                use_fused=True)
+    finally:
+        soa_kernels.solve_contact_impulse_soa_cuda_packed = solve
+    if len(captured) != 1:
+        raise AssertionError(f"the cold loss solved {len(captured)} times")
+    return captured[0]
+
+
+def phase_icnn_kernel(system, x0_64, x_train, xp_train):
+    """K4 against its plain version on the ICNN cube's cold loss QPs: at
+    8,192 samples of its float64 rollout, and at the training batch, whose
+    float32 QPs (and the same cast to float64) are the main path's cold
+    step's, against the plain version run over chunks. Its times at the
+    training batch and the plain version's at 8,192; its bound. Reports
+    every reading before it raises."""
+    import torch
+    from dair_pll_tpu_torch.ops import soa_kernels
+    kernel = soa_kernels.solve_contact_impulse_soa_cuda_packed
+    plain = soa_kernels.plain_packed_cold
+    params64 = system.initial_params(torch.float64)
+    traj = system.simulate_batch(params64, x0_64, 4, use_fused=True)
+    qps64 = cold_loss_qps(system, params64, traj[:, 3], traj[:, 4])
+    qps32 = tuple(t.float() for t in qps64)
+
+    def run(fn, qps):
+        with torch.no_grad():
+            out = fn(*qps, LOSS_EPS, *COLD_BUDGET)
+        torch.cuda.synchronize()
+        return out
+
+    k64, p64 = run(kernel, qps64), run(plain, qps64)
+    k32, p32 = run(kernel, qps32), run(plain, qps32)
+    err64 = check_float64("K4 impulse", k64[0], p64[0])
+    if not torch.equal(k64[1], p64[1]):
+        raise AssertionError("float64 K4 valid masks differ")
+    tail, _ = float32_tails(k32, p32, p64)
+    err32 = (k32[0] - p32[0]).abs().max().item()
+    emit({"phase": "icnn_kernel_vs_plain", "B": B,
+          "budget": list(COLD_BUDGET), "float64_max_abs_err": err64,
+          "float64_bit_identical": torch.equal(k64[0], p64[0]),
+          "float32_max_abs_err": err32, "float32_tails": tail,
+          "valid_share": k32[1].float().mean().item(),
+          "max_abs_impulse": p64[0].abs().max().item()})
+    del qps64, k64, p64, k32, p32
+
+    # The training batch, against the plain version over chunks.
+    train32 = cold_loss_qps(system, system.initial_params(torch.float32),
+                            x_train, xp_train)
+    train64 = tuple(t.double() for t in train32)
+    n_train = x_train.shape[0]
+    failures, out = [], {}
+    for dtype, qps in ((torch.float64, train64), (torch.float32, train32)):
+        with torch.no_grad():
+            out[dtype] = (kernel(*qps, LOSS_EPS, *COLD_BUDGET),
+                          plain_over_chunks(
+                              lambda *c: plain(*c, LOSS_EPS, *COLD_BUDGET),
+                              ICNN_PLAIN_CHUNK, *qps))
+    torch.cuda.synchronize()
+    (f64, q64), (f32, q32) = out[torch.float64], out[torch.float32]
+    full_err64 = (f64[0] - q64[0]).abs().max().item()
+    if ((f64[0] - q64[0]).abs() - TOL64 * (1 + q64[0].abs())).max() > 0:
+        failures.append(f"float64 K4 at the training batch differs from the "
+                        f"plain version by {full_err64:.3e}")
+    if not torch.equal(f64[1], q64[1]):
+        failures.append("float64 K4 valid masks differ at the training batch")
+    try:
+        full_tail, _ = float32_tails(f32, q32, q64)
+    except AssertionError as exc:
+        full_tail = str(exc)
+        failures.append(f"K4 at the training batch: {exc}")
+    full_err32 = (f32[0] - q32[0]).abs().max().item()
+    emit({"phase": "icnn_kernel_vs_plain_full", "B": n_train,
+          "plain_chunk": ICNN_PLAIN_CHUNK, "failures": failures,
+          "float64_max_abs_err": full_err64,
+          "float64_bit_identical": torch.equal(f64[0], q64[0]),
+          "float32_max_abs_err": full_err32, "float32_tails": full_tail,
+          "valid_share": f32[1].float().mean().item(),
+          "max_abs_impulse": q64[0].abs().max().item()})
+    del out, f64, q64, f32, q32
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    # Times at the training batch (float32, as the training step runs
+    # it, and float64), the plain version's at 8,192, and the bound.
+    with torch.no_grad():
+        ms = cuda_ms(lambda: kernel(*train32, LOSS_EPS, *COLD_BUDGET),
+                     reps=10)
+        ms64 = cuda_ms(lambda: kernel(*train64, LOSS_EPS, *COLD_BUDGET),
+                       reps=5)
+        result = kernel(*train32, LOSS_EPS, *COLD_BUDGET)
+        plain_ms = cuda_ms(lambda: plain(*qps32, LOSS_EPS, *COLD_BUDGET),
+                           reps=3, warmup=1)
+        ops = count_operations(
+            lambda: plain(*qps32, LOSS_EPS, *COLD_BUDGET)) * (n_train / B)
+    n_bytes = sum(t.numel() * t.element_size() for t in train32 + result)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S["float32"] * 1e3
+    timing = {"ms": ms, "ms_float64": ms64, "plain_ms": plain_ms,
+              "plain_B": B, "bytes": n_bytes, "operations": ops,
+              "operations_per_sample": ops / n_train, "bytes_ms": bytes_ms,
+              "operations_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    emit({"phase": "icnn_kernel_timing", "B": n_train, "dtype": "float32",
+          **timing})
+    return {"max_abs_err": max(err32, full_err32),
+            "max_abs_err_float64": max(err64, full_err64), **timing}
+
+
+def params_to(params, device):
+    """A detached copy of ``params`` on ``device``."""
+    import dataclasses
+
+    def move(tree):
+        if tree is None:
+            return None
+        if isinstance(tree, dict):
+            return {key: move(value) for key, value in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(move(value) for value in tree)
+        return tree.detach().to(device)
+
+    return dataclasses.replace(params, theta=move(params.theta),
+                               friction=move(params.friction),
+                               geometry=move(params.geometry))
+
+
+def icnn_loss_readings(system, params, x, x_plus) -> dict:
+    """The cold loss, the cache's seed and one warm loss of transitions
+    ``(x, x_plus)`` through the training entry points: per-sample losses,
+    impulses and the gradient of each mean loss for every leaf (``None``
+    where a leaf gets none), on the CPU."""
+    import torch
+    leaves = params.parameters()
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    u = x.new_zeros((x.shape[0], 0))
+
+    def grads(loss):
+        for leaf in leaves:
+            leaf.grad = None
+        torch.mean(loss).backward()
+        return [None if leaf.grad is None else leaf.grad.cpu()
+                for leaf in leaves]
+
+    cold = system.contactnets_loss_batch(params, x, u, x_plus,
+                                         use_fused=True)
+    readings = {"cold_grad": grads(cold), "cold_loss": cold.detach().cpu()}
+    with torch.no_grad():
+        _, seed = system.contactnets_loss_batch_warm(
+            params, x, u, x_plus,
+            x.new_zeros((3, system.model.n_contacts, x.shape[0])),
+            budget=COLD_BUDGET)
+    warm, force = system.contactnets_loss_batch_warm(params, x, u, x_plus,
+                                                     seed)
+    readings.update(warm_grad=grads(warm), warm_loss=warm.detach().cpu(),
+                    seed_force=seed.cpu(), warm_force=force.cpu())
+    return readings
+
+
+def phase_icnn_loss_vs_cpu(system, x0_64, x_train, xp_train):
+    """The ICNN cube's cold and warm float64 loss and every leaf's gradient
+    on ICNN_CHECK_B transitions, on the card (plain terms, K4 and K5)
+    against the CPU (plain terms and solves), at the same parameters:
+    losses within rtol LOSS_RTOL, atol LOSS_ATOL, gradients within rtol
+    GRAD_RTOL, atol CPU_GRAD_ATOL. Half the transitions are the training
+    batch's, which start deep in the initial shape and solve to zero
+    impulses; half are steps 3 to 4 of the ICNN cube's rollout from
+    states near the ground, which carry contact impulses. Reports every
+    reading before it raises."""
+    import torch
+    from dair_pll_tpu_torch.multibody.learnable_system import (
+        MultibodyLearnableSystem)
+    cpu_system = MultibodyLearnableSystem(system.model, DT, device="cpu")
+    params_cpu = cpu_system.initial_params(torch.float64)
+    half = ICNN_CHECK_B // 2
+    traj = cpu_system.simulate_batch(params_cpu, x0_64[:half].cpu(), 4,
+                                     use_fused=True).to(system.device)
+    x = torch.cat((x_train[:half].double(), traj[:, 3]))
+    x_plus = torch.cat((xp_train[:half].double(), traj[:, 4]))
+    reset_launches()
+    card = icnn_loss_readings(system, params_to(params_cpu, system.device),
+                              x, x_plus)
+    launches = read_launches()
+    cpu = icnn_loss_readings(cpu_system, params_cpu, x.cpu(), x_plus.cpu())
+    failures, result = [], {}
+    for name in ("cold", "warm"):
+        got, ref = card[f"{name}_loss"], cpu[f"{name}_loss"]
+        result[f"{name}_loss_max_abs_err"] = (got - ref).abs().max().item()
+        if not torch.allclose(got, ref, rtol=LOSS_RTOL, atol=LOSS_ATOL):
+            failures.append(f"{name} loss differs by "
+                            f"{result[f'{name}_loss_max_abs_err']:.3e}")
+        errs = []
+        for i, (g, r) in enumerate(zip(card[f"{name}_grad"],
+                                       cpu[f"{name}_grad"])):
+            if (g is None) != (r is None):
+                failures.append(f"{name} gradient of leaf {i}: card "
+                                f"{g is not None}, CPU {r is not None}")
+                continue
+            if g is None:
+                errs.append(None)
+                continue
+            errs.append((g - r).abs().max().item())
+            if not torch.allclose(g, r, rtol=GRAD_RTOL, atol=CPU_GRAD_ATOL):
+                failures.append(f"{name} gradient of leaf {i} differs by "
+                                f"{errs[-1]:.3e}")
+        result[f"{name}_grad_max_abs_err_per_leaf"] = errs
+    for name in ("seed_force", "warm_force"):
+        result[f"{name}_max_abs_err"] = (
+            card[name] - cpu[name]).abs().max().item()
+    if launches["K4"] != 1 or launches["K5"] != 2:
+        failures.append(f"launches {launches} on the card, expected K4 1, "
+                        f"K5 2")
+    emit({"phase": "icnn_loss_card_vs_cpu", "B": ICNN_CHECK_B,
+          "dtype": "float64", "launches": launches, "failures": failures,
+          "max_abs_loss": cpu["cold_loss"].abs().max().item(),
+          "max_abs_impulse": cpu["seed_force"].abs().max().item(), **result})
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def phase_icnn_train(system, x, x_plus):
+    """The ICNN cube's training (:class:`TrainingRun`); one step at the
+    reference recipe's batch; a URDF export of the trained shape; last, a
+    trace of one warm step. Returns the launch counts of the timed
+    round."""
+    import tempfile
+    import torch
+    from dair_pll_tpu_torch.urdf_export import (
+        represent_multibody_terms_as_urdfs)
+    run = TrainingRun(system, x, x_plus)
+    report, cache = run.timed()
+    # The perturbations' gradient is zero: a support point of the
+    # piecewise-linear ICNN is piecewise constant in its direction.
+    moved = run.moved()
+    if run.leaves[-1].grad is not None or moved[-1]:
+        raise AssertionError("the ICNN perturbations got a gradient")
+    if not all(moved[:-1]):
+        raise AssertionError("an ICNN weight did not move in training")
+    # K4 runs once for the cold step; K5 for the seed and each warm step.
+    expected = {"K1": 0, "K3": 0, "K2": 0, "K4": 1, "K5": 1 + WARM_STEPS}
+    if report["launches"] != expected:
+        raise AssertionError(f"ICNN launches {report['launches']}, "
+                             f"expected {expected}")
+
+    # The reference recipe's batch, below FUSED_LOSS_MIN_BATCH.
+    reset_launches()
+    r0 = time.perf_counter()
+    ref_loss = run.cold_step(ICNN_REF_B, use_fused=True)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - r0) * 1e3
+    ref_launches = read_launches()
+    if ref_launches["K4"] != 1 or not bool(torch.isfinite(ref_loss)):
+        raise AssertionError(f"batch {ICNN_REF_B}: launches {ref_launches},"
+                             f" loss {ref_loss.item()}")
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        e0 = time.perf_counter()
+        urdfs = represent_multibody_terms_as_urdfs(system.model, run.params,
+                                                   out_dir)
+        export_s = time.perf_counter() - e0
+        obj = [name for name in os.listdir(out_dir) if name.endswith(".obj")]
+        with open(os.path.join(out_dir, obj[0]), encoding="utf-8") as handle:
+            lines = handle.read().splitlines()
+    mesh = {"vertices": sum(line.startswith("v ") for line in lines),
+            "faces": sum(line.startswith("f ") for line in lines),
+            "seconds": export_s}
+    if mesh["faces"] < 4 or obj[0] not in urdfs["cube"]:
+        raise AssertionError(f"URDF export of the trained ICNN: {mesh}")
+    emit({"phase": "icnn_train", **report,
+          "reference_batch": {"B": ICNN_REF_B, "step_ms": ref_ms,
+                              "loss": ref_loss.item(),
+                              "launches": ref_launches},
+          "urdf_export_mesh": mesh,
+          "profiled_warm_step": profile_step(
+              lambda: run.warm_step(cache),
+              report["warm_step_median_ms"] / 1e3)})
+    return report["launches"]
+
+
+def phase_icnn_rollout(system, x0_64):
+    """ICNN cube rollouts: 8,192 x ICNN_STEPS in float32 with K5's
+    launches; 8 x 10 steps in float64 on the card against the CPU."""
+    import torch
+    from dair_pll_tpu_torch.multibody.learnable_system import (
+        MultibodyLearnableSystem)
+    params = system.initial_params(torch.float32)
+    x0 = x0_64.float()
+    system.simulate_batch(params, x0[:1024], 2)          # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    traj = system.simulate_batch(params, x0, ICNN_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    if tuple(traj.shape) != (B, ICNN_STEPS + 1, 13):
+        raise AssertionError(f"ICNN trajectory shape {tuple(traj.shape)}")
+    if not bool(torch.isfinite(traj).all()):
+        raise AssertionError("non-finite states in the ICNN rollout")
+    if launches["K5"] != ICNN_STEPS or launches["K4"] != 0:
+        raise AssertionError(f"launches {launches} in a {ICNN_STEPS}-step "
+                             "ICNN rollout")
+
+    x_check = x0_64[:CHECK_TRAJ]
+    gpu = system.simulate_batch(system.initial_params(torch.float64),
+                                x_check, CHECK_STEPS, use_fused=True)
+    cpu_system = MultibodyLearnableSystem(system.model, DT, device="cpu")
+    cpu = cpu_system.simulate_batch(cpu_system.initial_params(torch.float64),
+                                    x_check.cpu(), CHECK_STEPS,
+                                    use_fused=True)
+    check_err = (gpu.cpu() - cpu).abs().max().item()
+    if not check_err <= ROLLOUT_ATOL:
+        raise AssertionError(f"float64 ICNN rollout on the card differs from "
+                             f"the CPU by {check_err:.3e}")
+    emit({"phase": "icnn_rollout", "B": B, "steps": ICNN_STEPS,
+          "dtype": "float32", "seconds": seconds,
+          "steps_per_s": ICNN_STEPS / seconds,
+          "transitions_per_s": B * ICNN_STEPS / seconds,
+          "launches": launches,
+          "float64_card_vs_cpu_max_abs_err": check_err})
     return launches
 
 
@@ -925,8 +1378,25 @@ def main() -> int:
         dtype=torch.float64, device=system.device)
     k = run("kernel_vs_plain+kernel_timing", phase_kernel, system, x0_64)
     traj, launches, seconds = run("rollout", phase_rollout, system, x0_64)
-    run("profile", phase_profile, system, x0_64, seconds / STEPS)
     run("step_breakdown", phase_breakdown, system, traj)
+
+    icnn_system = MultibodyLearnableSystem.from_urdfs(
+        {"cube": assets.get_asset("cube_mesh")}, DT)
+    x0_icnn = icnn_states(icnn_system,
+                          icnn_system.initial_params(torch.float64), B)
+    x_icnn, xp_icnn = train_transitions(ICNN_TRAIN_B, icnn_system.device)
+    k4 = run("icnn_kernel_vs_plain+icnn_kernel_timing", phase_icnn_kernel,
+             icnn_system, x0_icnn, x_icnn, xp_icnn)
+    torch.cuda.empty_cache()
+    run("icnn_loss_card_vs_cpu", phase_icnn_loss_vs_cpu, icnn_system,
+        x0_icnn, x_icnn, xp_icnn)
+    run("icnn_rollout", phase_icnn_rollout, icnn_system, x0_icnn)
+    icnn_launches = run("icnn_train", phase_icnn_train, icnn_system, x_icnn,
+                        xp_icnn)
+    del x_icnn, xp_icnn
+    torch.cuda.empty_cache()
+
+    run("profile", phase_profile, system, x0_64, seconds / STEPS)
     loss_errors, transitions = run("loss_kernels_vs_plain",
                                    phase_loss_kernels, system, x0_64)
     x_train, xp_train = train_transitions(TRAIN_B, system.device)
@@ -970,6 +1440,21 @@ def main() -> int:
             "bound_by": loss_times[name]["bound_by"],
             "library_ms": None,
         })
+    table.append({
+        "name": "cold_hybrid_solve",
+        "route": "cuda",
+        "source": "dair_pll_tpu_torch/csrc/cold_hybrid_solve.cu",
+        "replaces": "dair_pll_tpu/ops/soa_pallas.py:59",
+        "launches": icnn_launches["K4"],
+        "max_abs_err": k4["max_abs_err"],
+        "max_abs_err_float64": k4["max_abs_err_float64"],
+        "ms": k4["ms"],
+        "ms_float64": k4["ms_float64"],
+        "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"],
+        "library_ms": None,
+    })
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

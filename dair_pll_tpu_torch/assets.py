@@ -5,9 +5,9 @@ port imports nothing of the JAX package. URDFs are written on demand
 into a directory the caller names, or by default into the port's own
 ``assets_generated/`` directory (listed in ``.gitignore``).
 
-It also makes seeded cube states near the ground, the initial states of
-the rollout checks (numpy, so that the JAX package and the port can be
-fed the same states).
+It also makes seeded states of a free body near the ground, the initial
+states of the rollout checks (numpy, so that the JAX package and the port
+can be fed the same states).
 
 Physical constants are those of the reference's cube-toss and
 articulated-elbow assets: cube mass 0.37 kg, edge 0.1048 m, isotropic
@@ -19,7 +19,7 @@ in x, links mutually collision-filtered.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -179,23 +179,51 @@ def _quat_to_rotmat(quat: np.ndarray) -> np.ndarray:
                   1 - 2 * (x * x + y * y)], -1)], -2)
 
 
-def cube_states_near_ground(rng: np.random.Generator, n: int,
-                            clearance: Tuple[float, float] = (-0.004, 0.01),
-                            fall_speed: float = 0.5) -> np.ndarray:
-    """``(n, 13)`` cube states (quaternion, position, angular and linear
-    velocity) at random orientations whose lowest corner sits within
+def states_near_ground(rng: np.random.Generator, n: int,
+                       lowest: Callable[[np.ndarray], np.ndarray],
+                       clearance: Tuple[float, float] = (-0.004, 0.01),
+                       fall_speed: float = 0.5) -> np.ndarray:
+    """``(n, 13)`` states of a free body (quaternion, position, angular and
+    linear velocity) at random orientations whose lowest point sits within
     ``clearance`` of the ground, falling at about ``fall_speed`` m/s, so
-    that the contact solves are active within a few steps."""
+    that the contact solves are active within a few steps. ``lowest`` maps
+    ``(n, 3, 3)`` rotations to the lowest height ``(n,)`` of the body's
+    points, rotated, with the body origin at 0; for a convex body with
+    support function ``h`` (in the body frame) that is ``-h(-R[:, 2])``."""
     quat = rng.standard_normal((n, 4))
     quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
-    corners = (CUBE_EDGE / 2) * np.array(
-        [[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
-         for sz in (-1, 1)], dtype=np.float64)
-    lowest = np.min(np.einsum("bij,cj->bci", _quat_to_rotmat(quat),
-                              corners)[..., 2], axis=-1)
-    height = -lowest + rng.uniform(*clearance, size=n)
+    height = -lowest(_quat_to_rotmat(quat)) + rng.uniform(*clearance, size=n)
     pos = np.concatenate([0.02 * rng.standard_normal((n, 2)),
                           height[:, None]], axis=-1)
     vel = rng.standard_normal((n, 6)) * [2.0, 2.0, 2.0, 0.3, 0.3, 0.1]
     vel[:, 5] -= fall_speed
     return np.concatenate([quat, pos, vel], axis=-1)
+
+
+def icnn_states_near_ground(rng: np.random.Generator, n: int, net,
+                            negative_slope: float = 0.5) -> np.ndarray:
+    """:func:`states_near_ground` of a deep-support (ICNN) body with the
+    network ``net`` (the port's tensors), whose support function gives the
+    lowest point, ``-h(-R[:, 2])``."""
+    import torch
+    from dair_pll_tpu_torch.ops import icnn
+
+    def lowest(rot: np.ndarray) -> np.ndarray:
+        with torch.no_grad():
+            down = torch.as_tensor(-rot[:, 2]).to(net["output_weight"])
+            return -icnn.icnn_value(net, down, negative_slope).cpu().numpy()
+    return states_near_ground(rng, n, lowest)
+
+
+def cube_states_near_ground(rng: np.random.Generator, n: int,
+                            clearance: Tuple[float, float] = (-0.004, 0.01),
+                            fall_speed: float = 0.5) -> np.ndarray:
+    """:func:`states_near_ground` of the cube (edge ``CUBE_EDGE``)."""
+    corners = (CUBE_EDGE / 2) * np.array(
+        [[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
+         for sz in (-1, 1)], dtype=np.float64)
+    return states_near_ground(
+        rng, n,
+        lambda rot: np.min(np.einsum("bij,cj->bci", rot, corners)[..., 2],
+                           axis=-1),
+        clearance, fall_speed)

@@ -1,7 +1,7 @@
 // Device functions of the hybrid cone solve (NT interior point + SAP-Newton)
-// for one sample per CUDA thread, shared by the warm hybrid solve kernel
-// (warm_hybrid_solve.cu) and the ContactNets loss kernels
-// (contactnets_loss.cu). Each mirrors its plain PyTorch counterpart in
+// for one sample per CUDA thread, shared by the warm and cold hybrid solve
+// kernels (warm_hybrid_solve.cu, cold_hybrid_solve.cu) and the ContactNets
+// loss kernels (contactnets_loss.cu). Each mirrors its plain PyTorch counterpart in
 // dair_pll_tpu_torch/ops/soa_solver.py in the same operation order.
 #pragma once
 
@@ -58,6 +58,33 @@ template <typename T, int NV, int K> struct Problem {
   T q[3][K];
   T eps, inv_eps, half_eps;
 };
+
+// Reads sample b of a packed, batch-minor QP: M (NV*NV, B), Jc (3, NV, K,
+// B), qc (3, K, B), the layout of ops/soa_kernels.pack_qp.
+template <typename T, int NV, int K>
+__device__ __forceinline__ void load_packed_problem(
+    const T* __restrict__ M, const T* __restrict__ Jc,
+    const T* __restrict__ qc, long long B, long long b, double eps,
+    Problem<T, NV, K>& P) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int j = 0; j < NV; ++j) P.M[i][j] = M[(i * NV + j) * B + b];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int c = 0; c < K; ++c)
+        P.J[i][v][c] = Jc[((i * NV + v) * K + c) * B + b];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int c = 0; c < K; ++c) P.q[i][c] = qc[(i * K + c) * B + b];
+  P.eps = T(eps);
+  P.inv_eps = T(1.0 / eps);
+  P.half_eps = T(0.5 * eps);
+}
 
 template <typename T, int NV> struct Ldlt {
   T L[NV][NV];

@@ -45,24 +45,7 @@ __global__ void warm_hybrid_solve_kernel(
   if (b >= B) return;
 
   Problem<T, NV, K> P;
-#pragma unroll
-  for (int i = 0; i < NV; ++i)
-#pragma unroll
-    for (int j = 0; j < NV; ++j) P.M[i][j] = M[(i * NV + j) * B + b];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int v = 0; v < NV; ++v)
-#pragma unroll
-      for (int c = 0; c < K; ++c)
-        P.J[i][v][c] = Jc[((i * NV + v) * K + c) * B + b];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int c = 0; c < K; ++c) P.q[i][c] = qc[(i * K + c) * B + b];
-  P.eps = T(eps);
-  P.inv_eps = T(1.0 / eps);
-  P.half_eps = T(0.5 * eps);
+  load_packed_problem<T, NV, K>(M, Jc, qc, B, b, eps, P);
 
   T w[NV];
 #pragma unroll

@@ -1,6 +1,7 @@
 r"""Rigid-body inertial reparameterizations (PyTorch).
 
-Counterpart of the ``theta <-> pi_cm`` part of ``dair_pll_tpu/inertia.py``:
+Counterpart of the ``theta <-> pi_cm`` part of ``dair_pll_tpu/inertia.py``
+and of its URDF strings (:func:`pi_cm_to_urdf`):
 the smooth, unconstrained 10-DoF ``theta`` parameterization of Rucker &
 Wensing ("Smooth Parameterization of Rigid-Body Inertia", RA-L 2020).
 
@@ -14,6 +15,9 @@ All conversions broadcast over leading batch dims.
 """
 from __future__ import annotations
 
+from typing import List, Tuple
+
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -125,3 +129,16 @@ def theta_to_pi_cm(theta: Tensor) -> Tensor:
 def pi_cm_to_theta(pi_cm: Tensor) -> Tensor:
     """Chained :func:`pi_cm_to_pi_o` and :func:`pi_o_to_theta`."""
     return pi_o_to_theta(pi_cm_to_pi_o(pi_cm))
+
+
+def pi_cm_to_urdf(pi_cm) -> Tuple[str, str, List[str]]:
+    """One ``(10,)`` ``pi_cm`` vector (a tensor or an array) to URDF string
+    pieces ``(mass, "px py pz", [six inertia strings])``."""
+    pi_cm = np.asarray(torch.as_tensor(pi_cm).detach().cpu(),
+                       dtype=np.float64)
+    if pi_cm.shape != (10,):
+        raise ValueError(f"pi_cm has shape {pi_cm.shape}, expected (10,)")
+    mass = str(float(pi_cm[0]))
+    com = " ".join(str(float(c / pi_cm[0])) for c in pi_cm[1:4])
+    inertia = [str(float(v)) for v in pi_cm[4:]]
+    return mass, com, inertia

@@ -15,12 +15,14 @@ the device.
 
 Ported: the fused batch-minor rollout (``simulate_batch`` with
 ``use_fused``), whose every step runs the hand-written CUDA solve kernel
-on the card, and the fused ContactNets loss (``contactnets_loss_batch``,
-cold, and ``contactnets_loss_batch_warm``, epoch-warm), which on the card
-runs one CUDA kernel forward and one backward per step. A training step
-is the mean loss, ``backward`` and a ``torch.optim.Adam`` step on
-``params.parameters()``. Not ported yet: the vmapped integrator and loss
-paths.
+K5 on the card, and the fused ContactNets loss (``contactnets_loss_batch``,
+cold, and ``contactnets_loss_batch_warm``, epoch-warm). On the card the
+box cube's loss runs one CUDA kernel forward and one backward per step
+(K1 or K3, and K2); a model with deep-support (ICNN) geometry runs the
+plain terms and assembly under autograd with the detached solve as one
+CUDA kernel (K4 cold, K5 warm). A training step is the mean loss,
+``backward`` and a ``torch.optim.Adam`` step on ``params.parameters()``.
+Not ported yet: the vmapped integrator and loss paths.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from torch import Tensor
 
 from dair_pll_tpu_torch.multibody.model import MultibodyModel, MultibodyParams
 from dair_pll_tpu_torch.multibody.soa_terms import (
-    soa_contactnets_loss, soa_contactnets_loss_warm,
+    has_deep_support, soa_contactnets_loss, soa_contactnets_loss_warm,
     soa_forward_dynamics_batch, supports_fused)
 from dair_pll_tpu_torch.ops.soa_loss_kernels import (
     fused_contactnets_loss_kernel, fused_contactnets_loss_kernel_warm)
@@ -123,6 +125,14 @@ class MultibodyLearnableSystem:
         """Whether the batch-minor fused SoA path covers this model."""
         return supports_fused(self.model)
 
+    def _loss_kernels(self, x: Tensor) -> bool:
+        """Whether the loss runs the fused loss kernels (K1-K3): on CUDA
+        tensors, except for ICNN models, whose loss runs the plain terms
+        with the solve kernels (K4, K5), as the JAX package runs them
+        through XLA with its solve kernels. The kernels raise for other
+        models they do not cover."""
+        return x.device.type != "cpu" and not has_deep_support(self.model)
+
     def _check_on_device(self, **tensors: Tensor) -> None:
         for name, t in tensors.items():
             if t.device != self.device:
@@ -163,18 +173,20 @@ class MultibodyLearnableSystem:
         ``(DEFAULT_LOSS_IPM_ITERATIONS, DEFAULT_LOSS_NEWTON_ITERATIONS)``.
 
         CUDA tensors run the loss kernel K1 forward and K2 backward
-        (``ops/soa_loss_kernels.py``), float32 or float64; a model outside
-        the kernels' instantiation raises. CPU tensors run the plain
-        version (``soa_terms.soa_contactnets_loss``) under torch autograd.
+        (``ops/soa_loss_kernels.py``), float32 or float64; ICNN models run
+        the plain version with its cold solve on the kernel K4; other
+        models outside the kernels' instantiation raise. CPU tensors run
+        the plain version (``soa_terms.soa_contactnets_loss``) under torch
+        autograd.
         """
         batch_shape, x, u, x_plus = self._flat_transitions(
             params, x, u, x_plus, use_fused)
         args = (self.model, params, x, u, x_plus, self.dt, LOSS_EPSILON,
                 DEFAULT_LOSS_IPM_ITERATIONS, DEFAULT_LOSS_NEWTON_ITERATIONS)
-        if x.device.type == "cpu":
-            loss, _, _ = soa_contactnets_loss(*args)
-        else:
+        if self._loss_kernels(x):
             loss = fused_contactnets_loss_kernel(*args)
+        else:
+            loss, _, _ = soa_contactnets_loss(*args)
         return loss.reshape(batch_shape)
 
     def contactnets_loss_batch_warm(
@@ -191,7 +203,8 @@ class MultibodyLearnableSystem:
         ``(3, k, n_batch)`` impulse cache (zeros for cold samples). Returns
         ``(loss (*batch,), force (3, k, n_batch))``, ``force`` the
         detached refreshed cache. CUDA tensors run the kernel K3 forward
-        and K2 backward; CPU tensors the plain version
+        and K2 backward, or, for ICNN models, the plain version with its
+        warm solve on the kernel K5; CPU tensors the plain version
         (``soa_terms.soa_contactnets_loss_warm``).
 
         The cache is seeded, as ``bench.py`` seeds it, by a call from zeros
@@ -205,13 +218,13 @@ class MultibodyLearnableSystem:
         force_prev = force_prev.reshape(3, -1, x.shape[0])
         args = (self.model, params, x, u, x_plus, self.dt, LOSS_EPSILON, ipm,
                 newton)
-        if x.device.type == "cpu":
+        if self._loss_kernels(x):
+            loss, force = fused_contactnets_loss_kernel_warm(*args,
+                                                             force_prev)
+        else:
             loss, force, _ = soa_contactnets_loss_warm(
                 *args, list(force_prev.unbind(0)))
             force = torch.stack(force)
-        else:
-            loss, force = fused_contactnets_loss_kernel_warm(*args,
-                                                             force_prev)
         return loss.reshape(batch_shape), force
 
     def simulate_batch(self, params: MultibodyParams, x_0: Tensor,

@@ -183,12 +183,25 @@ class MultibodyParams:
 
     def parameters(self) -> List[torch.Tensor]:
         """The leaf tensors in a fixed order, for a ``torch.optim``
-        optimizer: ``theta``, ``friction``, then each geometry's tensors in
-        geometry order (keys in insertion order)."""
-        leaves = [self.theta, self.friction]
-        for entry in self.geometry:
-            leaves.extend((entry or {}).values())
-        return leaves
+        optimizer: ``theta``, ``friction``, then each geometry's leaves in
+        geometry order, in the order of JAX's ``tree_leaves`` (dictionary
+        keys sorted, lists in order), so that leaf lists compare one to
+        one with the JAX package's."""
+        return [self.theta, self.friction, *_tree_leaves(self.geometry)]
+
+
+def _tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of nested dictionaries, lists and tuples (``None``
+    skipped), dictionary keys sorted, as ``jax.tree_util.tree_leaves``
+    orders them."""
+    if tree is None:
+        return []
+    if isinstance(tree, Mapping):
+        return [leaf for key in sorted(tree)
+                for leaf in _tree_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for item in tree for leaf in _tree_leaves(item)]
+    return [tree]
 
 
 def params_from_numpy(model: MultibodyModel, theta, friction,
@@ -199,8 +212,12 @@ def params_from_numpy(model: MultibodyModel, theta, friction,
     Takes the fields of a JAX ``MultibodyParams`` as numpy arrays:
     ``theta`` ``(n_bodies, 10)``, ``friction`` ``(n_geom,)`` and, per
     geometry, ``None`` or a mapping such as ``{"half_lengths": ...}``,
-    ``{"vertices": ...}`` or ``{"radius": ...}``. Returns the port's
-    :class:`MultibodyParams` on ``device`` in ``dtype``.
+    ``{"vertices": ...}``, ``{"radius": ...}`` or the nested ICNN mapping
+    ``{"icnn": {"hidden_weights": [...], "input_weights": [...],
+    "output_weight": ...}, "perturbations": ...}``. Keys, list lengths and
+    every leaf's shape are checked against the spec's initial parameters.
+    Returns the port's :class:`MultibodyParams` on ``device`` in
+    ``dtype``.
     """
     theta = np.asarray(theta, dtype=np.float64)
     friction = np.asarray(friction, dtype=np.float64)
@@ -220,6 +237,25 @@ def params_from_numpy(model: MultibodyModel, theta, friction,
         return torch.as_tensor(np.array(value, dtype=np.float64),
                                dtype=dtype, device=device)
 
+    def convert(expected, given, where: str):
+        """``given`` in the structure of ``expected``, as tensors."""
+        if isinstance(expected, Mapping):
+            if not isinstance(given, Mapping) or set(given) != set(expected):
+                raise ValueError(f"{where} needs keys {sorted(expected)}")
+            return {key: convert(ref, given[key], f"{where} {key}")
+                    for key, ref in expected.items()}
+        if isinstance(expected, list):
+            if not isinstance(given, (list, tuple)) or \
+                    len(given) != len(expected):
+                raise ValueError(f"{where} needs a list of {len(expected)}")
+            return [convert(ref, item, f"{where}[{i}]")
+                    for i, (ref, item) in enumerate(zip(expected, given))]
+        value = tensor(given)
+        if value.shape != expected.shape:
+            raise ValueError(f"{where} has shape {tuple(value.shape)}, "
+                             f"expected {tuple(expected.shape)}")
+        return value
+
     geometry_out = []
     for spec, entry in zip(model.geometries, geometry):
         expected = default_geometry_params(spec, torch.float64)
@@ -228,17 +264,6 @@ def params_from_numpy(model: MultibodyModel, theta, friction,
                 raise ValueError(f"geometry {spec.name} takes no parameters")
             geometry_out.append(None)
             continue
-        if entry is None or set(entry) != set(expected):
-            raise ValueError(f"geometry {spec.name} needs keys "
-                             f"{sorted(expected)}")
-        converted = {}
-        for key, ref in expected.items():
-            value = tensor(entry[key])
-            if value.shape != ref.shape:
-                raise ValueError(f"geometry {spec.name} {key} has shape "
-                                 f"{tuple(value.shape)}, expected "
-                                 f"{tuple(ref.shape)}")
-            converted[key] = value
-        geometry_out.append(converted)
+        geometry_out.append(convert(expected, entry, f"geometry {spec.name}"))
     return MultibodyParams(theta=tensor(theta), friction=tensor(friction),
                            geometry=tuple(geometry_out))

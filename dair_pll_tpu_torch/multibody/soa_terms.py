@@ -5,14 +5,17 @@ Counterpart of ``dair_pll_tpu/multibody/soa_terms.py``: every per-sample
 scalar is a ``(B,)`` tensor, all small-dimension structure unrolls in
 Python (``ops/soa.py``). One rollout step runs forward kinematics, the mass
 matrix, the Coriolis terms (a forward-mode JVP through the kinematics), the
-box witness-point contact terms, the warm-started hybrid cone solve (the
-CUDA kernel of ``ops/soa_kernels.py`` for CUDA tensors) and the velocity
-update. The ContactNets loss (:func:`soa_contactnets_loss`,
+witness-point contact terms (box, polygon, sphere or deep-support ICNN
+against a plane), the warm-started hybrid cone solve (the CUDA kernel K5
+of ``ops/soa_kernels.py`` for CUDA tensors) and the velocity update. The
+ContactNets loss (:func:`soa_contactnets_loss`,
 :func:`soa_contactnets_loss_warm`) runs the same terms at the observed next
-state, a detached hybrid solve and the loss assembly; its gradient comes
-from torch autograd through the terms and the assembly. These loss
-functions are the plain versions that the CUDA loss kernels of
-``ops/soa_loss_kernels.py`` are held against.
+state, a detached hybrid solve (K4 cold, K5 warm, for CUDA tensors) and the
+loss assembly; its gradient comes from torch autograd through the terms
+and the assembly. These loss functions are the plain versions that the
+CUDA loss kernels of ``ops/soa_loss_kernels.py`` are held against, and the
+training path on the card for models those kernels do not cover (ICNN
+geometry).
 
 Supported models (``supports_fused``): kinematic trees of free, revolute,
 prismatic and fixed joints whose collision pairs are all plane-vs-convex.
@@ -25,12 +28,13 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from dair_pll_tpu_torch.geometry import _ICNN_NOT_PORTED, _UNIT_BOX_VERTICES
+from dair_pll_tpu_torch.geometry import _UNIT_BOX_VERTICES
 from dair_pll_tpu_torch.multibody.model import MultibodyModel, MultibodyParams
-from dair_pll_tpu_torch.ops import soa, soa_solver
+from dair_pll_tpu_torch.ops import icnn, soa, soa_solver
 from dair_pll_tpu_torch.ops.soa import Smat, Svec
 from dair_pll_tpu_torch.ops.soa_kernels import (
-    pack_qp, solve_warm_hybrid_soa_cuda_packed, unpack_qp)
+    pack_qp, solve_contact_impulse_soa_cuda, solve_warm_hybrid_soa_cuda,
+    solve_warm_hybrid_soa_cuda_packed, unpack_qp)
 
 GRAVITY_ACCELERATION = 9.81
 
@@ -51,12 +55,19 @@ def supports_fused(model: MultibodyModel) -> bool:
     return True
 
 
+def has_deep_support(model: MultibodyModel) -> bool:
+    """Whether a geometry of the model is a deep-support (ICNN) convex,
+    which the JAX package's single-kernel loss leaves out."""
+    return any(g.geom_type == "deep_support_convex" for g in model.geometries)
+
+
 # -- derived scalar parameters ---------------------------------------------------
 def derive_scalar_params(model: MultibodyModel, params: MultibodyParams):
     """The derived parameters the terms chain consumes: ``pi`` body
     inertial vectors (``pi_cm``), ``mu`` per-geometry friction
     magnitudes, ``geom`` per-geometry shapes with absolute values folded
-    in (15 scalars for the cube)."""
+    in (15 scalars for the cube; an ICNN geometry carries its network and
+    perturbations whole)."""
     geom_derived = []
     for spec, gparams in zip(model.geometries, params.geometry):
         if spec.geom_type == "box":
@@ -67,7 +78,8 @@ def derive_scalar_params(model: MultibodyModel, params: MultibodyParams):
         elif spec.geom_type == "sphere":
             geom_derived.append({"radius": torch.abs(gparams["radius"])})
         elif spec.geom_type == "deep_support_convex":
-            raise NotImplementedError(_ICNN_NOT_PORTED)
+            # Not scalar: the network's weights, carried as they are.
+            geom_derived.append({"icnn": gparams})
         else:
             geom_derived.append({})
     return {"pi": params.pi_cm(), "mu": torch.abs(params.friction),
@@ -89,6 +101,8 @@ def scalarize_derived(model: MultibodyModel, derived) -> dict:
                 for i in range(verts.shape[0])]})
         elif spec.geom_type == "sphere":
             sp_geom.append({"radius": entry["radius"]})
+        elif spec.geom_type == "deep_support_convex":
+            sp_geom.append({"icnn": entry["icnn"]})
         else:
             sp_geom.append({})
     pi = derived["pi"]
@@ -309,12 +323,25 @@ def _soa_vertices(spec, geom_entry) -> List[Svec]:
 def _soa_support_points(spec, geom_entry, direction: Svec) -> List[Svec]:
     """Witness points for one support direction: the top ``n_query``
     vertices by support value, through the same compare-exchange network
-    as the JAX package (its tie order picks the witnesses)."""
+    as the JAX package (its tie order picks the witnesses). Deep-support
+    (ICNN) witnesses are the support points of the perturbed, normalised
+    directions, evaluated batch-major, ``(B n_query, 3)`` through the
+    width-``W`` layers, and split back into SoA leaves."""
     if spec.geom_type == "sphere":
         radius = geom_entry["radius"]
         return [[direction[i] * radius for i in range(3)]]
     if spec.geom_type == "deep_support_convex":
-        raise NotImplementedError(_ICNN_NOT_PORTED)
+        params = geom_entry["icnn"]
+        d_major = torch.stack(torch.broadcast_tensors(*direction),
+                              dim=-1)                          # (B, 3)
+        perturbed = d_major[:, None, :] + params["perturbations"][None]
+        perturbed = perturbed / torch.sqrt(torch.sum(
+            perturbed * perturbed, dim=-1, keepdim=True))      # (B, n_q, 3)
+        points = icnn.icnn_support_points(
+            params["icnn"], perturbed.reshape(-1, 3),
+            spec.icnn_negative_slope).reshape(perturbed.shape)
+        return [[points[:, c, i] for i in range(3)]
+                for c in range(spec.n_query)]
     vertices = _soa_vertices(spec, geom_entry)
     dots = [soa.dot(vert, direction) for vert in vertices]
     payloads = [[vert[i] for vert in vertices] for i in range(3)]
@@ -677,7 +704,10 @@ def soa_contactnets_loss(model: MultibodyModel, params: MultibodyParams,
 
     Terms at the observed next state, the detached cold hybrid solve (the
     gradient flows only through the terms and the assembly at the solved
-    impulse: the envelope theorem), then the loss assembly. Returns
+    impulse: the envelope theorem), then the loss assembly. The solve runs
+    through :func:`~dair_pll_tpu_torch.ops.soa_kernels.
+    solve_contact_impulse_soa_cuda`: the CUDA kernel K4 for CUDA tensors,
+    its plain version for CPU tensors. Returns
     ``(loss (B,), force cone field, valid (B,))``; ``force`` is detached,
     so a caller can seed an impulse cache for
     :func:`soa_contactnets_loss_warm` with it (the JAX function returns
@@ -687,7 +717,7 @@ def soa_contactnets_loss(model: MultibodyModel, params: MultibodyParams,
     M, Jc, phi, qc, dv = soa_loss_parts(model, sp, v, q_plus, v_plus, u_soa,
                                         dt)
     with torch.no_grad():
-        force, valid = soa_solver.solve_contact_impulse_soa(
+        force, valid = solve_contact_impulse_soa_cuda(
             M, Jc, qc, loss_epsilon, ipm_iterations, newton_iterations)
     loss = soa_loss_assemble(M, Jc, phi, qc, dv, force, valid, loss_epsilon)
     return loss, force, valid
@@ -706,17 +736,19 @@ def soa_contactnets_loss_warm(model: MultibodyModel,
     visit: the carried primal is ``w = M^{-1} J^T f_prev`` at the current
     parameters, and SAP-Newton starts from the better (by primal cost) of
     that and a short ``ipm_iterations`` central path
-    (:func:`~dair_pll_tpu_torch.ops.soa_solver.solve_warm_hybrid_soa`).
-    ``force_prev`` is a cone field of ``(k, B)`` leaves (zeros for cold
-    samples). Returns ``(loss (B,), force cone field, valid (B,))``;
-    ``force`` is detached.
+    (:func:`~dair_pll_tpu_torch.ops.soa_solver.solve_warm_hybrid_soa`),
+    through :func:`~dair_pll_tpu_torch.ops.soa_kernels.
+    solve_warm_hybrid_soa_cuda`: the CUDA kernel K5 for CUDA tensors, its
+    plain version for CPU tensors. ``force_prev`` is a cone field of
+    ``(k, B)`` leaves (zeros for cold samples). Returns ``(loss (B,),
+    force cone field, valid (B,))``; ``force`` is detached.
     """
     sp, v, q_plus, v_plus, u_soa = _loss_inputs(model, params, x, u, x_plus)
     M, Jc, phi, qc, dv = soa_loss_parts(model, sp, v, q_plus, v_plus, u_soa,
                                         dt)
     with torch.no_grad():
         w_carry = soa.spd_solve(M, soa_solver.jt_dot(Jc, force_prev))
-        force, _, valid = soa_solver.solve_warm_hybrid_soa(
+        force, _, valid = solve_warm_hybrid_soa_cuda(
             M, Jc, qc, w_carry, loss_epsilon, ipm_iterations,
             newton_iterations)
     loss = soa_loss_assemble(M, Jc, phi, qc, dv, force, valid, loss_epsilon)

@@ -1,4 +1,4 @@
-r"""The port's CUDA kernel library, and the warm hybrid cone-solve kernel.
+r"""The port's CUDA kernel library, and the hybrid cone-solve kernels.
 
 Every source under ``dair_pll_tpu_torch/csrc/`` builds into one shared
 library at first use: ``nvcc`` compiles each ``.cu`` file (all started
@@ -14,8 +14,14 @@ TPU kernel ``_warm_kernel``): the whole solve of
 ``csrc/warm_hybrid_solve.cu``, one CUDA thread per sample. For tensors on
 the CPU the wrapper calls the plain version in ``ops/soa_solver.py``; for
 CUDA tensors it launches the kernel or raises.
-``solve_warm_hybrid_soa_cuda.launches`` counts launches. The ContactNets
-loss kernels' wrappers are in ``ops/soa_loss_kernels.py``.
+``solve_warm_hybrid_soa_cuda.launches`` counts launches.
+
+The cold hybrid solve kernel is the counterpart of
+``solve_contact_impulse_soa_pallas`` (the TPU kernel ``_kernel``): the
+whole of ``ops/soa_solver.solve_contact_impulse_soa`` in one launch of
+``csrc/cold_hybrid_solve.cu``, with the same routing;
+``solve_contact_impulse_soa_cuda.launches`` counts its launches. The
+ContactNets loss kernels' wrappers are in ``ops/soa_loss_kernels.py``.
 """
 from __future__ import annotations
 
@@ -40,6 +46,8 @@ _BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "kernels")
 KERNEL_SHAPES = ((6, 4),)
 _ENTRY = {torch.float32: "warm_hybrid_solve_nv6_k4_f32",
           torch.float64: "warm_hybrid_solve_nv6_k4_f64"}
+_COLD_ENTRY = {torch.float32: "cold_hybrid_solve_nv6_k4_f32",
+               torch.float64: "cold_hybrid_solve_nv6_k4_f64"}
 _P, _I, _LL, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_double)
 #: ``ctypes`` signatures of the library's entry points: argument types and
@@ -47,6 +55,8 @@ _P, _I, _LL, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 SIGNATURES = {
     **{name: ([_P] * 7 + [_LL, _D, _I, _I, _P], _I)
        for name in _ENTRY.values()},
+    **{name: ([_P] * 5 + [_LL, _D, _I, _I, _P], _I)
+       for name in _COLD_ENTRY.values()},
     **{f"contactnets_loss_fwd_cube_{s}": ([_P] * 6 + [_LL, _D, _D, _I, _I,
                                                       _P], _I)
        for s in ("f32", "f64")},
@@ -215,6 +225,25 @@ def unpack_qp(m: Tensor, jc: Tensor):
             [[jc[i, v] for v in range(n_v)] for i in range(3)])
 
 
+def _check_qp(m: Tensor, jc: Tensor, qc: Tensor) -> Tuple[int, int, int]:
+    """Raises unless the solve kernels take this packed QP; returns
+    ``(n_v, k, B)``."""
+    if jc.dim() != 4:
+        raise ValueError(f"jc has shape {tuple(jc.shape)}, expected "
+                         "(3, n_v, k, B)")
+    _, n_v, k, B = jc.shape
+    if (n_v, k) not in KERNEL_SHAPES:
+        raise ValueError(f"no kernel for (n_v, k) = {(n_v, k)}; built for "
+                         f"{KERNEL_SHAPES}")
+    dtype = m.dtype
+    if dtype not in _ENTRY:
+        raise TypeError(f"no kernel for dtype {dtype}")
+    check_tensor("m", m, (n_v * n_v, B), dtype, m.device)
+    check_tensor("jc", jc, (3, n_v, k, B), dtype, m.device)
+    check_tensor("qc", qc, (3, k, B), dtype, m.device)
+    return n_v, k, B
+
+
 def plain_packed(m: Tensor, jc: Tensor, qc: Tensor, w0: Tensor, eps: float,
                  ipm_iterations: int, newton_iterations: int
                  ) -> Tuple[Tensor, Tensor, Tensor]:
@@ -241,17 +270,8 @@ def solve_warm_hybrid_soa_cuda_packed(
     if on_cpu(m, jc, qc, w0):
         return plain_packed(m, jc, qc, w0, eps, ipm_iterations,
                             newton_iterations)
-    n_v, B = w0.shape
-    k = qc.shape[1]
-    if (n_v, k) not in KERNEL_SHAPES:
-        raise ValueError(f"no kernel for (n_v, k) = {(n_v, k)}; built for "
-                         f"{KERNEL_SHAPES}")
+    n_v, k, B = _check_qp(m, jc, qc)
     dtype = m.dtype
-    if dtype not in _ENTRY:
-        raise TypeError(f"no kernel for dtype {dtype}")
-    check_tensor("m", m, (n_v * n_v, B), dtype, m.device)
-    check_tensor("jc", jc, (3, n_v, k, B), dtype, m.device)
-    check_tensor("qc", qc, (3, k, B), dtype, m.device)
     check_tensor("w0", w0, (n_v, B), dtype, m.device)
 
     force = torch.empty((3, k, B), dtype=dtype, device=m.device)
@@ -289,3 +309,62 @@ def solve_warm_hybrid_soa_cuda(M, Jc, qc, w_carry, eps: float,
 
 
 solve_warm_hybrid_soa_cuda.launches = 0
+
+
+def plain_packed_cold(m: Tensor, jc: Tensor, qc: Tensor, eps: float,
+                      ipm_iterations: int, newton_iterations: int
+                      ) -> Tuple[Tensor, Tensor]:
+    """The plain PyTorch version of the cold solve kernel on the packed
+    layout of :func:`solve_contact_impulse_soa_cuda_packed`, on any
+    device."""
+    M, Jc = unpack_qp(m, jc)
+    force, valid = soa_solver.solve_contact_impulse_soa(
+        M, Jc, soa.unstack(qc), eps, ipm_iterations, newton_iterations)
+    return torch.stack(force), valid
+
+
+def solve_contact_impulse_soa_cuda_packed(
+        m: Tensor, jc: Tensor, qc: Tensor, eps: float, ipm_iterations: int,
+        newton_iterations: int) -> Tuple[Tensor, Tensor]:
+    """Packed-tensor entry of the cold hybrid solve: ``m (n_v*n_v, B)``,
+    ``jc (3, n_v, k, B)``, ``qc (3, k, B)`` -> ``force (3, k, B)``,
+    ``valid (B,)`` bool.
+
+    CPU tensors go to the plain version; CUDA tensors launch the kernel
+    on the current stream (float32 or float64, ``(n_v, k) = (6, 4)``,
+    contiguous) or raise."""
+    if on_cpu(m, jc, qc):
+        return plain_packed_cold(m, jc, qc, eps, ipm_iterations,
+                                 newton_iterations)
+    _, k, B = _check_qp(m, jc, qc)
+    force = torch.empty((3, k, B), dtype=m.dtype, device=m.device)
+    valid = torch.empty((B,), dtype=torch.bool, device=m.device)
+    if B == 0:
+        return force, valid
+    fn = getattr(load_library(), _COLD_ENTRY[m.dtype])
+    with torch.cuda.device(m.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(m.data_ptr(), jc.data_ptr(), qc.data_ptr(),
+                 force.data_ptr(), valid.data_ptr(), B, float(eps),
+                 int(ipm_iterations), int(newton_iterations), stream)
+    if err != 0:
+        raise RuntimeError(f"cold hybrid solve kernel launch failed: CUDA "
+                           f"error {err}")
+    solve_contact_impulse_soa_cuda.launches += 1
+    return force, valid
+
+
+def solve_contact_impulse_soa_cuda(M, Jc, qc, eps: float,
+                                   ipm_iterations: int,
+                                   newton_iterations: int):
+    """Same inputs and outputs as the JAX package's
+    ``solve_contact_impulse_soa_pallas``, but for the ``(B,)`` valid mask
+    (JAX's is ``(1, B)``): ``M`` an ``(n_v, n_v)`` nested list of ``(B,)``
+    leaves, ``Jc`` ``(3, n_v)`` of ``(k, B)``, ``qc`` a cone field of
+    ``(k, B)``. Returns ``(force cone field, valid (B,))``."""
+    force, valid = solve_contact_impulse_soa_cuda_packed(
+        *pack_qp(M, Jc, qc), eps, ipm_iterations, newton_iterations)
+    return soa.unstack(force), valid
+
+
+solve_contact_impulse_soa_cuda.launches = 0

@@ -242,7 +242,7 @@ def test_library_name_hashes_every_source(tmp_path):
 
 
 def test_wrappers_refuse_mixed_devices():
-    """A wrapper (the loss kernels' and K5's) runs its plain version only
+    """A wrapper (the loss kernels', K5's and K4's) runs its plain version only
     when every input lies on the CPU; inputs on several devices raise
     before anything runs."""
     model = _port_system().model
@@ -264,6 +264,10 @@ def test_wrappers_refuse_mixed_devices():
         soa_kernels.solve_warm_hybrid_soa_cuda_packed(
             torch.eye(6).reshape(36, 1), torch.zeros(3, 6, 4, 1),
             torch.zeros(3, 4, 1), torch.zeros(6, 1).to("meta"), 1e-4, 14, 6)
+    with pytest.raises(ValueError, match="several devices"):
+        soa_kernels.solve_contact_impulse_soa_cuda_packed(
+            torch.eye(6).reshape(36, 1), torch.zeros(3, 6, 4, 1),
+            torch.zeros(3, 4, 1).to("meta"), 1e-3, 10, 10)
 
 
 def test_loss_entry_checks_parameter_device():

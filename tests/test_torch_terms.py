@@ -124,16 +124,44 @@ def test_derived_params_and_terms(system, which):
 
 
 def test_mesh_geometry_needs_icnn_or_polygon():
-    """A mesh collision shape builds as a polygon; its default ICNN
-    representation is not ported yet and says so."""
+    """A mesh collision shape builds as a deep-support (ICNN) convex by
+    default, whose initial parameters have the JAX package's leaf shapes,
+    order and initial bounds (the values differ: the generators differ),
+    or as a polygon."""
     path = tassets.get_asset("cube_mesh")
     polygon = tbuild({"cube": path}, mesh_representation="polygon")
     assert tterms.supports_fused(polygon)
     assert polygon.initial_params(torch.float64).geometry[1]["vertices"] \
         .shape == (8, 3)
-    icnn = tbuild({"cube": path})
-    with pytest.raises(NotImplementedError, match="ICNN geometry"):
-        icnn.initial_params(torch.float64)
+
+    model = tbuild({"cube": path})
+    spec = model.geometries[1]
+    assert spec.geom_type == "deep_support_convex"
+    assert (spec.icnn_depth, spec.icnn_width, spec.n_query,
+            spec.icnn_negative_slope) == (2, 256, 4, 0.5)
+    assert tterms.supports_fused(model)
+    jparams = jbuild({"cube": jassets.get_asset("cube_mesh")}).initial_params(
+        jnp.float64)
+    params = model.initial_params(torch.float64)
+    got = params.parameters()
+    want = jax.tree_util.tree_leaves(jparams)
+    assert [tuple(t.shape) for t in got] == [np.shape(a) for a in want]
+    # Leaves: theta, friction, hidden (256, 256), input (3, 256) twice,
+    # output (256,), perturbations (4, 3); their initial bounds.
+    width, slope = 256, 0.5
+    corners = np.asarray(spec.vertices_init)
+    scale = np.linalg.norm(corners.max(axis=0) - corners.min(axis=0)) / 2
+    bounds = [2 * np.sqrt(2 / (1 + slope**2)) / width, np.sqrt(2.0), 1.0,
+              scale * 2 * np.sqrt(2 / (width * (1 + slope**2))), 0.2]
+    for t, a, bound in zip(got[2:], want[2:], bounds):
+        for leaf in (t.numpy(), np.asarray(a)):
+            assert np.max(np.abs(leaf)) <= bound * (1 + 1e-12)
+        assert np.max(np.abs(t.numpy())) > 0.5 * bound
+    for perturbations in (got[-1].numpy(), np.asarray(want[-1])):
+        np.testing.assert_array_equal(perturbations[0], 0.0)
+    # The port's initialization is reproducible.
+    again = model.initial_params(torch.float64).parameters()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("system", ["cube", "elbow"])

@@ -36,31 +36,55 @@ def cube_transitions(rng: np.random.Generator, n: int = 8):
             np.concatenate([x_plus, step[:, 1].numpy()]))
 
 
+def icnn_transitions(rng: np.random.Generator, numpy_params, n: int = 8):
+    """``(x, x_plus)``, each ``(n, 13)``: ICNN cube states near the ground
+    at the parameters ``numpy_params`` (``(theta, friction, geometry)``,
+    carried across) and their next states from one step of the port's
+    float64 rollout."""
+    from dair_pll_tpu_torch import assets
+    from dair_pll_tpu_torch.multibody.learnable_system import (
+        MultibodyLearnableSystem)
+    from dair_pll_tpu_torch.multibody.model import params_from_numpy
+    system = MultibodyLearnableSystem.from_urdfs(
+        {"cube": assets.get_asset("cube_mesh")}, DT, device="cpu")
+    params = params_from_numpy(system.model, *numpy_params)
+    x = assets.icnn_states_near_ground(rng, n, params.geometry[1]["icnn"])
+    step = system.simulate_batch(params, torch.tensor(x), 1, use_fused=True)
+    return x, step[:, 1].numpy()
+
+
+def map_tree(fn, tree):
+    """``fn`` on every array leaf of nested dictionaries and lists (a
+    geometry entry; ``None`` stays ``None``), keys in insertion order."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {key: map_tree(fn, value) for key, value in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_tree(fn, item) for item in tree]
+    return fn(tree)
+
+
 def jax_params(numpy_params) -> JParams:
     """``(theta, friction, geometry)`` numpy -> JAX ``MultibodyParams``."""
     theta, friction, geometry = numpy_params
     return JParams(theta=jnp.asarray(theta), friction=jnp.asarray(friction),
-                   geometry=tuple(None if g is None else
-                                  {k: jnp.asarray(v) for k, v in g.items()}
-                                  for g in geometry))
+                   geometry=tuple(map_tree(jnp.asarray, g) for g in geometry))
 
 
 def perturbed_params(rng: np.random.Generator, theta, friction, geometry):
     """Perturbs JAX ``MultibodyParams`` fields given as numpy arrays;
-    returns ``(theta, friction, geometry)`` in the same form."""
+    returns ``(theta, friction, geometry)`` in the same form. Each
+    geometry leaf is scaled by a factor in [0.95, 1.05] per entry."""
     theta = np.asarray(theta) + 0.1 * rng.standard_normal(np.shape(theta))
     friction = np.asarray(friction) * rng.uniform(0.8, 1.25,
                                                   np.shape(friction))
-    geometry = [None if g is None else
-                {key: np.asarray(val) * rng.uniform(0.95, 1.05,
-                                                    np.shape(val))
-                 for key, val in g.items()}
-                for g in geometry]
+    geometry = [map_tree(lambda val: np.asarray(val) * rng.uniform(
+        0.95, 1.05, np.shape(val)), g) for g in geometry]
     return theta, friction, geometry
 
 
 def params_numpy(params):
     """JAX ``MultibodyParams`` -> ``(theta, friction, geometry)`` numpy."""
     return (np.asarray(params.theta), np.asarray(params.friction),
-            [None if g is None else {k: np.asarray(v) for k, v in g.items()}
-             for g in params.geometry])
+            [map_tree(np.asarray, g) for g in params.geometry])
