@@ -45,15 +45,33 @@ slower (PERF.md).
    witness queries), 8,192 trajectories x 32 steps in float32 (K5), and
    the first 10 steps of 8 trajectories in float64 on the card and on the
    CPU.
-6. ICNN training, float32, 262,144 transitions of the training recipe: a
+6. The vmapped stack and the APGD cone-solve kernel (K6,
+   ``csrc/apgd_cone_solve.cu``): K6 against its plain version on 8,192
+   problems each of the cube's vmapped loss QPs (k = 4) and random PSD
+   problems at k = 1, 4 and 9, float64 within 1e-9 (1 + |plain|) with
+   equal valid masks, float32 by the K5 rule; its times at 65,536 (the
+   batch the K6 route's training step hands it) and 262,144 cube loss QPs
+   (float32 and float64), the plain version's at 8,192, its bound and
+   ptxas's lines for it. Then the box cube's vmapped training
+   step at the reference recipe's batch of 256 (the default route: the
+   hybrid solve in plain PyTorch, no kernel) and on the APGD kernel route
+   at 256 and 65,536 (one K6 launch a step), 8 steps each; K6 on the
+   65,536 problems that step hands it (captured at its wrapper) against
+   the plain version over chunks; the vmapped loss (hybrid and K6 routes)
+   with every leaf's gradient, the vmapped rollout and the IFT gradient
+   of a rollout loss in float64 on the card against the CPU, for the box
+   and the ICNN cube; and the box cube's vmapped rollout of 256 x 32
+   steps with one gradient through it. Last of all (11.), a
+   ``torch.profiler`` trace of one vmapped training step on each route.
+7. ICNN training, float32, 262,144 transitions of the training recipe: a
    cold step (plain terms under autograd, K4), the cache's seed (K5) and 8
    epoch-warm steps (K5), Adam on every leaf; a warm-up round and a timed
    round with the launch counts; one step at the reference recipe's batch
    of 256 (``use_fused=True``); a URDF export of the trained shape; a
    ``torch.profiler`` trace of one warm step.
-7. The box cube's rollout step from a ``torch.profiler`` trace: the
+8. The box cube's rollout step from a ``torch.profiler`` trace: the
    kernels on the card per step.
-8. Loss kernels against plain versions (K1, K3, K2,
+9. Loss kernels against plain versions (K1, K3, K2,
    ``csrc/contactnets_loss.cu``) on 8,192 cube transitions of the port's
    own float64 rollout: K1 (cold, (10, 10)) and K3 (warm, (4, 10), from
    K1's impulses at parameters one Adam step on) in float64 within 1e-9
@@ -65,7 +83,7 @@ slower (PERF.md).
    samples), the plain versions' at 8,192, and their bounds. Then the
    three kernels at the training shape against their plain versions run
    over chunks of the batch, K2 with the mean's cotangent 1/B.
-9. Training: ``bench.py``'s workload on the card, float32, 2,097,152 cube
+10. Training: ``bench.py``'s workload on the card, float32, 2,097,152 cube
    transitions: a cold step (K1, K2, Adam), the seed of the impulse cache
    (the warm call from zeros at the cold budget, K3), then 8 epoch-warm
    steps at (4, 10) (K3, K2, Adam); a warm-up round and a timed round,
@@ -160,6 +178,22 @@ ICNN_PLAIN_CHUNK = 65536
 ICNN_CHECK_B = 16
 LOSS_RTOL, LOSS_ATOL = 1e-8, 1e-12
 CPU_GRAD_ATOL = 1e-10
+#: The APGD kernel K6 (the vmapped loss's APGD route): its iterations
+#: (the system's ``solver_iterations``), a second, larger timing batch
+#: (the first is the main path's, VMAPPED_BIG_B), and the plain version's
+#: block over the captured training problems.
+APGD_ITERATIONS = 200
+APGD_TIMING_B = 262144
+APGD_PLAIN_CHUNK = 8192
+#: The vmapped stack: the reference recipe's training batch
+#: (``examples/contactnets_simple.py``, 256, below FUSED_LOSS_MIN_BATCH),
+#: the K6 route's large batch, training steps per run, the card-against-
+#: CPU transitions and the rollout's length.
+VMAPPED_B = 256
+VMAPPED_BIG_B = 65536
+VMAPPED_STEPS = 8
+VMAPPED_CHECK_B = 16
+VMAPPED_ROLLOUT_STEPS = 32
 #: H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
@@ -796,10 +830,12 @@ def launch_counters() -> dict:
     """Every kernel wrapper's launch counter, by kernel."""
     from dair_pll_tpu_torch.ops import soa_kernels
     from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
+    from dair_pll_tpu_torch.ops import cone_kernels
     return {"K1": lk.fused_loss_fwd, "K3": lk.fused_loss_fwd_warm,
             "K2": lk.fused_loss_bwd,
             "K4": soa_kernels.solve_contact_impulse_soa_cuda,
-            "K5": soa_kernels.solve_warm_hybrid_soa_cuda}
+            "K5": soa_kernels.solve_warm_hybrid_soa_cuda,
+            "K6": cone_kernels.solve_cone_qp_cuda}
 
 
 def reset_launches() -> None:
@@ -935,7 +971,7 @@ def phase_train(system, x, x_plus):
         raise AssertionError("a parameter tensor did not move in training")
     # K3 runs once for the seed and once per warm step.
     expected = {"K1": 1, "K3": 1 + WARM_STEPS, "K2": 1 + WARM_STEPS,
-                "K4": 0, "K5": 0}
+                "K4": 0, "K5": 0, "K6": 0}
     if report["launches"] != expected:
         raise AssertionError(f"launches {report['launches']}, expected "
                              f"{expected}")
@@ -950,7 +986,8 @@ def kernel_kind(name: str) -> str:
     """A kernel's kind by its name: the port's own kernels, matrix
     products (cuBLAS and CUTLASS), or PyTorch's other kernels
     (elementwise, reductions, copies)."""
-    if "hybrid_solve" in name or "contactnets_loss" in name:
+    if "hybrid_solve" in name or "contactnets_loss" in name or \
+            "apgd_cone_solve" in name:
         return "port_kernels"
     if "gemm" in name:
         return "matmul"
@@ -1258,7 +1295,8 @@ def phase_icnn_train(system, x, x_plus):
     if not all(moved[:-1]):
         raise AssertionError("an ICNN weight did not move in training")
     # K4 runs once for the cold step; K5 for the seed and each warm step.
-    expected = {"K1": 0, "K3": 0, "K2": 0, "K4": 1, "K5": 1 + WARM_STEPS}
+    expected = {"K1": 0, "K3": 0, "K2": 0, "K4": 1, "K5": 1 + WARM_STEPS,
+                "K6": 0}
     if report["launches"] != expected:
         raise AssertionError(f"ICNN launches {report['launches']}, "
                              f"expected {expected}")
@@ -1342,6 +1380,460 @@ def phase_icnn_rollout(system, x0_64):
     return launches
 
 
+def apgd_loss_qps(system, params, x, x_plus):
+    """``(Q, q)`` of the vmapped ContactNets loss of transitions ``(x,
+    x_plus)``: ``Q = D + LOSS_EPS I`` and ``q_vec``, detached, as the
+    APGD kernel route hands them to K6."""
+    import torch
+    with torch.no_grad():
+        delassus, q_vec, _, _, _, _ = system._contactnets_qp(
+            params, x, x.new_zeros((x.shape[0], 0)), x_plus)
+    eye = torch.eye(delassus.shape[-1], dtype=x.dtype, device=x.device)
+    return (delassus + LOSS_EPS * eye).contiguous(), q_vec.contiguous()
+
+
+def random_psd_qps(n_problems: int, k: int, device):
+    """Random PSD problems of the JAX package's
+    ``tests/test_pallas_cone_solver.py`` recipe, float64: ``Q = A A' +
+    0.1 I``, ``q = 2 N(0, 1)``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(40 + k)
+    n = 3 * k
+    A = rng.standard_normal((n_problems, n, n))
+    Q = A @ np.swapaxes(A, -1, -2) + 0.1 * np.eye(n)
+    q = 2.0 * rng.standard_normal((n_problems, n))
+    return (torch.tensor(Q, device=device), torch.tensor(q, device=device))
+
+
+def k6_outputs(fn, Q, q):
+    """``fn(Q, q, APGD_ITERATIONS)`` as the float32 rule takes outputs:
+    ``(x (n, B), valid (B,))`` with the contact solve's failure mask."""
+    import torch
+    from dair_pll_tpu_torch.ops.socp_solver import mask_failures
+    with torch.no_grad():
+        x = fn(Q, q, APGD_ITERATIONS)
+    torch.cuda.synchronize()
+    _, valid = mask_failures(x)
+    return x.T.contiguous(), valid
+
+
+def compare_k6(Q64, q64, chunk=None):
+    """K6 against its plain version on float64 problems and on the same
+    cast to float32: float64 within TOL64 (1 + |plain|) with equal masks,
+    float32 by the tail rule against the plain float64 result. The plain
+    version runs over blocks of ``chunk`` problems when given. Returns
+    ``(readings, failures)``."""
+    import torch
+    from dair_pll_tpu_torch.ops import cone_kernels
+    kernel = cone_kernels.solve_cone_qp_cuda
+    n = q64.shape[0]
+    chunk = chunk or n
+
+    def plain(Q, q, iterations):
+        return torch.cat([cone_kernels.plain_apgd(
+            Q[s:s + chunk], q[s:s + chunk], iterations)
+            for s in range(0, n, chunk)])
+
+    Q32, q32 = Q64.float(), q64.float()
+    k64, p64 = k6_outputs(kernel, Q64, q64), k6_outputs(plain, Q64, q64)
+    k32, p32 = k6_outputs(kernel, Q32, q32), k6_outputs(plain, Q32, q32)
+    failures = []
+    err64 = (k64[0] - p64[0]).abs().max().item()
+    if ((k64[0] - p64[0]).abs() - TOL64 * (1 + p64[0].abs())).max() > 0:
+        failures.append(f"float64 K6 differs from the plain version by "
+                        f"{err64:.3e}")
+    if not torch.equal(k64[1], p64[1]):
+        failures.append("float64 K6 valid masks differ")
+    try:
+        tail, _ = float32_tails(k32, p32, p64)
+    except AssertionError as exc:
+        tail = str(exc)
+        failures.append(f"float32 K6: {exc}")
+    readings = {"B": n, "k": q64.shape[-1] // 3, "float64_max_abs_err": err64,
+                "float64_bit_identical": torch.equal(k64[0], p64[0]),
+                "float32_max_abs_err": (k32[0] - p32[0]).abs().max().item(),
+                "float32_tails": tail,
+                "valid_share": k32[1].float().mean().item(),
+                "max_abs_impulse": p64[0].abs().max().item()}
+    return readings, failures
+
+
+def phase_apgd_kernel(system, x0_64):
+    """K6 against its plain version on 8,192 problems of each of four
+    kinds: the cube's vmapped loss QPs (steps 3 to 4 of its float64
+    rollout from states near the ground, k = 4) and random PSD problems at
+    k = 1, 4 and 9. Reports every reading before it raises."""
+    import torch
+    params64 = system.initial_params(torch.float64)
+    traj = system.simulate_batch(params64, x0_64, 4, use_fused=True)
+    kinds = {"cube_loss": apgd_loss_qps(system, params64, traj[:, 3],
+                                        traj[:, 4]),
+             "random_k1": random_psd_qps(B, 1, x0_64.device),
+             "random_k4": random_psd_qps(B, 4, x0_64.device),
+             "random_k9": random_psd_qps(B, 9, x0_64.device)}
+    failures, result = [], {}
+    for name, (Q, q) in kinds.items():
+        result[name], fails = compare_k6(Q, q)
+        failures += [f"{name}: {f}" for f in fails]
+    emit({"phase": "apgd_kernel_vs_plain", "iterations": APGD_ITERATIONS,
+          "failures": failures, **result})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"max_abs_err": max(r["float32_max_abs_err"]
+                               for r in result.values()),
+            "max_abs_err_float64": max(r["float64_max_abs_err"]
+                                       for r in result.values())}
+
+
+def apgd_operations(Q, q) -> int:
+    """Operations of the APGD solve of ``(Q, q)``: the plain version's,
+    counted with each reduction as the plain sum of its ``n`` terms (the
+    plain version pads them to the kernel's 32 lanes, which is no work of
+    the solve)."""
+    from dair_pll_tpu_torch.ops import cone_kernels
+    warp_sum = cone_kernels._warp_sum
+    cone_kernels._warp_sum = lambda v: v.sum(-1)
+    try:
+        return count_operations(
+            lambda: cone_kernels.plain_apgd(Q, q, APGD_ITERATIONS))
+    finally:
+        cone_kernels._warp_sum = warp_sum
+
+
+def apgd_timing(Q32, q32, ops_per_problem: float) -> dict:
+    """K6's times on ``(Q32, q32)`` and on the same in float64 (median of
+    10), and its bound: the bytes of Q, q and x, and the operations."""
+    import torch
+    from dair_pll_tpu_torch.ops import cone_kernels
+    kernel = cone_kernels.solve_cone_qp_cuda
+    Q64, q64 = Q32.double(), q32.double()
+    with torch.no_grad():
+        ms = cuda_ms(lambda: kernel(Q32, q32, APGD_ITERATIONS), reps=10)
+        ms64 = cuda_ms(lambda: kernel(Q64, q64, APGD_ITERATIONS), reps=10)
+    n_problems = q32.shape[0]
+    ops = ops_per_problem * n_problems
+    n_bytes = (Q32.numel() + 2 * q32.numel()) * Q32.element_size()
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S["float32"] * 1e3
+    return {"B": n_problems, "ms": ms, "ms_float64": ms64, "bytes": n_bytes,
+            "operations": ops, "bytes_ms": bytes_ms, "operations_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_apgd_timing(system):
+    """K6 on cube loss QPs of the training recipe's transitions, float32
+    and float64: at VMAPPED_BIG_B, the batch the main path (the K6
+    route's training step) hands it, which the kernel table reports, and
+    at APGD_TIMING_B. Also the plain version at 8,192, the operations per
+    problem (the same for every problem: the solve runs a fixed number of
+    iterations) and ptxas's lines for the kernel."""
+    import torch
+    from dair_pll_tpu_torch.ops import cone_kernels, soa_kernels
+    x, x_plus = train_transitions(APGD_TIMING_B, system.device)
+    Q32, q32 = apgd_loss_qps(system, system.initial_params(torch.float32), x,
+                             x_plus)
+    small = (Q32[:B].contiguous(), q32[:B].contiguous())
+    with torch.no_grad():
+        plain_ms = cuda_ms(lambda: cone_kernels.plain_apgd(
+            *small, APGD_ITERATIONS), reps=3, warmup=1)
+        ops_per_problem = apgd_operations(*small) / B
+    main = apgd_timing(Q32[:VMAPPED_BIG_B].contiguous(),
+                       q32[:VMAPPED_BIG_B].contiguous(), ops_per_problem)
+    large = apgd_timing(Q32, q32, ops_per_problem)
+    # ptxas's register and spill lines of this kernel's source.
+    section = soa_kernels.build_log().partition("== apgd_cone_solve.cu")[2]
+    ptxas = [ln.strip() for ln in section.partition("\n== ")[0].splitlines()
+             if "registers" in ln or "spill" in ln]
+    timing = {**main, "plain_ms": plain_ms, "plain_B": B,
+              "operations_per_problem": ops_per_problem}
+    emit({"phase": "apgd_kernel_timing", "dtype": "float32",
+          "iterations": APGD_ITERATIONS, "ptxas": ptxas, **timing,
+          "at_timing_b": large})
+    del Q32, q32, small
+    torch.cuda.empty_cache()
+    return timing
+
+
+def vmapped_trainer(system, x, x_plus, **route):
+    """A training step on the vmapped loss (mean, backward, Adam at LR)
+    from float32 initial parameters; returns the step, which returns the
+    detached loss."""
+    import torch
+    params = system.initial_params(torch.float32)
+    leaves = params.parameters()
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    optimizer = torch.optim.Adam(leaves, lr=LR)
+    u = x.new_zeros((x.shape[0], 0))
+
+    def step():
+        optimizer.zero_grad()
+        loss = torch.mean(system.contactnets_loss_batch(params, x, u, x_plus,
+                                                        **route))
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+    return step
+
+
+def vmapped_steps(system, x, x_plus, steps: int, **route):
+    """``steps`` vmapped training steps, each timed to the card's end,
+    after one step of warm-up; the launch counts around the timed steps.
+    Returns ``(step seconds, losses, launches)``."""
+    import torch
+    step = vmapped_trainer(system, x, x_plus, **route)
+    step()
+    torch.cuda.synchronize()
+    reset_launches()
+    seconds, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    launches = read_launches()
+    losses = torch.stack(losses)
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"non-finite vmapped losses {losses.tolist()}")
+    return seconds, losses.tolist(), launches
+
+
+def phase_vmapped_profile(system):
+    """Where a vmapped training step's time goes: a ``torch.profiler``
+    trace of one step on the default route at VMAPPED_B and one on the K6
+    route at VMAPPED_BIG_B, each beside the same step timed untraced just
+    before. Runs last: a trace slows later launches in the process."""
+    import torch
+    x, x_plus = train_transitions(VMAPPED_BIG_B, system.device)
+    result = {}
+    for name, n, route in (("default", VMAPPED_B, {}),
+                           ("apgd_kernel_big", VMAPPED_BIG_B,
+                            {"use_apgd_kernel": True})):
+        step = vmapped_trainer(system, x[:n], x_plus[:n], **route)
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        result[name] = {"B": n, "step_ms": seconds * 1e3,
+                        **profile_step(step, seconds)}
+    emit({"phase": "vmapped_profile", "dtype": "float32", **result})
+
+
+def phase_vmapped_train(system):
+    """The box cube's vmapped training step: the default route (the hybrid
+    solve in plain PyTorch) at the reference recipe's batch of 256
+    transitions, which launches no kernel, then the APGD kernel route at
+    256 and at 65,536, which launches K6 once a step. Returns the K6
+    route's launches at 65,536."""
+    x, x_plus = train_transitions(VMAPPED_BIG_B, system.device)
+    runs = {}
+    for name, n, route in (("default", VMAPPED_B, {}),
+                           ("apgd_kernel", VMAPPED_B,
+                            {"use_apgd_kernel": True}),
+                           ("apgd_kernel_big", VMAPPED_BIG_B,
+                            {"use_apgd_kernel": True})):
+        seconds, losses, launches = vmapped_steps(
+            system, x[:n], x_plus[:n], VMAPPED_STEPS, **route)
+        expected = dict.fromkeys(launches, 0)
+        if route:
+            expected["K6"] = VMAPPED_STEPS
+        if launches != expected:
+            raise AssertionError(f"vmapped {name}: launches {launches}, "
+                                 f"expected {expected}")
+        median = statistics.median(seconds)
+        runs[name] = {"B": n, "step_ms_median": median * 1e3,
+                      "step_ms": [t * 1e3 for t in seconds],
+                      "transitions_per_s": n / median, "losses": losses,
+                      "launches": launches}
+    emit({"phase": "vmapped_train", "dtype": "float32",
+          "steps": VMAPPED_STEPS, **runs})
+    return runs["apgd_kernel_big"]["launches"]
+
+
+def phase_apgd_full(system):
+    """K6 on the 65,536 problems the APGD kernel route's training step
+    hands it, captured at its wrapper, against the plain version over
+    chunks: in float32 by the tail rule and on the same cast to
+    float64."""
+    import torch
+    from dair_pll_tpu_torch.ops import cone_kernels
+    solve = cone_kernels.solve_cone_qp_cuda
+    captured = []
+
+    def capture(Q, q, iterations):
+        captured.append((Q, q))
+        return solve(Q, q, iterations)
+
+    # While it stands in, the wrapper counts its launch here.
+    capture.launches = 0
+
+    x, x_plus = train_transitions(VMAPPED_BIG_B, system.device)
+    cone_kernels.solve_cone_qp_cuda = capture
+    try:
+        with torch.no_grad():
+            system.contactnets_loss_batch(
+                system.initial_params(torch.float32), x,
+                x.new_zeros((x.shape[0], 0)), x_plus, use_apgd_kernel=True)
+    finally:
+        cone_kernels.solve_cone_qp_cuda = solve
+    if len(captured) != 1:
+        raise AssertionError(f"the K6 route solved {len(captured)} times")
+    Q, q = captured[0]
+    readings, failures = compare_k6(Q.double(), q.double(), APGD_PLAIN_CHUNK)
+    emit({"phase": "apgd_kernel_vs_plain_full", "plain_chunk":
+          APGD_PLAIN_CHUNK, "failures": failures, **readings})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return readings
+
+
+def vmapped_readings(system, params, x, x_plus, x0) -> dict:
+    """On one device, float64: the vmapped loss on the hybrid and the K6
+    routes with every leaf's gradient of its mean, the vmapped rollout of
+    ``x0`` over CHECK_STEPS steps, and every leaf's gradient of the mean
+    squared velocity over its first VMAPPED_STEPS steps (the IFT backward
+    of each step's hybrid solve), all on the CPU."""
+    import torch
+    leaves = params.parameters()
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    u = x.new_zeros((x.shape[0], 0))
+
+    def grads(loss):
+        for leaf in leaves:
+            leaf.grad = None
+        loss.backward()
+        return [None if leaf.grad is None else leaf.grad.cpu()
+                for leaf in leaves]
+
+    out = {}
+    for route, kwargs in (("hybrid", {}), ("apgd_kernel",
+                                           {"use_apgd_kernel": True})):
+        loss = system.contactnets_loss_batch(params, x, u, x_plus, **kwargs)
+        out[f"{route}_loss"] = loss.detach().cpu()
+        out[f"{route}_grad"] = grads(torch.mean(loss))
+    traj = system.simulate_batch(params, x0, CHECK_STEPS, use_fused=False)
+    out["rollout"] = traj.detach().cpu()
+    out["rollout_grad"] = grads(torch.mean(
+        traj[:, 1:VMAPPED_STEPS + 1, system.space.n_q:] ** 2))
+    return out
+
+
+def phase_vmapped_vs_cpu(systems, x0s, x_train, xp_train):
+    """The vmapped stack in float64 on the card against the CPU at the same
+    parameters, for the box cube and the ICNN cube: the loss on 16
+    transitions (8 of the training recipe, 8 rollout steps in contact) on
+    the hybrid and K6 routes with every leaf's gradient (loss rtol
+    LOSS_RTOL, gradients rtol GRAD_RTOL), the vmapped rollout of 8
+    trajectories x CHECK_STEPS steps (atol ROLLOUT_ATOL) and the IFT
+    gradient of a rollout loss (rtol GRAD_RTOL). Reports every reading
+    before it raises."""
+    import torch
+    from dair_pll_tpu_torch.multibody.learnable_system import (
+        MultibodyLearnableSystem)
+    failures, result = [], {}
+    half = VMAPPED_CHECK_B // 2
+    for name, system in systems.items():
+        cpu_system = MultibodyLearnableSystem(system.model, DT, device="cpu")
+        params_cpu = cpu_system.initial_params(torch.float64)
+        x0 = x0s[name][:CHECK_TRAJ].cpu()
+        traj = cpu_system.simulate_batch(params_cpu, x0, 4, use_fused=True)
+        x = torch.cat((x_train[:half].double().cpu(), traj[:, 3]))
+        x_plus = torch.cat((xp_train[:half].double().cpu(), traj[:, 4]))
+        reset_launches()
+        card = vmapped_readings(
+            system, params_to(params_cpu, system.device),
+            x.to(system.device), x_plus.to(system.device),
+            x0.to(system.device))
+        launches = read_launches()
+        cpu = vmapped_readings(cpu_system, params_cpu, x, x_plus, x0)
+        entry = {"launches": launches}
+        expected = dict.fromkeys(launches, 0)
+        expected["K6"] = 1
+        if launches != expected:
+            failures.append(f"{name}: launches {launches}, expected "
+                            f"{expected}")
+        for route in ("hybrid", "apgd_kernel"):
+            got, ref = card[f"{route}_loss"], cpu[f"{route}_loss"]
+            entry[f"{route}_loss_max_abs_err"] = (got - ref).abs().max().item()
+            if not torch.allclose(got, ref, rtol=LOSS_RTOL, atol=LOSS_ATOL):
+                failures.append(f"{name} {route} loss differs by "
+                                f"{entry[f'{route}_loss_max_abs_err']:.3e}")
+        for what in ("hybrid_grad", "apgd_kernel_grad", "rollout_grad"):
+            errs = []
+            for i, (g, r) in enumerate(zip(card[what], cpu[what])):
+                if (g is None) != (r is None):
+                    failures.append(f"{name} {what} of leaf {i}: card "
+                                    f"{g is not None}, CPU {r is not None}")
+                    continue
+                if g is None:
+                    errs.append(None)
+                    continue
+                errs.append((g - r).abs().max().item())
+                if not torch.allclose(g, r, rtol=GRAD_RTOL,
+                                      atol=CPU_GRAD_ATOL):
+                    failures.append(f"{name} {what} of leaf {i} differs by "
+                                    f"{errs[-1]:.3e}")
+            entry[f"{what}_max_abs_err_per_leaf"] = errs
+        rollout_err = (card["rollout"] - cpu["rollout"]).abs().max().item()
+        entry["rollout_max_abs_err"] = rollout_err
+        if not rollout_err <= ROLLOUT_ATOL:
+            failures.append(f"{name} vmapped rollout differs by "
+                            f"{rollout_err:.3e}")
+        entry["max_abs_loss"] = cpu["hybrid_loss"].abs().max().item()
+        entry["min_center_height_m"] = cpu["rollout"][..., 6].min().item()
+        result[name] = entry
+    emit({"phase": "vmapped_card_vs_cpu", "B": VMAPPED_CHECK_B,
+          "dtype": "float64", "failures": failures, **result})
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def phase_vmapped_rollout(system, x0_64):
+    """``simulate_batch`` of the box cube at VMAPPED_B trajectories x
+    VMAPPED_ROLLOUT_STEPS steps on its default (vmapped) route, float32:
+    steps per second, and the time of one gradient (the mean squared
+    velocity's, through every step's IFT backward); no kernel runs."""
+    import torch
+    params = system.initial_params(torch.float32)
+    leaves = params.parameters()
+    x0 = x0_64[:VMAPPED_B].float()
+    system.simulate_batch(params, x0, 1)                  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        traj = system.simulate_batch(params, x0, VMAPPED_ROLLOUT_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    g0 = time.perf_counter()
+    traj_g = system.simulate_batch(params, x0, VMAPPED_ROLLOUT_STEPS)
+    torch.mean(traj_g[:, 1:, system.space.n_q:] ** 2).backward()
+    torch.cuda.synchronize()
+    grad_seconds = time.perf_counter() - g0
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the vmapped rollout launched {launches}")
+    if tuple(traj.shape) != (VMAPPED_B, VMAPPED_ROLLOUT_STEPS + 1, 13) or \
+            not bool(torch.isfinite(traj).all()):
+        raise AssertionError("vmapped rollout: bad shape or non-finite")
+    if not all(bool(torch.isfinite(leaf.grad).all()) for leaf in leaves):
+        raise AssertionError("vmapped rollout gradient is not finite")
+    emit({"phase": "vmapped_rollout", "B": VMAPPED_B,
+          "steps": VMAPPED_ROLLOUT_STEPS, "dtype": "float32",
+          "seconds": seconds, "steps_per_s": VMAPPED_ROLLOUT_STEPS / seconds,
+          "transitions_per_s": VMAPPED_B * VMAPPED_ROLLOUT_STEPS / seconds,
+          "forward_and_gradient_seconds": grad_seconds,
+          "launches": launches,
+          "min_center_height_m": traj[..., 6].min().item()})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1391,6 +1883,15 @@ def main() -> int:
     run("icnn_loss_card_vs_cpu", phase_icnn_loss_vs_cpu, icnn_system,
         x0_icnn, x_icnn, xp_icnn)
     run("icnn_rollout", phase_icnn_rollout, icnn_system, x0_icnn)
+    k6 = run("apgd_kernel_vs_plain", phase_apgd_kernel, system, x0_64)
+    k6.update(run("apgd_kernel_timing", phase_apgd_timing, system))
+    k6_launches = run("vmapped_train", phase_vmapped_train, system)
+    run("apgd_kernel_vs_plain_full", phase_apgd_full, system)
+    run("vmapped_card_vs_cpu", phase_vmapped_vs_cpu,
+        {"cube": system, "icnn_cube": icnn_system},
+        {"cube": x0_64, "icnn_cube": x0_icnn}, x_icnn, xp_icnn)
+    run("vmapped_rollout", phase_vmapped_rollout, system, x0_64)
+    torch.cuda.empty_cache()
     icnn_launches = run("icnn_train", phase_icnn_train, icnn_system, x_icnn,
                         xp_icnn)
     del x_icnn, xp_icnn
@@ -1405,6 +1906,9 @@ def main() -> int:
     run("loss_kernels_vs_plain_full", phase_loss_full_batch, system,
         transitions[2], x_train, xp_train)
     train_launches = run("train", phase_train, system, x_train, xp_train)
+    del x_train, xp_train
+    torch.cuda.empty_cache()
+    run("vmapped_profile", phase_vmapped_profile, system)
     emit({"phase": "seconds", **seconds_of})
 
     table = [{
@@ -1453,6 +1957,21 @@ def main() -> int:
         "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"],
+        "library_ms": None,
+    })
+    table.append({
+        "name": "apgd_cone_solve",
+        "route": "cuda",
+        "source": "dair_pll_tpu_torch/csrc/apgd_cone_solve.cu",
+        "replaces": "dair_pll_tpu/ops/pallas_cone_solver.py:45",
+        "launches": k6_launches["K6"],
+        "max_abs_err": k6["max_abs_err"],
+        "max_abs_err_float64": k6["max_abs_err_float64"],
+        "ms": k6["ms"],
+        "ms_float64": k6["ms_float64"],
+        "plain_ms": k6["plain_ms"],
+        "bound_ms": k6["bound_ms"],
+        "bound_by": k6["bound_by"],
         "library_ms": None,
     })
     emit({"kernels": table})

@@ -10,21 +10,14 @@ the host.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Callable
 
 import numpy as np
 from scipy.spatial import ConvexHull
 
+from dair_pll_tpu_torch.system import MeshSummary
+
 _GRID_STEPS = 8
-
-
-@dataclasses.dataclass
-class MeshSummary:
-    """Triangle mesh for export and visualization: ``vertices (V, 3)``,
-    ``faces (F, 3)`` vertex indices, outward by the right-hand rule."""
-    vertices: np.ndarray
-    faces: np.ndarray
 
 
 def _surface_directions() -> np.ndarray:

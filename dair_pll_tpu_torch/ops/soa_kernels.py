@@ -21,7 +21,8 @@ The cold hybrid solve kernel is the counterpart of
 whole of ``ops/soa_solver.solve_contact_impulse_soa`` in one launch of
 ``csrc/cold_hybrid_solve.cu``, with the same routing;
 ``solve_contact_impulse_soa_cuda.launches`` counts its launches. The
-ContactNets loss kernels' wrappers are in ``ops/soa_loss_kernels.py``.
+ContactNets loss kernels' wrappers are in ``ops/soa_loss_kernels.py``,
+the APGD cone solve kernel's in ``ops/cone_kernels.py``.
 """
 from __future__ import annotations
 
@@ -66,6 +67,8 @@ SIGNATURES = {
     **{f"contactnets_loss_bwd_cube_{s}": ([_P] * 10 + [_LL, _D, _D, _P], _I)
        for s in ("f32", "f64")},
     "contactnets_loss_bwd_scratch": ([_LL], _LL),
+    **{f"apgd_cone_solve_{s}": ([_P] * 3 + [_LL, _I, _I, _P], _I)
+       for s in ("f32", "f64")},
 }
 
 

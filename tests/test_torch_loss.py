@@ -30,6 +30,7 @@ from dair_pll_tpu.ops import soa_loss_pallas as jpack
 from dair_pll_tpu.ops import soa_solver as jsolver
 from dair_pll_tpu.urdf import build_multibody_model as jbuild
 from dair_pll_tpu_torch import assets as tassets
+from dair_pll_tpu_torch.multibody import learnable_system
 from dair_pll_tpu_torch.multibody import soa_terms as tterms
 from dair_pll_tpu_torch.multibody.learnable_system import (
     FUSED_LOSS_MIN_BATCH, MultibodyLearnableSystem as TSystem)
@@ -206,19 +207,33 @@ def test_kernel_instantiation_covers_the_cube_only():
     assert not soa_loss_kernels.kernels_cover(polygon)
 
 
-def test_small_batch_default_path_is_not_ported():
-    """Below ``FUSED_LOSS_MIN_BATCH`` the default is the vmapped loss,
-    which the port does not have yet: it says so."""
+def test_small_batch_default_path_runs_vmapped(monkeypatch):
+    """Below ``FUSED_LOSS_MIN_BATCH`` the default, like ``use_fused=False``,
+    is the vmapped loss (the fused loss is never reached), and it matches
+    the JAX package's vmapped loss (jitted) at the loss bar."""
     _, x, x_plus, numpy_params, _ = _reference()
     assert x.shape[0] < FUSED_LOSS_MIN_BATCH
+    n = 4
+    jsystem = JSystem(jbuild({"cube": jassets.get_asset("cube")}), DT)
+    want = np.asarray(jax.jit(lambda p, a, b: jsystem.contactnets_loss_batch(
+        p, a, jnp.zeros((n, 0)), b, use_fused=False))(
+            jax_params(numpy_params), jnp.asarray(x[-n:]),
+            jnp.asarray(x_plus[-n:])))
+
+    def fused(*args, **kwargs):
+        raise AssertionError("the fused loss was called")
+
+    monkeypatch.setattr(learnable_system, "soa_contactnets_loss", fused)
     system = _port_system()
     params = params_from_numpy(system.model, *numpy_params)
-    args = (params, torch.tensor(x), torch.zeros(x.shape[0], 0),
-            torch.tensor(x_plus))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        system.contactnets_loss_batch(*args)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        system.contactnets_loss_batch(*args, use_fused=False)
+    args = (params, torch.tensor(x[-n:]), torch.zeros(n, 0),
+            torch.tensor(x_plus[-n:]))
+    with torch.no_grad():
+        for got in (system.contactnets_loss_batch(*args),
+                    system.contactnets_loss_batch(*args, use_fused=False)):
+            np.testing.assert_allclose(got.numpy(), want, rtol=LOSS_RTOL,
+                                       atol=LOSS_ATOL)
+    assert np.any(want != 0.0)
 
 
 def test_library_name_hashes_every_source(tmp_path):

@@ -21,6 +21,7 @@ from dair_pll_tpu.multibody.learnable_system import (
 from dair_pll_tpu.multibody.model import MultibodyParams as JParams
 from dair_pll_tpu.urdf import build_multibody_model as jbuild
 from dair_pll_tpu_torch import assets as tassets
+from dair_pll_tpu_torch.multibody import learnable_system
 from dair_pll_tpu_torch.multibody.learnable_system import (
     MultibodyLearnableSystem as TSystem)
 from dair_pll_tpu_torch.assets import cube_states_near_ground
@@ -107,17 +108,32 @@ def test_float32_step_tracks_float64():
     assert np.quantile(err, 0.9) <= F32_P90_ATOL, np.quantile(err, 0.9)
 
 
-def test_small_batch_default_path_is_not_ported():
-    """Below ``FUSED_ROLLOUT_MIN_BATCH`` the default is the vmapped
-    integrator, which the port does not have yet: it says so."""
+def test_small_batch_default_path_runs_vmapped(monkeypatch):
+    """Below ``FUSED_ROLLOUT_MIN_BATCH`` the default, like
+    ``use_fused=False``, is the vmapped integrator (the fused step is never
+    reached), and it matches the JAX package's vmapped rollout (jitted) at
+    the rollout bar."""
+    n, steps = 4, 4
+    x0 = _reference()[0][:n]
+    jmodel = jbuild({"cube": jassets.get_asset("cube")})
+    jsystem = JSystem(jmodel, DT)
+    want = np.asarray(jax.jit(lambda p, x: jsystem.simulate_batch(
+        p, x, steps, use_fused=False))(jmodel.initial_params(jnp.float64),
+                                       jnp.asarray(x0)))
+
+    def fused(*args, **kwargs):
+        raise AssertionError("the fused rollout step was called")
+
+    monkeypatch.setattr(learnable_system, "soa_forward_dynamics_batch", fused)
     system = TSystem.from_urdfs({"cube": tassets.get_asset("cube")}, DT,
                                 device="cpu")
     params = system.initial_params(torch.float64)
-    x0 = torch.tensor(_reference()[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        system.simulate_batch(params, x0, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        system.simulate_batch(params, x0, 2, use_fused=False)
+    with torch.no_grad():
+        for got in (system.simulate_batch(params, torch.tensor(x0), steps),
+                    system.simulate_batch(params, torch.tensor(x0), steps,
+                                          use_fused=False)):
+            np.testing.assert_allclose(got.numpy(), want, rtol=0.0,
+                                       atol=ATOL)
 
 
 def test_port_imports_no_jax():
@@ -129,7 +145,7 @@ def test_port_imports_no_jax():
         "    dair_pll_tpu_torch.__path__, 'dair_pll_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "assert len(names) >= 14, names\n"
+        "assert len(names) >= 31, names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'dair_pll_tpu' or\n"
         "             m.startswith('dair_pll_tpu.'))\n"
