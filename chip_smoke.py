@@ -80,7 +80,11 @@ slower (PERF.md).
    in float32 the K5 rule for loss and impulses, and K2's batch gradient
    no further from the float64 plain result than twice the plain float32
    version's. Then their times at the training shape (float32, 2,097,152
-   samples), the plain versions' at 8,192, and their bounds. Then the
+   samples; K2, one reverse-mode adjoint sweep per sample, also in
+   float64, with ptxas's register and spill lines for its kernel), the
+   plain versions' at 8,192, and their bounds (K2's from the operations
+   its own sweep needs on this batch, counted on the host with ``g++``'s
+   build of the same code). Then the
    three kernels at the training shape against their plain versions run
    over chunks of the batch, K2 with the mean's cotangent 1/B.
 10. Training: ``bench.py``'s workload on the card, float32, 2,097,152 cube
@@ -143,8 +147,8 @@ LR = 1e-3
 TRAIN_B = 2097152
 WARM_STEPS = 8
 #: K2 against the plain autograd backward in float64: the repo's gradient
-#: bar (the two sum in different orders: forward-mode duals against
-#: reverse mode).
+#: bar (the kernel's hand-written adjoint and torch autograd take the same
+#: derivatives, summed in other orders).
 GRAD_RTOL, GRAD_ATOL = 1e-6, 1e-9
 #: K2's float32 batch gradient: its rel-l2 distance from the float64 plain
 #: result at most this many times the plain float32 version's.
@@ -154,7 +158,7 @@ DP_FACTOR = 2.0
 #: measures the order of the sums, not the kernel: there the float32 rule
 #: takes max(plain rel-l2, F32_GRAD_FLOOR), about 8 ulps, as the plain
 #: version's. A block partial of K2 lost from the batch sum would still
-#: move dp by some 1/32,768, 30 times this floor.
+#: move dp by some 1/16,384, 60 times this floor.
 F32_GRAD_FLOOR = 1e-6
 #: Samples per call when the plain versions run over the training batch:
 #: the forward under ``no_grad`` holds a few hundred batch rows at once,
@@ -265,6 +269,21 @@ def build_kernels() -> None:
                                           "registers", "spill"))]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
+
+
+def ptxas_lines(source: str, kernel: str = "") -> list:
+    """ptxas's register and spill lines for the kernels of one source file
+    (``apgd_cone_solve.cu``), or for the entry functions of it whose names
+    contain ``kernel``."""
+    from dair_pll_tpu_torch.ops import soa_kernels
+    section = soa_kernels.build_log().partition(f"== {source}")[2]
+    lines, keep = [], not kernel
+    for line in section.partition("\n== ")[0].splitlines():
+        if kernel and "Compiling entry function" in line:
+            keep = kernel in line
+        if keep and ("registers" in line or "spill" in line):
+            lines.append(line.strip())
+    return lines
 
 
 def rollout_qps(system, params, x0):
@@ -633,8 +652,13 @@ def phase_loss_kernels(system, x0_64):
 
 def phase_loss_timing(system, transitions, x_train, xp_train):
     """K1, K3 and K2 at the training shape (float32), the plain versions
-    at 8,192, and each kernel's bound."""
+    at 8,192, and each kernel's bound: K1's and K3's operations counted on
+    their plain versions, K2's on its own sweep over this batch (built for
+    the host, ``ops/host_adjoint.py``), with the batch's valid share. K2
+    also in float64, with its bound at the float64 peak, and ptxas's lines
+    for K2's kernel."""
     import torch
+    from dair_pll_tpu_torch.ops import host_adjoint
     from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
     model = system.model
     x64, xp64, pvec = transitions
@@ -682,6 +706,53 @@ def phase_loss_timing(system, transitions, x_train, xp_train):
             "bytes_ms": bytes_ms, "operations_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    # K2's operations are not its plain version's (torch autograd's dense
+    # algebra over the structural zeros and ones of Jw = [R | 0] and Jv =
+    # [0 | I]): they are what its sweep needs on this run's data, counted by
+    # the same code on the host (host_adjoint), an invalid sample none,
+    # plus the batch sum of dp. Float64 counts the float64 sweep.
+    k2 = result["K2"]
+    p_d, xin_d, xp_d, force_d, ct_d = (
+        t.double() for t in (pvec, xin_t, xp_t, cold[1], ct_t))
+    host = host_adjoint.HostAdjoint(os.path.join(HERE, "build",
+                                                 "host_adjoint"))
+    t0 = time.perf_counter()
+    counts = {dtype: host.count(*args, cold[2], ct, DT,
+                                threads=os.cpu_count() or 1)
+              for dtype, (*args, ct) in (
+                  ("float32", (pvec, xin_t, xp_t, cold[1], ct_t)),
+                  ("float64", (p_d, xin_d, xp_d, force_d, ct_d)))}
+    batch_sum = pvec.numel() * (n_train - 1)
+    ops = {dtype: c["needed"] + batch_sum for dtype, c in counts.items()}
+    n_valid = counts["float32"]["valid"]
+    ops_ms = ops["float32"] / PEAK_OPS_PER_S["float32"] * 1e3
+    k2.update({
+        "operations": ops["float32"],
+        "operations_per_sample": ops["float32"] / n_train,
+        "operations_per_valid_sample":
+            counts["float32"]["needed"] / max(n_valid, 1),
+        "operations_executed": counts["float32"]["executed"] + batch_sum,
+        "operations_plain": k2["operations"],
+        "operations_plain_per_sample": k2["operations_per_sample"],
+        "valid_share": n_valid / n_train, "count_seconds":
+            time.perf_counter() - t0,
+        "operations_ms": ops_ms, "bound_ms": max(k2["bytes_ms"], ops_ms),
+        "bound_by": "bytes" if k2["bytes_ms"] >= ops_ms else "operations",
+        "executed_per_s": (counts["float32"]["executed"] + batch_sum) /
+                          (k2["ms"] * 1e-3)})
+    k2["ms_float64"] = cuda_ms(
+        lambda: lk.fused_loss_bwd(model, p_d, xin_d, xp_d, force_d, cold[2],
+                                  ct_d, DT, LOSS_EPS), reps=10)
+    bytes64_ms = nbytes(p_d, xin_d, xp_d, force_d, cold[2], ct_d, p_d, xin_d,
+                        xp_d) / HBM_BYTES_PER_S * 1e3
+    ops64_ms = ops["float64"] / PEAK_OPS_PER_S["float64"] * 1e3
+    k2["operations_float64"] = ops["float64"]
+    k2["bound_ms_float64"] = max(bytes64_ms, ops64_ms)
+    k2["bound_by_float64"] = ("bytes" if bytes64_ms >= ops64_ms
+                              else "operations")
+    k2["ptxas"] = ptxas_lines("contactnets_loss.cu",
+                              "contactnets_loss_bwd_kernel")
+    del p_d, xin_d, xp_d, force_d, ct_d
     emit({"phase": "loss_kernel_timing", "B": n_train, "dtype": "float32",
           **result})
     return result
@@ -705,7 +776,7 @@ def phase_loss_full_batch(system, pvec, x_train, xp_train):
     rule (tails decided against the plain float64 result) and in float64
     within TOL64; K2 at the impulses of the float32 K3 with ``ct = 1/B``
     (the mean's cotangent), in float64 within the gradient bar and bit for
-    bit from run to run (its second pass then sums 32,768 block partials),
+    bit from run to run (its second pass then sums 16,384 block partials),
     and in float32 with ``dp``, ``dxin`` and ``dxp`` each no further from
     the float64 plain result, in rel-l2, than DP_FACTOR times the plain
     float32 version's (or F32_GRAD_FLOOR). Reports every reading before it
@@ -1530,7 +1601,7 @@ def phase_apgd_timing(system):
     problem (the same for every problem: the solve runs a fixed number of
     iterations) and ptxas's lines for the kernel."""
     import torch
-    from dair_pll_tpu_torch.ops import cone_kernels, soa_kernels
+    from dair_pll_tpu_torch.ops import cone_kernels
     x, x_plus = train_transitions(APGD_TIMING_B, system.device)
     Q32, q32 = apgd_loss_qps(system, system.initial_params(torch.float32), x,
                              x_plus)
@@ -1542,10 +1613,7 @@ def phase_apgd_timing(system):
     main = apgd_timing(Q32[:VMAPPED_BIG_B].contiguous(),
                        q32[:VMAPPED_BIG_B].contiguous(), ops_per_problem)
     large = apgd_timing(Q32, q32, ops_per_problem)
-    # ptxas's register and spill lines of this kernel's source.
-    section = soa_kernels.build_log().partition("== apgd_cone_solve.cu")[2]
-    ptxas = [ln.strip() for ln in section.partition("\n== ")[0].splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = ptxas_lines("apgd_cone_solve.cu")
     timing = {**main, "plain_ms": plain_ms, "plain_B": B,
               "operations_per_problem": ops_per_problem}
     emit({"phase": "apgd_kernel_timing", "dtype": "float32",
@@ -1939,6 +2007,9 @@ def main() -> int:
             "max_abs_err": loss_errors[name]["max_abs_err"],
             "max_abs_err_float64": loss_errors[name]["max_abs_err_float64"],
             "ms": loss_times[name]["ms"],
+            **({"ms_float64": loss_times[name]["ms_float64"],
+                "design": "reverse-mode adjoint, one sweep per sample"}
+               if name == "K2" else {}),
             "plain_ms": loss_times[name]["plain_ms"],
             "bound_ms": loss_times[name]["bound_ms"],
             "bound_by": loss_times[name]["bound_by"],

@@ -12,37 +12,45 @@
 //
 // Each computes what its plain PyTorch version in
 // dair_pll_tpu_torch/ops/soa_loss_kernels.py computes, with the terms and
-// the assembly of cube_terms.cuh and the solves of hybrid_solve.cuh.
+// the assembly of cube_terms.cuh, the solves of hybrid_solve.cuh and K2's
+// adjoint in cube_adjoint.cuh.
 //
-// The TPU kernel K2 calls jax.grad inside the kernel body. Here the
-// derivatives come from forward-mode dual numbers through the same
-// templated terms and assembly, one input direction per pass: 15 derived
-// scalars, the 6 velocity rows of x, the 13 rows of x+ (34 passes per
-// sample, no solve). The configuration rows of x get exactly 0, as in JAX.
-// The TPU kernel sums the parameter gradient over its sequential grid; the
-// blocks here run in no order, so each block sums its samples in shared
-// memory in a fixed tree order and a second pass sums the blocks' partials
-// in a fixed order. No atomics: float64 results repeat bit for bit.
+// The TPU kernel K2 calls jax.grad inside the kernel body. Here each thread
+// makes one reverse-mode sweep per sample (cube_loss_vjp, no solve: the
+// envelope theorem): the terms once in plain arithmetic, keeping what the
+// adjoint needs, then the adjoint of the terms and the assembly written out
+// by hand. The configuration rows of x get exactly 0, as in JAX. The TPU
+// kernel sums the parameter gradient over its sequential grid; the blocks
+// here run in no order, so each block sums its samples in shared memory in
+// a fixed tree order and a second pass sums the blocks' partials in a fixed
+// order. No atomics: float64 results repeat bit for bit.
 //
 // What bounds them on an H100 (cube, float32, B = 2,097,152): K1 and K3
 // read 26 and 38 values and write 14 per sample (K3: 436 MB, 0.13 ms at
-// 3.35 TB/s); K2 reads 40 and writes 26 (553 MB, 0.17 ms). Their
-// arithmetic is larger: the solve's ~10^5 operations per sample in K1 and
-// K3, and 34 dual passes of the terms in K2, so each is bound by
-// operations (chip_smoke.py counts them on the plain versions). This first
-// design keeps the JAX public batch-minor layout, so that neighbouring
-// threads read neighbouring addresses, loads the 15 derived scalars into
-// shared memory once per block, and masks the ragged edge instead of
-// padding. One thread carries a whole sample, so its few hundred live
-// scalars (more in dual arithmetic) spill to local memory; several threads
-// per sample, a reverse-mode K2 derived by hand and occupancy tuning are
-// later work.
+// 3.35 TB/s), and their solve's ~10^5 operations per sample (chip_smoke.py
+// counts them on the plain versions) bound them by operations. K2 reads 40
+// values and writes 26 per sample (553 MB, 0.16 ms); its sweep needs some
+// 4,200 operations per sample (chip_smoke.py counts them on this code built
+// for the host, ops/host_adjoint.py), 0.13 ms at the float32 peak, so K2 is
+// bound by its bytes. The design keeps the JAX public batch-minor
+// layout, so that neighbouring threads read neighbouring addresses, loads
+// the 15 derived scalars into shared memory once per block, and masks the
+// ragged edge instead of padding. One thread carries a whole sample, so
+// its few hundred live scalars reach the 255-register cap: K1 and K3
+// spill, and K2, whose adjoint keeps some 240 values of the forward sweep,
+// spills 80 bytes a thread in float32 (some 2.8 KB in float64). K2's launch
+// bounds name its 128-thread block and no minimum of blocks per SM, so
+// that ptxas may give each thread all 255 registers: a minimum that fits
+// more blocks caps the registers and spills more, which cost more time on
+// an H100 than the occupancy won.
+// Several threads per sample and staging in shared memory are later work.
 
-#include "cube_terms.cuh"
+#include "cube_adjoint.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;
+constexpr int kThreads = 64;      // K1, K3
+constexpr int kBwdThreads = 128;  // K2
 
 template <typename S>
 __device__ __forceinline__ void load_params(const S* __restrict__ pvec,
@@ -125,16 +133,21 @@ __global__ void __launch_bounds__(kThreads) contactnets_loss_fwd_warm_kernel(
   store_solution<S>(l, f, ok, B, b, loss, force, valid);
 }
 
-// K2, first pass: per-sample state gradients, and per-block sums of the
-// derived-scalar gradient in partial (n_blocks, 15).
+// K2, first pass: one reverse-mode sweep per sample (cube_loss_vjp) writes
+// the state gradients, and each block sums its samples' derived-scalar
+// gradients in a fixed tree order into partial (n_blocks, 15). eps enters
+// the loss but not its gradient at the saved impulse.
 template <typename S>
-__global__ void __launch_bounds__(kThreads) contactnets_loss_bwd_kernel(
-    const S* __restrict__ pvec, const S* __restrict__ xin,
-    const S* __restrict__ xp, const S* __restrict__ force,
-    const unsigned char* __restrict__ valid, const S* __restrict__ ct,
-    S* __restrict__ partial, S* __restrict__ dxin, S* __restrict__ dxp,
-    long long B, double dt, double eps) {
-  __shared__ S shared_dp[kCubeP][kThreads];
+__global__ void __launch_bounds__(kBwdThreads)
+contactnets_loss_bwd_kernel(const S* __restrict__ pvec,
+                            const S* __restrict__ xin,
+                            const S* __restrict__ xp,
+                            const S* __restrict__ force,
+                            const unsigned char* __restrict__ valid,
+                            const S* __restrict__ ct, S* __restrict__ partial,
+                            S* __restrict__ dxin, S* __restrict__ dxp,
+                            long long B, double dt) {
+  __shared__ S shared_dp[kCubeP][kBwdThreads];
   S p[kCubeP];
   load_params<S>(pvec, p);
   const int tid = threadIdx.x;
@@ -146,28 +159,23 @@ __global__ void __launch_bounds__(kThreads) contactnets_loss_bwd_kernel(
     for (int i = 0; i < 3; ++i)
 #pragma unroll
       for (int c = 0; c < kCubeK; ++c) f[i][c] = force[(i * kCubeK + c) * B + b];
-    const bool ok = valid[b] != 0;
-    const S weight = ct[b];
-#pragma unroll 1
-    for (int s = 0; s < kCubeDirections; ++s) {
-      const S g = cube_loss_grad<S>(p, x, x_plus, f, ok, weight, S(dt),
-                                    S(eps), s);
-      if (s < kCubeP) {
-        shared_dp[s][tid] = g;
-      } else if (s < kCubeP + kCubeNV) {
-        dxin[(kCubeNQ + s - kCubeP) * B + b] = g;
-      } else {
-        dxp[(s - kCubeP - kCubeNV) * B + b] = g;
-      }
-    }
+    S g_p[kCubeP], g_v[kCubeNV], g_xp[kCubeNX];
+    cube_loss_vjp<S>(p, x, x_plus, f, valid[b] != 0, ct[b], S(dt), g_p, g_v,
+                     g_xp);
+#pragma unroll
+    for (int s = 0; s < kCubeP; ++s) shared_dp[s][tid] = g_p[s];
 #pragma unroll
     for (int i = 0; i < kCubeNQ; ++i) dxin[i * B + b] = S(0);
+#pragma unroll
+    for (int i = 0; i < kCubeNV; ++i) dxin[(kCubeNQ + i) * B + b] = g_v[i];
+#pragma unroll
+    for (int i = 0; i < kCubeNX; ++i) dxp[i * B + b] = g_xp[i];
   } else {
 #pragma unroll
     for (int s = 0; s < kCubeP; ++s) shared_dp[s][tid] = S(0);
   }
   __syncthreads();
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
+  for (int stride = kBwdThreads / 2; stride > 0; stride >>= 1) {
     if (tid < stride)
 #pragma unroll
       for (int s = 0; s < kCubeP; ++s)
@@ -199,14 +207,17 @@ __global__ void __launch_bounds__(kReduceThreads) reduce_partials_kernel(
   if (tid == 0) dp[blockIdx.x] = sums[0];
 }
 
-long long n_blocks_for(long long B) { return (B + kThreads - 1) / kThreads; }
+long long n_blocks_for(long long B, int threads) {
+  return (B + threads - 1) / threads;
+}
 
 template <typename S>
 int launch_fwd(const void* pvec, const void* xin, const void* xp, void* loss,
                void* force, void* valid, long long B, double dt, double eps,
                int ipm_iterations, int newton_iterations, void* stream) {
   contactnets_loss_fwd_kernel<S>
-      <<<(unsigned)n_blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+      <<<(unsigned)n_blocks_for(B, kThreads), kThreads, 0,
+         (cudaStream_t)stream>>>(
           (const S*)pvec, (const S*)xin, (const S*)xp, (S*)loss, (S*)force,
           (unsigned char*)valid, B, dt, eps, ipm_iterations,
           newton_iterations);
@@ -219,7 +230,8 @@ int launch_fwd_warm(const void* pvec, const void* xin, const void* xp,
                     long long B, double dt, double eps, int ipm_iterations,
                     int newton_iterations, void* stream) {
   contactnets_loss_fwd_warm_kernel<S>
-      <<<(unsigned)n_blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+      <<<(unsigned)n_blocks_for(B, kThreads), kThreads, 0,
+         (cudaStream_t)stream>>>(
           (const S*)pvec, (const S*)xin, (const S*)xp, (const S*)fprev,
           (S*)loss, (S*)force, (unsigned char*)valid, B, dt, eps,
           ipm_iterations, newton_iterations);
@@ -230,13 +242,13 @@ template <typename S>
 int launch_bwd(const void* pvec, const void* xin, const void* xp,
                const void* force, const void* valid, const void* ct,
                void* partial, void* dp, void* dxin, void* dxp, long long B,
-               double dt, double eps, void* stream) {
-  const long long n_blocks = n_blocks_for(B);
+               double dt, void* stream) {
+  const long long n_blocks = n_blocks_for(B, kBwdThreads);
   contactnets_loss_bwd_kernel<S>
-      <<<(unsigned)n_blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      <<<(unsigned)n_blocks, kBwdThreads, 0, (cudaStream_t)stream>>>(
           (const S*)pvec, (const S*)xin, (const S*)xp, (const S*)force,
           (const unsigned char*)valid, (const S*)ct, (S*)partial, (S*)dxin,
-          (S*)dxp, B, dt, eps);
+          (S*)dxp, B, dt);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
   reduce_partials_kernel<S>
@@ -253,7 +265,7 @@ int launch_bwd(const void* pvec, const void* xin, const void* xp,
 // `partial` holds contactnets_loss_bwd_scratch(B) values. Each returns
 // cudaGetLastError() after its launches.
 extern "C" long long contactnets_loss_bwd_scratch(long long B) {
-  return n_blocks_for(B) * kCubeP;
+  return n_blocks_for(B, kBwdThreads) * kCubeP;
 }
 
 #define DEFINE_ENTRIES(S, SUFFIX)                                            \
@@ -277,8 +289,9 @@ extern "C" long long contactnets_loss_bwd_scratch(long long B) {
       const void* valid, const void* ct, void* partial, void* dp,            \
       void* dxin, void* dxp, long long B, double dt, double eps,             \
       void* stream) {                                                        \
+    (void)eps; /* no term of the gradient at a fixed impulse */              \
     return launch_bwd<S>(pvec, xin, xp, force, valid, ct, partial, dp, dxin, \
-                         dxp, B, dt, eps, stream);                           \
+                         dxp, B, dt, stream);                                \
   }
 
 DEFINE_ENTRIES(float, f32)

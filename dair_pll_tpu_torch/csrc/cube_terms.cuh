@@ -9,14 +9,13 @@
 // version's order, so that in float64 the two agree to the last bits (the
 // library is built without fused multiply-adds).
 //
-// The scalar type T is float, double, or a forward-mode dual number
-// Dual<S> of either. The Coriolis terms take the time derivative of the
-// rotation along qdot with one more dual level (the plain version's
-// torch.func.jvp), so the backward kernel, which seeds one input direction
-// at a time in Dual<S>, runs the kinematics in Dual<Dual<S>>.
+// The scalar type T is float or double. The Coriolis terms take the time
+// derivative of the rotation along qdot as a forward-mode JVP in
+// Dual<T>, as the plain version does with torch.func.jvp.
 //
-// The per-sample loss functions at the end (cube_loss_cold, cube_loss_warm,
-// cube_loss_grad) are what the kernels of contactnets_loss.cu run.
+// The per-sample loss functions at the end (cube_loss_cold, cube_loss_warm)
+// are what the forward kernels of contactnets_loss.cu run; the backward
+// kernel's adjoint of the same terms is in cube_adjoint.cuh.
 #pragma once
 
 #include "hybrid_solve.cuh"
@@ -24,25 +23,18 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// Forward-mode dual numbers.
-template <typename S> struct Dual;
-
-template <typename T> struct BaseOf { using type = T; };
-template <typename S> struct BaseOf<Dual<S>> {
-  using type = typename BaseOf<S>::type;
-};
-// The float or double at the bottom of a (nested) dual type.
-template <typename T> using base_t = typename BaseOf<T>::type;
-
+// Forward-mode dual numbers, with the operations quat_to_rotmat needs.
 template <typename S> struct Dual {
   S v;  // value
   S d;  // derivative along the seeded direction
   Dual() = default;
   __device__ __forceinline__ Dual(S value, S deriv) : v(value), d(deriv) {}
-  // A constant: zero derivative.
-  __device__ __forceinline__ explicit Dual(base_t<S> c)
-      : v(c), d(base_t<S>(0)) {}
 };
+
+template <typename T> struct BaseOf { using type = T; };
+template <typename S> struct BaseOf<Dual<S>> { using type = S; };
+// The float or double under a dual type.
+template <typename T> using base_t = typename BaseOf<T>::type;
 
 template <typename S>
 __device__ __forceinline__ Dual<S> operator+(const Dual<S>& a,
@@ -59,66 +51,14 @@ __device__ __forceinline__ Dual<S> operator*(const Dual<S>& a,
                                              const Dual<S>& b) {
   return Dual<S>(a.v * b.v, a.d * b.v + a.v * b.d);
 }
+// Mixed with a constant.
 template <typename S>
-__device__ __forceinline__ Dual<S> operator/(const Dual<S>& a,
-                                             const Dual<S>& b) {
-  const S r = a.v / b.v;
-  return Dual<S>(r, (a.d - r * b.d) / b.v);
-}
-template <typename S>
-__device__ __forceinline__ Dual<S> operator-(const Dual<S>& a) {
-  return Dual<S>(-a.v, -a.d);
-}
-// Mixed with a constant of the base type.
-template <typename S>
-__device__ __forceinline__ Dual<S> operator+(const Dual<S>& a, base_t<S> c) {
-  return Dual<S>(a.v + c, a.d);
-}
-template <typename S>
-__device__ __forceinline__ Dual<S> operator+(base_t<S> c, const Dual<S>& a) {
-  return Dual<S>(c + a.v, a.d);
-}
-template <typename S>
-__device__ __forceinline__ Dual<S> operator-(const Dual<S>& a, base_t<S> c) {
-  return Dual<S>(a.v - c, a.d);
-}
-template <typename S>
-__device__ __forceinline__ Dual<S> operator-(base_t<S> c, const Dual<S>& a) {
+__device__ __forceinline__ Dual<S> operator-(S c, const Dual<S>& a) {
   return Dual<S>(c - a.v, -a.d);
 }
 template <typename S>
-__device__ __forceinline__ Dual<S> operator*(const Dual<S>& a, base_t<S> c) {
-  return Dual<S>(a.v * c, a.d * c);
-}
-template <typename S>
-__device__ __forceinline__ Dual<S> operator*(base_t<S> c, const Dual<S>& a) {
+__device__ __forceinline__ Dual<S> operator*(S c, const Dual<S>& a) {
   return Dual<S>(c * a.v, c * a.d);
-}
-
-__device__ __forceinline__ float primal(float x) { return x; }
-__device__ __forceinline__ double primal(double x) { return x; }
-template <typename S>
-__device__ __forceinline__ base_t<S> primal(const Dual<S>& x) {
-  return primal(x.v);
-}
-
-__device__ __forceinline__ float sqrt_(float x) { return sqrt(x); }
-__device__ __forceinline__ double sqrt_(double x) { return sqrt(x); }
-template <typename S>
-__device__ __forceinline__ Dual<S> sqrt_(const Dual<S>& a) {
-  const S r = sqrt_(a.v);
-  return Dual<S>(r, a.d / (base_t<S>(2) * r));
-}
-
-// |x| with derivative sign(x), 0 at 0 (as torch and JAX differentiate it).
-__device__ __forceinline__ float abs_(float x) { return fabs(x); }
-__device__ __forceinline__ double abs_(double x) { return fabs(x); }
-template <typename S>
-__device__ __forceinline__ Dual<S> abs_(const Dual<S>& a) {
-  const base_t<S> p = primal(a);
-  if (p > base_t<S>(0)) return a;
-  if (p < base_t<S>(0)) return -a;
-  return Dual<S>(abs_(a.v), S(base_t<S>(0)));
 }
 
 // ---------------------------------------------------------------------------
@@ -178,13 +118,25 @@ constexpr double kGravity = 9.81;
 
 // Everything soa_loss_parts returns: mass matrix, cone-major contact
 // Jacobian [J_n; mu J_t], signed distances, the QP's linear term, and the
-// velocity residual.
+// velocity residual. Then what the adjoint (cube_adjoint.cuh) keeps from
+// the forward sweep; the forward kernels leave it unread.
 template <typename T> struct LossParts {
   T M[kCubeNV][kCubeNV];
   T J[3][kCubeNV][kCubeK];
   T phi[kCubeK];
   T qc[3][kCubeK];
   T dv[kCubeNV];
+  T R[3][3], Rdot[3][3];   // rotation and its rate along qdot
+  Ldlt<T, kCubeNV> F_M;    // M = L D L'
+  T a_nc[kCubeNV];         // contact-free acceleration M^-1 F
+  T slide[3][kCubeK];      // j_vp[1], j_vp[2], sliding speed (0 at rest)
+  int corner[kCubeK];      // each witness's box corner (vertex index)
+  // The Lagrangian terms' intermediates, in the world frame: the centre of
+  // mass offset c_W = R c_B and its rate, the angular velocity Om and the
+  // bias Omd = Rdot omega, the inertia I_W, the momentum h = I_W Om, the
+  // torque and acceleration biases, and J_cm's angular block X.
+  T c_W[3], c_dot[3], Om[3], Omd[3], I_W[3][3], h[3], tau[3], a_cm[3];
+  T X[3][3];
 };
 
 // soa_loss_parts for the cube: the multibody terms at the observed next
@@ -325,6 +277,21 @@ __device__ void cube_loss_parts(const T (&p)[kCubeP], const T (&v)[kCubeNV],
     for (int i = 0; i < NV; ++i)
 #pragma unroll
       for (int j = i + 1; j < NV; ++j) M[i][j] = M[j][i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      out.c_W[i] = c_W[i];
+      out.c_dot[i] = c_W_dot[i];
+      out.Om[i] = omega[i];
+      out.Omd[i] = omega_dot_bias[i];
+      out.h[i] = I_omega[i];
+      out.tau[i] = torque_bias[i];
+      out.a_cm[i] = a_cm_bias[i];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        out.I_W[i][j] = I_W[i][j];
+        out.X[i][j] = J_cm[i][j];
+      }
+    }
   }
 
   // soa_contact_terms: box witnesses against the plane. The plane frame is
@@ -337,8 +304,10 @@ __device__ void cube_loss_parts(const T (&p)[kCubeP], const T (&v)[kCubeNV],
     // (descending) through soa.sort_with_payload's insertion network,
     // whose tie order picks the witnesses.
     T key[8], pay[3][8];
+    int index[8];
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
+      index[n] = n;
       const T vert[3] = {B((n >> 2) & 1 ? 1 : -1) * p[12],
                          B((n >> 1) & 1 ? 1 : -1) * p[13],
                          B(n & 1 ? 1 : -1) * p[14]};
@@ -350,10 +319,13 @@ __device__ void cube_loss_parts(const T (&p)[kCubeP], const T (&v)[kCubeNV],
     for (int i = 1; i < 8; ++i)
 #pragma unroll
       for (int j = i; j > 0; --j) {
-        const bool swap = primal(key[j - 1]) < primal(key[j]);
+        const bool swap = key[j - 1] < key[j];
         const T a = key[j - 1], b = key[j];
         key[j - 1] = swap ? b : a;
         key[j] = swap ? a : b;
+        const int ia = index[j - 1], ib = index[j];
+        index[j - 1] = swap ? ib : ia;
+        index[j] = swap ? ia : ib;
 #pragma unroll
         for (int r = 0; r < 3; ++r) {
           const T pa = pay[r][j - 1], pb = pay[r][j];
@@ -363,6 +335,7 @@ __device__ void cube_loss_parts(const T (&p)[kCubeP], const T (&v)[kCubeNV],
       }
 #pragma unroll
     for (int c = 0; c < K; ++c) {
+      out.corner[c] = index[c];
       const T w_B[3] = {pay[0][c], pay[1][c], pay[2][c]};
       T off_B[3];  // R w_B: the witness offset in the world frame
       matvec3(R, w_B, off_B);
@@ -398,20 +371,23 @@ __device__ void cube_loss_parts(const T (&p)[kCubeP], const T (&v)[kCubeNV],
   }
 
   // Contact-free acceleration a_nc = M^-1 F.
-  T a_nc[NV];
-  {
-    Ldlt<T, NV> F_M;
-    ldlt<T, NV>(M, F_M);
-    ldlt_solve<T, NV>(F_M, F, a_nc);
-  }
+  ldlt<T, NV>(M, out.F_M);
+  ldlt_solve<T, NV>(out.F_M, F, out.a_nc);
 #pragma unroll
   for (int i = 0; i < NV; ++i)
 #pragma unroll
     for (int j = 0; j < NV; ++j) out.M[i][j] = M[i][j];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      out.R[i][j] = R[i][j];
+      out.Rdot[i][j] = Rdot[i][j];
+    }
 
   // The QP's linear term q_pred + q_comp + q_diss.
 #pragma unroll
-  for (int i = 0; i < NV; ++i) out.dv[i] = vp[i] - (v[i] + a_nc[i] * dt);
+  for (int i = 0; i < NV; ++i) out.dv[i] = vp[i] - (v[i] + out.a_nc[i] * dt);
 #pragma unroll
   for (int c = 0; c < K; ++c) {
     T j_dv[3], j_vp[3];
@@ -429,10 +405,13 @@ __device__ void cube_loss_parts(const T (&p)[kCubeP], const T (&v)[kCubeNV],
     const T s1 = j_vp[1], s2 = j_vp[2];
     const T sliding_sq = s1 * s1 + s2 * s2;
     // Safe norm at exactly resting contacts: value 0, derivative 0.
-    const bool at_rest = primal(sliding_sq) < B(1e-24);
-    const T speed = sqrt_(at_rest ? T(1) : sliding_sq);
+    const bool at_rest = sliding_sq < B(1e-24);
+    const T speed = sqrt(at_rest ? T(1) : sliding_sq);
     const T sliding_speed = at_rest ? T(0) : speed;
-    out.qc[0][c] = -j_dv[0] + abs_(out.phi[c]) + dt * sliding_speed;
+    out.slide[0][c] = s1;
+    out.slide[1][c] = s2;
+    out.slide[2][c] = sliding_speed;
+    out.qc[0][c] = -j_dv[0] + fabs(out.phi[c]) + dt * sliding_speed;
     out.qc[1][c] = -j_dv[1] + dt * s1;
     out.qc[2][c] = -j_dv[2] + dt * s2;
   }
@@ -472,7 +451,7 @@ __device__ T cube_loss_assemble(const LossParts<T>& lp,
     const T fq = f[0][c] * lp.qc[0][c] + f[1][c] * lp.qc[1][c] +
                  f[2][c] * lp.qc[2][c];
     const T neg = -lp.phi[c];
-    const T pen = primal(neg) < B(0) ? T(0) : neg;  // clamp_min(-phi, 0)
+    const T pen = neg < B(0) ? T(0) : neg;  // clamp_min(-phi, 0)
     f_sq = c == 0 ? sq : f_sq + sq;
     f_dot_q = c == 0 ? fq : f_dot_q + fq;
     penetration = c == 0 ? pen * pen : penetration + pen * pen;
@@ -563,39 +542,6 @@ __device__ S cube_loss_warm(const S (&p)[kCubeP], const S (&x)[kCubeNX],
   valid = warm_hybrid_solve<S, kCubeNV, kCubeK>(P, ipm_iterations,
                                                 newton_iterations, w, force);
   return cube_loss_assemble<S>(lp, force, valid, S(eps));
-}
-
-// K2's body: the gradient of ct * loss at the saved impulse with respect
-// to the input seeded by `direction`: 0-14 the derived scalars, 15-20 the
-// velocity rows of x, 21-33 the rows of xp. One forward-mode pass of the
-// terms and the assembly (no solve: the envelope theorem).
-constexpr int kCubeDirections = kCubeP + kCubeNV + kCubeNX;
-
-template <typename S>
-__device__ S cube_loss_grad(const S (&p)[kCubeP], const S (&x)[kCubeNX],
-                            const S (&xp)[kCubeNX],
-                            const S (&force)[3][kCubeK], bool valid, S ct,
-                            S dt, S eps, int direction) {
-  using D = Dual<S>;
-  if (!valid) return S(0);
-  D pd[kCubeP], v[kCubeNV], q[kCubeNQ], vp[kCubeNV];
-#pragma unroll
-  for (int i = 0; i < kCubeP; ++i)
-    pd[i] = D(p[i], S(direction == i ? 1 : 0));
-#pragma unroll
-  for (int i = 0; i < kCubeNV; ++i)
-    v[i] = D(x[kCubeNQ + i], S(direction == kCubeP + i ? 1 : 0));
-#pragma unroll
-  for (int i = 0; i < kCubeNQ; ++i)
-    q[i] = D(xp[i], S(direction == kCubeP + kCubeNV + i ? 1 : 0));
-#pragma unroll
-  for (int i = 0; i < kCubeNV; ++i)
-    vp[i] = D(xp[kCubeNQ + i],
-              S(direction == kCubeP + kCubeNV + kCubeNQ + i ? 1 : 0));
-  LossParts<D> lp;
-  cube_loss_parts<D>(pd, v, q, vp, dt, lp);
-  const D loss = cube_loss_assemble<D>(lp, force, true, eps);
-  return loss.d * ct;
 }
 
 }  // namespace

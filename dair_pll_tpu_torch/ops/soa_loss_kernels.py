@@ -9,8 +9,9 @@ thread per sample:
   (:func:`fused_loss_fwd`, :func:`fused_loss_fwd_warm`).
 * **backward** (K2, shared by both): the gradient does not flow through
   the solve (envelope theorem), so the kernel recomputes the terms and
-  the assembly at the saved impulse and differentiates them, with respect
-  to the derived scalar parameters (summed over the batch) and the states
+  the assembly at the saved impulse and differentiates them in one
+  reverse-mode sweep per sample, with respect to the derived scalar
+  parameters (summed over the batch) and the states
   (:func:`fused_loss_bwd`).
 
 Beside each kernel stands its plain PyTorch version (:func:`plain_loss_fwd`,
