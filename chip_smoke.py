@@ -94,6 +94,35 @@ slower (PERF.md).
    with the launch counts read around the timed round; a
    ``torch.profiler`` trace of one warm step. The card bounds this step,
    so the earlier traces do not move it.
+11. The elbow (``from_urdfs(elbow)``: a free base box, a revolute hinge,
+   a second box; 15 states, 8 contacts) and the model-generic loss
+   kernels. Before the first trace, after phase 6's rollout: K5 and K4 at
+   the elbow's (n_v, k) = (7, 8) against their plain versions (K5 on
+   8,192 QPs of the elbow's float64 rollout near the ground at (14, 6),
+   K4 on 8,192 of the ICNN elbow's cold loss QPs at (10, 10)), float64
+   within TOL64 (1 + |plain|) with equal masks, float32 by the K5 rule,
+   with K5's times and bound at 8,192 and ptxas's lines; the elbow's
+   rollout of 8,192 trajectories x 120 steps in float32 with K5's
+   launches (float32 trajectories that leave the finite numbers, at most
+   ELBOW_DIVERGED_SHARE, are rerun in float64 and must stay finite) and
+   10 steps of 8 in float64 on the card against the CPU; the ICNN
+   elbow's cold and warm loss at 65,536 transitions (K4, K5 at (7, 8)),
+   K4 on the 65,536 QPs that loss hands it against its plain version
+   over chunks (the same rules) with its times and bound there, then the
+   loss in float64 on 16 transitions with every leaf's gradient, card
+   against CPU. After phase 10: the generic K1, K3 and K2 against their
+   plain versions on 8,192 transitions of the elbow's, the polygon
+   elbow's and the polygon cube's own rollouts (phase 9's rules); their
+   times at 2,097,152 elbow transitions (the cube's recipe carried to the
+   elbow's 15 states; K2 also in float64), bounds from the operations
+   they need on the first COUNT_B samples, scaled (K1's and K3's own
+   code's, ``ops/host_adjoint.py``'s counting build of
+   ``csrc/model_terms.cuh``; K2's the smaller of its own forward-mode
+   code's and torch autograd's reverse-mode sweep's) and ptxas's lines,
+   then against their plain versions over chunks of a 65,536 slice (the
+   plain versions over the whole batch would take minutes a kernel); the
+   elbow's training round (as phase 10, traced); the polygon cube's
+   training round at 262,144 with its kernels' times.
 
 It prints, in this order: one JSON line per phase, the kernel table as
 one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
@@ -198,6 +227,31 @@ VMAPPED_BIG_B = 65536
 VMAPPED_STEPS = 8
 VMAPPED_CHECK_B = 16
 VMAPPED_ROLLOUT_STEPS = 32
+#: The elbow (``examples/contactnets_simple.py``: a free base box, a
+#: revolute hinge, a second box; 15 states, 8 contacts): its trajectory
+#: length, its training batch (the box cube's), the ICNN elbow's loss
+#: batch, the slice of the training batch its kernels are held against
+#: their plain versions on, and the samples the host counts each loss
+#: kernel's operations on (scaled to the timed batch).
+ELBOW_STEPS = 120
+ELBOW_TRAIN_B = 2097152
+ELBOW_ICNN_B = 65536
+ELBOW_SLICE = 65536
+ELBOW_PLAIN_CHUNK = 16384
+#: Float32 elbow trajectories may leave the finite numbers over the 120
+#: steps: float32 solves at eps = 1e-4 turn rounding into impulses that
+#: throw a body, and the two-body chain can then spin up without bound.
+#: The JAX package's float32 rollout does so too: on the CPU, over the
+#: first 512 of these states, on 5 (0.98%), and the port's on 1
+#: (``tests/test_torch_elbow_rollout.py``, the slow
+#: ``test_float32_elbow_divergence_is_the_references``). The limit is the
+#: reference's share, rounded up; each such trajectory must stay finite
+#: in float64.
+ELBOW_DIVERGED_SHARE = 0.01
+COUNT_B = 8192
+#: The polygon cube (the generic kernels' one-body size): its training
+#: batch.
+POLYGON_TRAIN_B = 262144
 #: H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
@@ -260,15 +314,77 @@ def phase_device() -> str:
     return line
 
 
+class DeviceSampler:
+    """The card's SM clock, temperature, power draw and the active clock
+    event (throttle) reasons, sampled every second by one ``nvidia-smi``
+    process for the whole run, which ``stop`` (or the interpreter's exit,
+    a failed phase's included) ends; ``summary(t0, t1)`` sums up the
+    samples of an interval of ``time.perf_counter()``."""
+
+    FIELDS = ("clocks.sm,clocks.max.sm,temperature.gpu,power.draw,"
+              "clocks_event_reasons.active",
+              "clocks.sm,clocks.max.sm,temperature.gpu,power.draw,"
+              "clocks_throttle_reasons.active")
+
+    def __init__(self):
+        import atexit
+        import threading
+        for fields in self.FIELDS:
+            if subprocess.run(
+                    ["nvidia-smi", f"--query-gpu={fields}",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True, timeout=60).returncode == 0:
+                break
+        else:
+            raise RuntimeError("nvidia-smi reads no clocks")
+        self.samples = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", f"--query-gpu={fields}",
+             "--format=csv,noheader,nounits", "-lms", "1000"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        atexit.register(self.stop)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            parts = [p.strip() for p in line.split(",")]
+            try:
+                values = [float(p) for p in parts[:4]]
+            except ValueError:
+                continue
+            self.samples.append((time.perf_counter(), *values, parts[4]))
+
+    def summary(self, t0: float, t1: float) -> dict:
+        got = [s for s in self.samples if t0 <= s[0] <= t1]
+        if not got:
+            return {"samples": 0}
+        sm = [s[1] for s in got]
+        return {"samples": len(got), "sm_mhz_min": min(sm),
+                "sm_mhz_median": statistics.median(sm),
+                "sm_mhz_max_rated": got[0][2],
+                "temperature_c_max": max(s[3] for s in got),
+                "power_w_max": max(s[4] for s in got),
+                "clock_event_reasons": sorted({s[5] for s in got})}
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            self.proc.wait(timeout=60)
+
+
 def build_kernels() -> None:
     from dair_pll_tpu_torch.ops import soa_kernels
     t0 = time.perf_counter()
     soa_kernels.load_library()
-    ptxas = [ln.strip() for ln in soa_kernels.build_log().splitlines()
+    log = soa_kernels.build_log()
+    ptxas = [ln.strip() for ln in log.splitlines()
              if any(key in ln for key in ("Function properties",
                                           "registers", "spill"))]
+    source_seconds = {ln.split()[1]: float(ln.split("(")[1].split()[0])
+                      for ln in log.splitlines() if ln.startswith("== ")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": ptxas})
+          "source_seconds": source_seconds, "ptxas": ptxas})
 
 
 def ptxas_lines(source: str, kernel: str = "") -> list:
@@ -298,7 +414,8 @@ def rollout_qps(system, params, x0):
     traj = system.simulate_batch(params, x0, 4, use_fused=True)
     with torch.no_grad():
         _, w_carry = soa_forward_dynamics_batch(
-            model, params, traj[:, 3], torch.zeros_like(traj[:, 0, :6]), DT,
+            model, params, traj[:, 3],
+            torch.zeros_like(traj[:, 0, :model.n_v]), DT,
             EPS, CONTACT_FILTER_EPS, *BUDGET)
         m, jc, qc, _, _ = soa_rollout_qp(model, params, traj[:, 4], DT)
     return m, jc, qc, w_carry.T.contiguous()
@@ -568,12 +685,23 @@ def adam_step(system, params, x, x_plus) -> float:
 def phase_loss_kernels(system, x0_64):
     """K1, K3 and K2 against their plain versions on 8,192 transitions of
     the port's float64 rollout from states near the ground."""
+    x64, xp64 = model_transitions(system, x0_64)
+    result, pvec = compare_loss_kernels(system, x64, xp64)
+    emit({"phase": "loss_kernels_vs_plain", "B": B, **result})
+    return result, (x64, xp64, pvec)
+
+
+def compare_loss_kernels(system, x64, xp64):
+    """K1, K3 and K2 of a model against their plain versions on float64
+    transitions ``(x64, xp64)``: K1 (cold) and K3 (warm, from K1's
+    impulses at parameters one Adam step on) in float64 within TOL64 with
+    equal valid masks, K2 within the gradient bar and bit for bit from run
+    to run; in float32 the K5 rule and DP_FACTOR. Returns the readings and
+    the float32 derived vector one step on."""
     import torch
     from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
     model = system.model
-    traj = system.simulate_batch(system.initial_params(torch.float64), x0_64,
-                                 4, use_fused=True)
-    x64, xp64 = traj[:, 3].contiguous(), traj[:, 4].contiguous()
+    n = x64.shape[0]
     # Parameters one Adam step from the initial ones (K1 and K2 on the
     # entry point), where K3 warm-starts from K1's impulses.
     params1 = system.initial_params(torch.float64)
@@ -591,7 +719,7 @@ def phase_loss_kernels(system, x0_64):
     for dtype in (torch.float64, torch.float32):
         p0, p1 = pvecs[dtype]
         xin, xp = (x64.T.to(dtype).contiguous(), xp64.T.to(dtype).contiguous())
-        ct = torch.ones(B, dtype=dtype, device=xin.device)
+        ct = torch.ones(n, dtype=dtype, device=xin.device)
         k1 = sync(lk.fused_loss_fwd(model, p0, xin, xp, DT, LOSS_EPS,
                                     *COLD_BUDGET))
         q1 = lk.plain_loss_fwd(model, p0, xin, xp, DT, LOSS_EPS, *COLD_BUDGET)
@@ -645,9 +773,12 @@ def phase_loss_kernels(system, x0_64):
         "max_abs_err": max((g - r).abs().max().item()
                            for g, r in zip(k32, q32)),
         "dp_rel_l2_float32_kernel": dp_kernel,
-        "dp_rel_l2_float32_plain": dp_plain}
-    emit({"phase": "loss_kernels_vs_plain", "B": B, **result})
-    return result, (x64, xp64, pvecs[torch.float32][1])
+        "dp_rel_l2_float32_plain": dp_plain,
+        "float64_bit_identical": {
+            name: torch.equal(runs[torch.float64][name][0][0],
+                              runs[torch.float64][name][1][0])
+            for name in ("K1", "K3")}}
+    return result, pvecs[torch.float32][1]
 
 
 def phase_loss_timing(system, transitions, x_train, xp_train):
@@ -768,7 +899,9 @@ def plain_over_chunks(fn, chunk: int, *cols):
     return tuple(torch.cat(parts, dim=-1) for parts in zip(*outs))
 
 
-def phase_loss_full_batch(system, pvec, x_train, xp_train):
+def phase_loss_full_batch(system, pvec, x_train, xp_train,
+                          chunks=(PLAIN_FWD_CHUNK, PLAIN_BWD_CHUNK),
+                          phase="loss_kernels_vs_plain_full"):
     """K1, K3 and K2 at the training shape (2,097,152 samples) against
     their plain versions, which run over chunks of the batch. Float32
     inputs as the training step gives them, each also cast to float64:
@@ -801,7 +934,7 @@ def phase_loss_full_batch(system, pvec, x_train, xp_train):
             out[dtype] = (
                 kernel(model, p, xin, xp, *ext),
                 plain_over_chunks(lambda a, b, *c: plain(model, p, a, b, *c),
-                                  PLAIN_FWD_CHUNK, xin, xp, *ext))
+                                  chunks[0], xin, xp, *ext))
         torch.cuda.synchronize()
         (k64, q64), (k32, q32) = out[torch.float64], out[torch.float32]
         err64 = max((k64[i] - q64[i]).abs().max().item() for i in (0, 1))
@@ -854,8 +987,8 @@ def phase_loss_full_batch(system, pvec, x_train, xp_train):
                   "two float64 K2 runs at the training shape differ")
             del again
         dps, dxins, dxps = [], [], []
-        for s in range(0, n, PLAIN_BWD_CHUNK):
-            cols = slice(s, s + PLAIN_BWD_CHUNK)
+        for s in range(0, n, chunks[1]):
+            cols = slice(s, s + chunks[1])
             dp, dxin, dxp = lk.plain_loss_bwd(
                 model, p, xin[:, cols].contiguous(),
                 xp[:, cols].contiguous(), force[..., cols].contiguous(),
@@ -888,8 +1021,8 @@ def phase_loss_full_batch(system, pvec, x_train, xp_train):
               f"float32 K2 {what} at the training shape: rel-l2 "
               f"{kernel_l2:.3e} from float64, plain float32 {plain_l2:.3e}")
     result["K2"] = entry
-    emit({"phase": "loss_kernels_vs_plain_full", "B": n,
-          "ct": "1/B", "failures": failures, **result})
+    emit({"phase": phase, "B": n, "ct": "1/B", "failures": failures,
+          **result})
     del grads, inputs
     torch.cuda.empty_cache()
     if failures:
@@ -910,12 +1043,20 @@ def launch_counters() -> dict:
 
 
 def reset_launches() -> None:
+    from dair_pll_tpu_torch.ops import soa_kernels
     for counter in launch_counters().values():
-        counter.launches = 0
+        soa_kernels.reset_launches(counter)
 
 
 def read_launches() -> dict:
     return {name: counter.launches
+            for name, counter in launch_counters().items()}
+
+
+def read_launches_by() -> dict:
+    """Each kernel's launches by instantiation (``"cube"``, a generic
+    loss size, ``"nv7_k8"``...), where it counts them."""
+    return {name: dict(getattr(counter, "launches_by", {}))
             for name, counter in launch_counters().items()}
 
 
@@ -1057,8 +1198,9 @@ def kernel_kind(name: str) -> str:
     """A kernel's kind by its name: the port's own kernels, matrix
     products (cuBLAS and CUTLASS), or PyTorch's other kernels
     (elementwise, reductions, copies)."""
-    if "hybrid_solve" in name or "contactnets_loss" in name or \
-            "apgd_cone_solve" in name:
+    if any(key in name for key in ("hybrid_solve", "contactnets_loss",
+                                   "apgd_cone_solve", "model_loss",
+                                   "model_reduce_partials")):
         return "port_kernels"
     if "gemm" in name:
         return "matmul"
@@ -1135,6 +1277,51 @@ def cold_loss_qps(system, params, x, x_plus):
     return captured[0]
 
 
+def cold_solve_vs_plain_full(qps32, phase: str):
+    """K4 against its plain version run over chunks of ICNN_PLAIN_CHUNK on
+    the float32 QPs a main path hands it, and on the same cast to float64:
+    float64 within TOL64 (1 + |plain|) with equal valid masks, float32 by
+    the K5 rule. Reports every reading as ``phase`` before it raises;
+    returns the float32 and the float64 largest errors."""
+    import torch
+    from dair_pll_tpu_torch.ops import soa_kernels
+    kernel = soa_kernels.solve_contact_impulse_soa_cuda_packed
+    plain = soa_kernels.plain_packed_cold
+    qps64 = tuple(t.double() for t in qps32)
+    shape = tuple(qps32[1].shape[1:3])
+    failures, out = [], {}
+    for dtype, qps in ((torch.float64, qps64), (torch.float32, qps32)):
+        with torch.no_grad():
+            out[dtype] = (kernel(*qps, LOSS_EPS, *COLD_BUDGET),
+                          plain_over_chunks(
+                              lambda *c: plain(*c, LOSS_EPS, *COLD_BUDGET),
+                              ICNN_PLAIN_CHUNK, *qps))
+    torch.cuda.synchronize()
+    (f64, q64), (f32, q32) = out[torch.float64], out[torch.float32]
+    err64 = (f64[0] - q64[0]).abs().max().item()
+    if ((f64[0] - q64[0]).abs() - TOL64 * (1 + q64[0].abs())).max() > 0:
+        failures.append(f"float64 K4 at {shape} differs from the plain "
+                        f"version by {err64:.3e}")
+    if not torch.equal(f64[1], q64[1]):
+        failures.append(f"float64 K4 valid masks differ at {shape}")
+    try:
+        tail, _ = float32_tails(f32, q32, q64)
+    except AssertionError as exc:
+        tail = str(exc)
+        failures.append(f"K4 at {shape}: {exc}")
+    err32 = (f32[0] - q32[0]).abs().max().item()
+    emit({"phase": phase, "B": qps32[0].shape[-1], "shape": list(shape),
+          "plain_chunk": ICNN_PLAIN_CHUNK, "failures": failures,
+          "float64_max_abs_err": err64,
+          "float64_bit_identical": torch.equal(f64[0], q64[0]),
+          "float32_max_abs_err": err32, "float32_tails": tail,
+          "valid_share": f32[1].float().mean().item(),
+          "max_abs_impulse": q64[0].abs().max().item()})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return err32, err64
+
+
 def phase_icnn_kernel(system, x0_64, x_train, xp_train):
     """K4 against its plain version on the ICNN cube's cold loss QPs: at
     8,192 samples of its float64 rollout, and at the training batch, whose
@@ -1177,37 +1364,8 @@ def phase_icnn_kernel(system, x0_64, x_train, xp_train):
                             x_train, xp_train)
     train64 = tuple(t.double() for t in train32)
     n_train = x_train.shape[0]
-    failures, out = [], {}
-    for dtype, qps in ((torch.float64, train64), (torch.float32, train32)):
-        with torch.no_grad():
-            out[dtype] = (kernel(*qps, LOSS_EPS, *COLD_BUDGET),
-                          plain_over_chunks(
-                              lambda *c: plain(*c, LOSS_EPS, *COLD_BUDGET),
-                              ICNN_PLAIN_CHUNK, *qps))
-    torch.cuda.synchronize()
-    (f64, q64), (f32, q32) = out[torch.float64], out[torch.float32]
-    full_err64 = (f64[0] - q64[0]).abs().max().item()
-    if ((f64[0] - q64[0]).abs() - TOL64 * (1 + q64[0].abs())).max() > 0:
-        failures.append(f"float64 K4 at the training batch differs from the "
-                        f"plain version by {full_err64:.3e}")
-    if not torch.equal(f64[1], q64[1]):
-        failures.append("float64 K4 valid masks differ at the training batch")
-    try:
-        full_tail, _ = float32_tails(f32, q32, q64)
-    except AssertionError as exc:
-        full_tail = str(exc)
-        failures.append(f"K4 at the training batch: {exc}")
-    full_err32 = (f32[0] - q32[0]).abs().max().item()
-    emit({"phase": "icnn_kernel_vs_plain_full", "B": n_train,
-          "plain_chunk": ICNN_PLAIN_CHUNK, "failures": failures,
-          "float64_max_abs_err": full_err64,
-          "float64_bit_identical": torch.equal(f64[0], q64[0]),
-          "float32_max_abs_err": full_err32, "float32_tails": full_tail,
-          "valid_share": f32[1].float().mean().item(),
-          "max_abs_impulse": q64[0].abs().max().item()})
-    del out, f64, q64, f32, q32
-    if failures:
-        raise AssertionError("; ".join(failures))
+    full_err32, full_err64 = cold_solve_vs_plain_full(
+        train32, "icnn_kernel_vs_plain_full")
 
     # Times at the training batch (float32, as the training step runs
     # it, and float64), the plain version's at 8,192, and the bound.
@@ -1289,62 +1447,23 @@ def icnn_loss_readings(system, params, x, x_plus) -> dict:
 def phase_icnn_loss_vs_cpu(system, x0_64, x_train, xp_train):
     """The ICNN cube's cold and warm float64 loss and every leaf's gradient
     on ICNN_CHECK_B transitions, on the card (plain terms, K4 and K5)
-    against the CPU (plain terms and solves), at the same parameters:
-    losses within rtol LOSS_RTOL, atol LOSS_ATOL, gradients within rtol
-    GRAD_RTOL, atol CPU_GRAD_ATOL. Half the transitions are the training
+    against the CPU (plain terms and solves), at the same parameters
+    (``loss_card_vs_cpu``). Half the transitions are the training
     batch's, which start deep in the initial shape and solve to zero
     impulses; half are steps 3 to 4 of the ICNN cube's rollout from
-    states near the ground, which carry contact impulses. Reports every
-    reading before it raises."""
+    states near the ground, which carry contact impulses."""
     import torch
     from dair_pll_tpu_torch.multibody.learnable_system import (
         MultibodyLearnableSystem)
     cpu_system = MultibodyLearnableSystem(system.model, DT, device="cpu")
-    params_cpu = cpu_system.initial_params(torch.float64)
     half = ICNN_CHECK_B // 2
-    traj = cpu_system.simulate_batch(params_cpu, x0_64[:half].cpu(), 4,
+    traj = cpu_system.simulate_batch(cpu_system.initial_params(torch.float64),
+                                     x0_64[:half].cpu(), 4,
                                      use_fused=True).to(system.device)
     x = torch.cat((x_train[:half].double(), traj[:, 3]))
     x_plus = torch.cat((xp_train[:half].double(), traj[:, 4]))
-    reset_launches()
-    card = icnn_loss_readings(system, params_to(params_cpu, system.device),
-                              x, x_plus)
-    launches = read_launches()
-    cpu = icnn_loss_readings(cpu_system, params_cpu, x.cpu(), x_plus.cpu())
-    failures, result = [], {}
-    for name in ("cold", "warm"):
-        got, ref = card[f"{name}_loss"], cpu[f"{name}_loss"]
-        result[f"{name}_loss_max_abs_err"] = (got - ref).abs().max().item()
-        if not torch.allclose(got, ref, rtol=LOSS_RTOL, atol=LOSS_ATOL):
-            failures.append(f"{name} loss differs by "
-                            f"{result[f'{name}_loss_max_abs_err']:.3e}")
-        errs = []
-        for i, (g, r) in enumerate(zip(card[f"{name}_grad"],
-                                       cpu[f"{name}_grad"])):
-            if (g is None) != (r is None):
-                failures.append(f"{name} gradient of leaf {i}: card "
-                                f"{g is not None}, CPU {r is not None}")
-                continue
-            if g is None:
-                errs.append(None)
-                continue
-            errs.append((g - r).abs().max().item())
-            if not torch.allclose(g, r, rtol=GRAD_RTOL, atol=CPU_GRAD_ATOL):
-                failures.append(f"{name} gradient of leaf {i} differs by "
-                                f"{errs[-1]:.3e}")
-        result[f"{name}_grad_max_abs_err_per_leaf"] = errs
-    for name in ("seed_force", "warm_force"):
-        result[f"{name}_max_abs_err"] = (
-            card[name] - cpu[name]).abs().max().item()
-    if launches["K4"] != 1 or launches["K5"] != 2:
-        failures.append(f"launches {launches} on the card, expected K4 1, "
-                        f"K5 2")
-    emit({"phase": "icnn_loss_card_vs_cpu", "B": ICNN_CHECK_B,
-          "dtype": "float64", "launches": launches, "failures": failures,
-          "max_abs_loss": cpu["cold_loss"].abs().max().item(),
-          "max_abs_impulse": cpu["seed_force"].abs().max().item(), **result})
-    if failures:
-        raise AssertionError("; ".join(failures))
+    loss_card_vs_cpu(system, x, x_plus, "icnn_loss_card_vs_cpu", {},
+                     {"K4": {"nv6_k4": 1}, "K5": {"nv6_k4": 2}})
 
 
 def phase_icnn_train(system, x, x_plus):
@@ -1902,6 +2021,523 @@ def phase_vmapped_rollout(system, x0_64):
           "min_center_height_m": traj[..., 6].min().item()})
 
 
+# -- the elbow and the generic loss kernels ---------------------------------------
+def elbow_system(asset: str = "elbow", **kwargs):
+    """The elbow's ``MultibodyLearnableSystem`` on the card, from an asset
+    (``elbow`` in boxes, ``elbow_mesh`` as an ICNN or, with
+    ``mesh_representation="polygon"``, in polygons)."""
+    from dair_pll_tpu_torch import assets
+    from dair_pll_tpu_torch.multibody.learnable_system import (
+        MultibodyLearnableSystem)
+    return MultibodyLearnableSystem.from_urdfs(
+        {"elbow": assets.get_asset(asset)}, DT, **kwargs)
+
+
+def states_near_ground(system, n: int, seed: int):
+    """``(n, n_x)`` float64 states of a free-base model on the card near
+    the ground at the initial parameters
+    (``assets.tree_states_near_ground``)."""
+    import numpy as np
+    import torch
+    from dair_pll_tpu_torch import assets
+    return torch.tensor(assets.tree_states_near_ground(
+        np.random.default_rng(seed), n, system.model), device=system.device)
+
+
+def elbow_train_transitions(n: int, device):
+    """The training recipe (``train_transitions``, ``bench.py``'s for the
+    cube) carried to the elbow's 15 states: a unit quaternion, xy times
+    0.1, height 0.06-0.11 m, the hinge angle uniform in (-pi, pi],
+    velocities 0.5 N(0, 1); ``x_plus`` a 0.005 N(0, 1) perturbation with
+    the quaternion renormalised; seeded numpy, float32."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((n, 15)).astype(np.float32)
+    quat = x[:, :4] / np.linalg.norm(x[:, :4], axis=-1, keepdims=True)
+    height = 0.06 + 0.05 * rng.random((n, 1), dtype=np.float32)
+    angle = rng.uniform(-np.pi, np.pi, (n, 1)).astype(np.float32)
+    x = np.concatenate((quat, x[:, 4:6] * 0.1, height, angle,
+                        x[:, 8:] * 0.5), axis=-1)
+    x_plus = x + 0.005 * rng.standard_normal((n, 15), dtype=np.float32)
+    x_plus[:, :4] /= np.linalg.norm(x_plus[:, :4], axis=-1, keepdims=True)
+    return (torch.tensor(x, device=device),
+            torch.tensor(x_plus, device=device))
+
+
+def solve_timing(kernel, plain, qps32, args, n_result) -> dict:
+    """A solve kernel's times on float32 QPs (and the same cast to
+    float64), its plain version's, and its bound: the bytes it moves and
+    the operations its plain version counts."""
+    import torch
+    qps64 = tuple(t.double() for t in qps32)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: kernel(*qps32, *args), reps=20)
+        ms64 = cuda_ms(lambda: kernel(*qps64, *args), reps=10)
+        result = kernel(*qps32, *args)
+        plain_ms = cuda_ms(lambda: plain(*qps32, *args), reps=3, warmup=1)
+        ops = count_operations(lambda: plain(*qps32, *args))
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in qps32 + tuple(result[:n_result]))
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S["float32"] * 1e3
+    return {"ms": ms, "ms_float64": ms64, "plain_ms": plain_ms,
+            "bytes": n_bytes, "operations": ops,
+            "operations_per_sample": ops / qps32[0].shape[-1],
+            "bytes_ms": bytes_ms, "operations_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_elbow_kernel(system, icnn_system, x0_64, x0_icnn):
+    """K5 and K4 at the elbow's (n_v, k) = (7, 8) against their plain
+    versions: K5 on 8,192 QPs of the elbow's float64 fused rollout step
+    near the ground at the rollout budget (14, 6), eps 1e-4; K4 on the
+    ICNN elbow's cold loss QPs of its own rollout, (10, 10), eps 1e-3.
+    Float64 within TOL64 (1 + |plain|) with equal valid masks, float32 by
+    the K5 rule. K5's times at 8,192 in both types and its bound (K4's
+    are taken at its main path's shape, ``phase_elbow_icnn_loss``);
+    ptxas's lines."""
+    import torch
+    from dair_pll_tpu_torch.ops import soa_kernels
+    warm = soa_kernels.solve_warm_hybrid_soa_cuda_packed
+    cold = soa_kernels.solve_contact_impulse_soa_cuda_packed
+    out = {}
+    qps = {"K5": rollout_qps(system, system.initial_params(torch.float64),
+                             x0_64)}
+    p_icnn = icnn_system.initial_params(torch.float64)
+    traj = icnn_system.simulate_batch(p_icnn, x0_icnn, 4, use_fused=True)
+    qps["K4"] = cold_loss_qps(icnn_system, p_icnn, traj[:, 3], traj[:, 4])
+    for name, kernel, plain, args, n_out in (
+            ("K5", warm, soa_kernels.plain_packed, (EPS, *BUDGET), 2),
+            ("K4", cold, soa_kernels.plain_packed_cold,
+             (LOSS_EPS, *COLD_BUDGET), 1)):
+        q64 = qps[name]
+        q32 = tuple(t.float() for t in q64)
+        if tuple(q64[1].shape[1:3]) != (7, 8):
+            raise AssertionError(f"{name} QPs of shape {q64[1].shape}")
+        with torch.no_grad():
+            k64, p64 = kernel(*q64, *args), plain(*q64, *args)
+            k32, p32 = kernel(*q32, *args), plain(*q32, *args)
+        torch.cuda.synchronize()
+        err64 = max(check_float64(f"{name} (7, 8) output {i}", k64[i],
+                                  p64[i]) for i in range(n_out))
+        if not torch.equal(k64[-1], p64[-1]):
+            raise AssertionError(f"float64 {name} (7, 8) valid masks differ")
+        tail, _ = float32_tails(k32, p32, p64)
+        err32 = max((k32[i] - p32[i]).abs().max().item()
+                    for i in range(n_out))
+        out[name] = {"max_abs_err_float64": err64, "max_abs_err": err32,
+                     "float64_bit_identical": all(
+                         torch.equal(k64[i], p64[i]) for i in range(n_out)),
+                     "float32_tails": tail,
+                     "valid_share": k32[-1].float().mean().item(),
+                     "max_abs_impulse": p64[0].abs().max().item()}
+        if name == "K5":
+            out[name].update(solve_timing(kernel, plain, q32, args, 2))
+    out["K5"]["ptxas"] = ptxas_lines("warm_hybrid_solve.cu", "ILi7ELi8E")
+    out["K4"]["ptxas"] = ptxas_lines("cold_hybrid_solve.cu", "ILi7ELi8E")
+    emit({"phase": "elbow_kernel_vs_plain", "B": B, **out})
+    return out
+
+
+def phase_elbow_rollout(system, x0_64):
+    """``simulate_batch`` of the elbow over B trajectories x ELBOW_STEPS in
+    float32 (K5 at (7, 8) every step), K5's launches read around that run;
+    the first CHECK_STEPS steps of CHECK_TRAJ trajectories in float64 on
+    the card and on the CPU."""
+    import torch
+    from dair_pll_tpu_torch.multibody.learnable_system import (
+        MultibodyLearnableSystem)
+    params = system.initial_params(torch.float32)
+    x0 = x0_64.float()
+    system.simulate_batch(params, x0[:1024], 2)          # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    traj = system.simulate_batch(params, x0, ELBOW_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches_by()
+    if tuple(traj.shape) != (B, ELBOW_STEPS + 1, 15):
+        raise AssertionError(f"elbow trajectory shape {tuple(traj.shape)}")
+    if launches["K5"] != {"nv7_k8": ELBOW_STEPS}:
+        raise AssertionError(f"launches {launches} in a {ELBOW_STEPS}-step "
+                             "elbow rollout")
+    # Float32 trajectories that leave the finite numbers are decided
+    # against float64: at most ELBOW_DIVERGED_SHARE of the batch, and each
+    # finite over the whole rollout in float64 on the card.
+    diverged = (~torch.isfinite(traj).all(dim=-1).all(dim=-1)).nonzero() \
+        .flatten()
+    n_diverged = int(diverged.numel())
+    if n_diverged > ELBOW_DIVERGED_SHARE * B:
+        raise AssertionError(f"{n_diverged} of {B} float32 elbow "
+                             f"trajectories are not finite")
+    if n_diverged:
+        referee = system.simulate_batch(
+            system.initial_params(torch.float64), x0_64[diverged],
+            ELBOW_STEPS, use_fused=True)
+        if not bool(torch.isfinite(referee).all()):
+            raise AssertionError("float64 reruns of the diverged float32 "
+                                 "elbow trajectories are not finite")
+    x_check = x0_64[:CHECK_TRAJ]
+    gpu = system.simulate_batch(system.initial_params(torch.float64),
+                                x_check, CHECK_STEPS, use_fused=True)
+    cpu_system = MultibodyLearnableSystem(system.model, DT, device="cpu")
+    cpu = cpu_system.simulate_batch(cpu_system.initial_params(torch.float64),
+                                    x_check.cpu(), CHECK_STEPS,
+                                    use_fused=True)
+    check_err = (gpu.cpu() - cpu).abs().max().item()
+    if not check_err <= ROLLOUT_ATOL:
+        raise AssertionError(f"float64 elbow rollout on the card differs "
+                             f"from the CPU by {check_err:.3e}")
+    emit({"phase": "elbow_rollout", "B": B, "steps": ELBOW_STEPS,
+          "dtype": "float32", "seconds": seconds,
+          "steps_per_s": ELBOW_STEPS / seconds,
+          "transitions_per_s": B * ELBOW_STEPS / seconds,
+          "launches": launches,
+          "float64_card_vs_cpu_max_abs_err": check_err,
+          "float32_diverged": n_diverged,
+          "float32_diverged_first": diverged[:8].tolist()})
+    return launches["K5"]["nv7_k8"]
+
+
+def loss_card_vs_cpu(system, x, x_plus, phase: str, extra: dict,
+                     expected: dict):
+    """The cold and warm float64 loss and every leaf's gradient of
+    transitions ``(x, x_plus)`` on the card against the CPU at the same
+    parameters (``icnn_loss_readings``): losses within rtol LOSS_RTOL,
+    atol LOSS_ATOL, gradients within rtol GRAD_RTOL, atol CPU_GRAD_ATOL,
+    and the card's launches by instantiation as ``expected`` says. Reports
+    every reading before it raises."""
+    import torch
+    from dair_pll_tpu_torch.multibody.learnable_system import (
+        MultibodyLearnableSystem)
+    cpu_system = MultibodyLearnableSystem(system.model, DT, device="cpu")
+    params_cpu = cpu_system.initial_params(torch.float64)
+    reset_launches()
+    card = icnn_loss_readings(system, params_to(params_cpu, system.device),
+                              x, x_plus)
+    launches = read_launches_by()
+    cpu = icnn_loss_readings(cpu_system, params_cpu, x.cpu(), x_plus.cpu())
+    failures, result = [], {}
+    for name in ("cold", "warm"):
+        got, ref = card[f"{name}_loss"], cpu[f"{name}_loss"]
+        result[f"{name}_loss_max_abs_err"] = (got - ref).abs().max().item()
+        if not torch.allclose(got, ref, rtol=LOSS_RTOL, atol=LOSS_ATOL):
+            failures.append(f"{name} loss differs by "
+                            f"{result[f'{name}_loss_max_abs_err']:.3e}")
+        errs = []
+        for i, (g, r) in enumerate(zip(card[f"{name}_grad"],
+                                       cpu[f"{name}_grad"])):
+            if (g is None) != (r is None):
+                failures.append(f"{name} gradient of leaf {i}: card "
+                                f"{g is not None}, CPU {r is not None}")
+                continue
+            errs.append(None if g is None else (g - r).abs().max().item())
+            if g is not None and not torch.allclose(
+                    g, r, rtol=GRAD_RTOL, atol=CPU_GRAD_ATOL):
+                failures.append(f"{name} gradient of leaf {i} differs by "
+                                f"{errs[-1]:.3e}")
+        result[f"{name}_grad_max_abs_err_per_leaf"] = errs
+    for name in ("seed_force", "warm_force"):
+        result[f"{name}_max_abs_err"] = (
+            card[name] - cpu[name]).abs().max().item()
+    if {name: launches[name] for name in expected} != expected:
+        failures.append(f"launches {launches} on the card, expected "
+                        f"{expected}")
+    emit({"phase": phase, "B": x.shape[0], "dtype": "float64",
+          "launches": launches, "failures": failures, **extra,
+          "max_abs_loss": cpu["cold_loss"].abs().max().item(),
+          "max_abs_impulse": cpu["seed_force"].abs().max().item(), **result})
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def phase_elbow_icnn_loss(system, x0_icnn):
+    """The ICNN elbow's cold and warm loss through the training entry
+    points at ELBOW_ICNN_B transitions of the elbow's training recipe,
+    float32, with K4's and K5's launches (one each, at (7, 8)); K4 on the
+    QPs that run's cold loss hands it against its plain version over
+    chunks (``cold_solve_vs_plain_full``), and its times and bound there;
+    then the float64 loss and every leaf's gradient on 16 transitions (8
+    of that batch, 8 steps 3 to 4 of the ICNN elbow's rollout near the
+    ground) on the card against the CPU. Returns the launches of the
+    float32 run and K4's readings."""
+    from dair_pll_tpu_torch.ops import soa_kernels
+    import torch
+    x, x_plus = elbow_train_transitions(ELBOW_ICNN_B, system.device)
+    params = system.initial_params(torch.float32)
+    leaves = params.parameters()
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    u = x.new_zeros((x.shape[0], 0))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    cold = torch.mean(system.contactnets_loss_batch(params, x, u, x_plus))
+    cold.backward()
+    with torch.no_grad():
+        _, seed = system.contactnets_loss_batch_warm(
+            params, x, u, x_plus,
+            x.new_zeros((3, system.model.n_contacts, x.shape[0])),
+            budget=COLD_BUDGET)
+    warm, _ = system.contactnets_loss_batch_warm(params, x, u, x_plus, seed)
+    torch.mean(warm).backward()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches_by()
+    expected = {"K1": {}, "K3": {}, "K2": {}, "K4": {"nv7_k8": 1},
+                "K5": {"nv7_k8": 2}, "K6": {}}
+    if launches != expected or not bool(torch.isfinite(cold)):
+        raise AssertionError(f"ICNN elbow loss: launches {launches}, "
+                             f"loss {cold.item()}")
+    qps32 = cold_loss_qps(system, params, x, x_plus)
+    err32, err64 = cold_solve_vs_plain_full(qps32,
+                                            "elbow_icnn_kernel_vs_plain_full")
+    k4 = {"B": x.shape[0], "max_abs_err": err32, "max_abs_err_float64": err64,
+          **solve_timing(soa_kernels.solve_contact_impulse_soa_cuda_packed,
+                         soa_kernels.plain_packed_cold, qps32,
+                         (LOSS_EPS, *COLD_BUDGET), 2)}
+    emit({"phase": "elbow_icnn_kernel_timing", "dtype": "float32", **k4})
+    del qps32
+    half = 8
+    traj = system.simulate_batch(system.initial_params(torch.float64),
+                                 x0_icnn[:half], 4, use_fused=True)
+    xc = torch.cat((x[:half].double(), traj[:, 3]))
+    xpc = torch.cat((x_plus[:half].double(), traj[:, 4]))
+    loss_card_vs_cpu(system, xc, xpc, "elbow_icnn_loss",
+                     {"float32_batch": ELBOW_ICNN_B,
+                      "float32_cold_loss": cold.item(),
+                      "float32_seconds": seconds,
+                      "float32_launches": launches},
+                     {"K4": {"nv7_k8": 1}, "K5": {"nv7_k8": 2}})
+    return launches, k4
+
+
+def model_transitions(system, x0_64):
+    """8,192 float64 transitions of a model's own fused rollout near the
+    ground (steps 3 to 4), batch-major."""
+    import torch
+    traj = system.simulate_batch(system.initial_params(torch.float64),
+                                 x0_64, 4, use_fused=True)
+    return traj[:, 3].contiguous(), traj[:, 4].contiguous()
+
+
+def phase_elbow_loss_kernels(systems: dict, x0s: dict):
+    """The generic K1 (cold), K3 (warm, from K1's impulses at parameters
+    one Adam step on) and K2 against their plain versions on 8,192
+    transitions of each model's own float64 rollout: the elbow in boxes
+    and in polygons, and the polygon cube (the one-body size); the rules
+    of ``loss_kernels_vs_plain``."""
+    out, inputs = {}, {}
+    for name, system in systems.items():
+        x64, xp64 = model_transitions(system, x0s[name])
+        out[name], pvec = compare_loss_kernels(system, x64, xp64)
+        inputs[name] = (x64, xp64, pvec)
+    emit({"phase": "elbow_loss_kernels_vs_plain", "B": B, **out})
+    return out, inputs
+
+
+def host_counts(model, pvec, xin, xp, force, valid, ct, fprev) -> dict:
+    """Operations the generic K1, K3 and K2 need on the first COUNT_B
+    samples of a batch, scaled to the batch: ``{"K1": ..., "K3": ...,
+    "K2": ...}`` and the count's seconds. K1's and K3's are their own
+    code's (``host_adjoint.HostModelTerms``' counting build, in the
+    batch's type). K2's is the smaller of two counts of the same gradient:
+    its own code's, forward mode with several tangents a pass, and a
+    reverse-mode sweep's, torch autograd's (``plain_loss_bwd``) pointwise
+    operations and reductions (``count_operations``); ``"K2"`` also holds
+    both as ``"forward_mode"`` and ``"reverse_mode"``."""
+    from dair_pll_tpu_torch.ops import host_adjoint
+    from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
+    host = host_adjoint.HostModelTerms(os.path.join(HERE, "build",
+                                                    "host_model_terms"))
+    n = xin.shape[1]
+    cols = slice(0, min(COUNT_B, n))
+    sub = [t[..., cols] for t in (xin, xp, force, valid, ct, fprev)]
+    t0 = time.perf_counter()
+    counts = {}
+    for name, kind, fin, budget in (("K1", "cold", None, COLD_BUDGET),
+                                    ("K3", "warm", sub[5], WARM_BUDGET),
+                                    ("K2", "vjp", sub[2], COLD_BUDGET)):
+        c = host.count(kind, model, pvec, sub[0], sub[1], fin, sub[3],
+                       sub[4], DT, LOSS_EPS, *budget,
+                       threads=os.cpu_count() or 1)
+        scale = n / sub[0].shape[1]
+        counts[name] = {"needed": c["needed"] * scale,
+                        "executed": c["executed"] * scale}
+    counts["K2"]["needed"] += pvec.numel() * (n - 1)   # the batch sum
+    reverse = count_operations(lambda: lk.plain_loss_bwd(
+        model, pvec, *sub[:5], DT, LOSS_EPS)) * scale
+    counts["K2"].update(forward_mode=counts["K2"]["needed"],
+                        reverse_mode=reverse,
+                        needed=min(counts["K2"]["needed"], reverse))
+    counts["seconds"] = time.perf_counter() - t0
+    return counts
+
+
+def generic_loss_timing(system, pvec, xin_t, xp_t, small, reps: int,
+                        with_float64: bool) -> dict:
+    """The generic K1, K3 and K2 at a batch (float32; K2 also in float64
+    with ``with_float64``), their plain versions at 8,192 (``small``:
+    ``(xin, xp)``), and their bounds from the operations their own code
+    needs on this batch (``host_counts``) and the bytes they move."""
+    import torch
+    from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
+    model = system.model
+    n = xin_t.shape[1]
+    ct_t = torch.ones_like(xin_t[0])
+    xin_s, xp_s = small
+    ct_s = torch.ones_like(xin_s[0])
+    cold = lk.fused_loss_fwd(model, pvec, xin_t, xp_t, DT, LOSS_EPS,
+                             *COLD_BUDGET)
+    cold_s = lk.fused_loss_fwd(model, pvec, xin_s, xp_s, DT, LOSS_EPS,
+                               *COLD_BUDGET)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    calls = {
+        "K1": (lambda: lk.fused_loss_fwd(model, pvec, xin_t, xp_t, DT,
+                                         LOSS_EPS, *COLD_BUDGET),
+               lambda: lk.plain_loss_fwd(model, pvec, xin_s, xp_s, DT,
+                                         LOSS_EPS, *COLD_BUDGET),
+               nbytes(pvec, xin_t, xp_t, *cold)),
+        "K3": (lambda: lk.fused_loss_fwd_warm(model, pvec, xin_t, xp_t,
+                                              cold[1], DT, LOSS_EPS,
+                                              *WARM_BUDGET),
+               lambda: lk.plain_loss_fwd_warm(model, pvec, xin_s, xp_s,
+                                              cold_s[1], DT, LOSS_EPS,
+                                              *WARM_BUDGET),
+               nbytes(pvec, xin_t, xp_t, cold[1], *cold)),
+        "K2": (lambda: lk.fused_loss_bwd(model, pvec, xin_t, xp_t, cold[1],
+                                         cold[2], ct_t, DT, LOSS_EPS),
+               lambda: lk.plain_loss_bwd(model, pvec, xin_s, xp_s,
+                                         cold_s[1], cold_s[2], ct_s, DT,
+                                         LOSS_EPS),
+               nbytes(pvec, xin_t, xp_t, cold[1], cold[2], ct_t, pvec,
+                      xin_t, xp_t)),
+    }
+    counts = host_counts(model, pvec, xin_t, xp_t, cold[1], cold[2], ct_t,
+                         cold[1])
+    result = {"count_seconds": counts.pop("seconds"),
+              "count_B": min(COUNT_B, n)}
+    for name, (kernel, plain, n_bytes) in calls.items():
+        ms = cuda_ms(kernel, reps=reps, warmup=1)
+        plain_ms = cuda_ms(plain, reps=2, warmup=1)
+        ops = counts[name]["needed"]
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_OPS_PER_S["float32"] * 1e3
+        result[name] = {
+            "ms": ms, "plain_ms": plain_ms, "plain_B": xin_s.shape[1],
+            "bytes": n_bytes, "operations": ops,
+            "operations_per_sample": ops / n,
+            "operations_executed": counts[name]["executed"],
+            **({"operations_forward_mode": counts[name]["forward_mode"],
+                "operations_reverse_mode": counts[name]["reverse_mode"]}
+               if name == "K2" else {}),
+            "bytes_ms": bytes_ms, "operations_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    result["valid_share"] = cold[2].float().mean().item()
+    if with_float64:
+        k2 = result["K2"]
+        p_d, xin_d, xp_d, force_d, ct_d = (
+            t.double() for t in (pvec, xin_t, xp_t, cold[1], ct_t))
+        k2["ms_float64"] = cuda_ms(
+            lambda: lk.fused_loss_bwd(model, p_d, xin_d, xp_d, force_d,
+                                      cold[2], ct_d, DT, LOSS_EPS),
+            reps=max(1, reps // 2), warmup=1)
+        c64 = host_counts(model, p_d, xin_d, xp_d, force_d, cold[2], ct_d,
+                          force_d)
+        bytes64_ms = nbytes(p_d, xin_d, xp_d, force_d, cold[2], ct_d, p_d,
+                            xin_d, xp_d) / HBM_BYTES_PER_S * 1e3
+        ops64_ms = c64["K2"]["needed"] / PEAK_OPS_PER_S["float64"] * 1e3
+        k2["operations_float64"] = c64["K2"]["needed"]
+        k2["operations_float64_forward_mode"] = c64["K2"]["forward_mode"]
+        k2["operations_float64_reverse_mode"] = c64["K2"]["reverse_mode"]
+        k2["bound_ms_float64"] = max(bytes64_ms, ops64_ms)
+        k2["bound_by_float64"] = ("bytes" if bytes64_ms >= ops64_ms
+                                  else "operations")
+        del p_d, xin_d, xp_d, force_d, ct_d
+    return result
+
+
+def phase_elbow_loss_timing(system, transitions, x_train, xp_train):
+    """The generic K1, K3 and K2 at the elbow's training batch
+    (2,097,152, float32; K2 also in float64), the plain versions at 8,192,
+    bounds and ptxas's lines; then the three against their plain versions
+    over chunks of the batch's first ELBOW_SLICE transitions."""
+    import torch
+    from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
+    x64, xp64, pvec = transitions
+    small = (x64.T.float().contiguous(), xp64.T.float().contiguous())
+    xin_t, xp_t = x_train.T.contiguous(), xp_train.T.contiguous()
+    result = generic_loss_timing(system, pvec, xin_t, xp_t, small, reps=3,
+                                 with_float64=True)
+    for name, source, kernel in (
+            ("K1", "model_loss_fwd_b2.cu", "model_loss_fwd_kernel"),
+            ("K3", "model_loss_fwd_b2.cu", "model_loss_fwd_warm_kernel"),
+            ("K2", "model_loss_bwd_b2_f32.cu", "model_loss_bwd_kernel")):
+        result[name]["ptxas"] = ptxas_lines(source, kernel)
+    result["K2"]["ptxas_float64"] = ptxas_lines("model_loss_bwd_b2_f64.cu",
+                                                "model_loss_bwd_kernel")
+    emit({"phase": "elbow_loss_kernel_timing", "B": xin_t.shape[1],
+          "dtype": "float32", **result})
+    sliced = phase_loss_full_batch(
+        system, pvec, x_train[:ELBOW_SLICE], xp_train[:ELBOW_SLICE],
+        chunks=(ELBOW_PLAIN_CHUNK, ELBOW_PLAIN_CHUNK // 2),
+        phase="elbow_loss_kernels_vs_plain_slice")
+    del small
+    torch.cuda.empty_cache()
+    return result, sliced
+
+
+def phase_generic_train(system, x, x_plus, phase: str, size: str):
+    """``TrainingRun`` (a cold step, the cache's seed, WARM_STEPS warm
+    steps, Adam) of a model the generic loss kernels cover, with a trace
+    of one warm step; the launches of the timed round, all at ``size``."""
+    run = TrainingRun(system, x, x_plus)
+    report, cache = run.timed()
+    if not all(run.moved()):
+        raise AssertionError(f"{phase}: a parameter tensor did not move")
+    launches = read_launches_by()
+    expected = {"K1": {size: 1}, "K3": {size: 1 + WARM_STEPS},
+                "K2": {size: 1 + WARM_STEPS}, "K4": {}, "K5": {}, "K6": {}}
+    if launches != expected:
+        raise AssertionError(f"{phase}: launches {launches}, expected "
+                             f"{expected}")
+    emit({"phase": phase, **report, "launches_by": launches,
+          "profiled_warm_step": profile_step(
+              lambda: run.warm_step(cache),
+              report["warm_step_median_ms"] / 1e3)})
+    return report["launches"]
+
+
+def phase_polygon_train(system):
+    """The polygon cube (the generic kernels' one-body size) trained on
+    POLYGON_TRAIN_B transitions of the cube's recipe, then its kernels'
+    times at that batch, plain times at 8,192 and bounds."""
+    import torch
+    x, x_plus = train_transitions(POLYGON_TRAIN_B, system.device)
+    launches = phase_generic_train(system, x, x_plus, "polygon_cube_train",
+                                   "b1_q7_v6_k4")
+    pvec = derived_vector(system, system.initial_params(torch.float32))
+    small = tuple(t[:, :B].contiguous() for t in (x.T, x_plus.T))
+    timing = generic_loss_timing(system, pvec, x.T.contiguous(),
+                                 x_plus.T.contiguous(), small, reps=5,
+                                 with_float64=False)
+    for name, kernel in (("K1", "model_loss_fwd_kernel"),
+                         ("K3", "model_loss_fwd_warm_kernel")):
+        timing[name]["ptxas"] = ptxas_lines("model_loss_fwd_b1.cu", kernel)
+    timing["K2"]["ptxas"] = ptxas_lines("model_loss_bwd_b1_f32.cu",
+                                        "model_loss_bwd_kernel")
+    emit({"phase": "polygon_cube_kernel_timing", "B": POLYGON_TRAIN_B,
+          "dtype": "float32", **timing})
+    return launches, timing
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1921,12 +2557,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    seconds_of = {}
+    seconds_of, device_of = {}, {}
+    sampler = DeviceSampler()
 
     def run(name, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
-        seconds_of[name] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        seconds_of[name] = t1 - t0
+        device_of[name] = sampler.summary(t0, t1)
         return out
 
     smi = run("device", phase_device)
@@ -1960,6 +2599,25 @@ def main() -> int:
         {"cube": x0_64, "icnn_cube": x0_icnn}, x_icnn, xp_icnn)
     run("vmapped_rollout", phase_vmapped_rollout, system, x0_64)
     torch.cuda.empty_cache()
+
+    # The elbow's host-bound phases, before the first trace.
+    elbow = elbow_system()
+    icnn_elbow = elbow_system("elbow_mesh")
+    x0_elbow = states_near_ground(elbow, B, 4)
+    x0_icnn_elbow = states_near_ground(icnn_elbow, B, 5)
+    k45 = run("elbow_kernel_vs_plain", phase_elbow_kernel, elbow,
+              icnn_elbow, x0_elbow, x0_icnn_elbow)
+    elbow_k5 = run("elbow_rollout", phase_elbow_rollout, elbow, x0_elbow)
+    icnn_elbow_launches, k4_main = run(
+        "elbow_icnn_loss", phase_elbow_icnn_loss, icnn_elbow, x0_icnn_elbow)
+    elbow_k4 = icnn_elbow_launches["K4"]["nv7_k8"]
+    # K4's row: its errors on the rollout's and on the main path's QPs,
+    # its times and bound at the main path's shape.
+    k45["K4"] = {**k4_main, **{name: max(k45["K4"][name], k4_main[name])
+                               for name in ("max_abs_err",
+                                            "max_abs_err_float64")}}
+    del icnn_elbow, x0_icnn_elbow
+    torch.cuda.empty_cache()
     icnn_launches = run("icnn_train", phase_icnn_train, icnn_system, x_icnn,
                         xp_icnn)
     del x_icnn, xp_icnn
@@ -1976,8 +2634,34 @@ def main() -> int:
     train_launches = run("train", phase_train, system, x_train, xp_train)
     del x_train, xp_train
     torch.cuda.empty_cache()
+
+    # The generic loss kernels: the elbow (box and polygon) and the
+    # polygon cube.
+    generic = {"elbow": elbow,
+               "elbow_polygon": elbow_system(
+                   "elbow_mesh", mesh_representation="polygon"),
+               "cube_polygon": MultibodyLearnableSystem.from_urdfs(
+                   {"cube": assets.get_asset("cube_mesh")}, DT,
+                   mesh_representation="polygon")}
+    x0s = {name: states_near_ground(model_system, B, 6 + i)
+           for i, (name, model_system) in enumerate(generic.items())}
+    generic_errors, generic_inputs = run(
+        "elbow_loss_kernels_vs_plain", phase_elbow_loss_kernels, generic,
+        x0s)
+    x_elbow, xp_elbow = elbow_train_transitions(ELBOW_TRAIN_B, elbow.device)
+    elbow_times, _ = run("elbow_loss_kernel_timing", phase_elbow_loss_timing,
+                         elbow, generic_inputs["elbow"], x_elbow, xp_elbow)
+    elbow_launches = run("elbow_train", phase_generic_train, elbow, x_elbow,
+                         xp_elbow, "elbow_train", "b2_q8_v7_k8")
+    del x_elbow, xp_elbow, generic_inputs
+    torch.cuda.empty_cache()
+    polygon_launches, polygon_times = run(
+        "polygon_cube_train", phase_polygon_train, generic["cube_polygon"])
+    torch.cuda.empty_cache()
     run("vmapped_profile", phase_vmapped_profile, system)
+    sampler.stop()
     emit({"phase": "seconds", **seconds_of})
+    emit({"phase": "device_state", **device_of})
 
     table = [{
         "name": "warm_hybrid_solve",
@@ -2045,6 +2729,53 @@ def main() -> int:
         "bound_by": k6["bound_by"],
         "library_ms": None,
     })
+    for shape_name, source, line, key, launched in (
+            ("warm_hybrid_solve_nv7_k8", "warm_hybrid_solve.cu", 151, "K5",
+             elbow_k5),
+            ("cold_hybrid_solve_nv7_k8", "cold_hybrid_solve.cu", 59, "K4",
+             elbow_k4)):
+        entry = k45[key]
+        table.append({
+            "name": shape_name,
+            "route": "cuda",
+            "source": f"dair_pll_tpu_torch/csrc/{source}",
+            "replaces": f"dair_pll_tpu/ops/soa_pallas.py:{line}",
+            "launches": launched,
+            "max_abs_err": entry["max_abs_err"],
+            "max_abs_err_float64": entry["max_abs_err_float64"],
+            "ms": entry["ms"],
+            "ms_float64": entry["ms_float64"],
+            "plain_ms": entry["plain_ms"],
+            "bound_ms": entry["bound_ms"],
+            "bound_by": entry["bound_by"],
+            "library_ms": None,
+        })
+    for size, model_name, launches_of, times in (
+            ("b2_q8_v7_k8", "elbow", elbow_launches, elbow_times),
+            ("b1_q7_v6_k4", "cube_polygon", polygon_launches,
+             polygon_times)):
+        for name, entry, line in (
+                ("K1", "contactnets_loss_fwd", 129),
+                ("K3", "contactnets_loss_fwd_warm", 150),
+                ("K2", "contactnets_loss_bwd", 180)):
+            errors = generic_errors[model_name][name]
+            table.append({
+                "name": f"{entry}_{size}",
+                "route": "cuda",
+                "source": "dair_pll_tpu_torch/csrc/model_loss.cuh",
+                "replaces": f"dair_pll_tpu/ops/soa_loss_pallas.py:{line}",
+                "launches": launches_of[name],
+                "max_abs_err": errors["max_abs_err"],
+                "max_abs_err_float64": errors["max_abs_err_float64"],
+                "ms": times[name]["ms"],
+                **({"ms_float64": times[name]["ms_float64"],
+                    "design": "forward mode, 4 tangents a pass"}
+                   if "ms_float64" in times[name] else {}),
+                "plain_ms": times[name]["plain_ms"],
+                "bound_ms": times[name]["bound_ms"],
+                "bound_by": times[name]["bound_by"],
+                "library_ms": None,
+            })
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -227,3 +227,34 @@ def cube_states_near_ground(rng: np.random.Generator, n: int,
         lambda rot: np.min(np.einsum("bij,cj->bci", rot, corners)[..., 2],
                            axis=-1),
         clearance, fall_speed)
+
+
+def tree_states_near_ground(rng: np.random.Generator, n: int,
+                            model) -> np.ndarray:
+    """``(n, n_x)`` states of a free-base model (the port's
+    ``MultibodyModel``: the elbow, the polygon cube) at its initial
+    parameters: random unit quaternions, the base's xy 0.02 N(0, 1), joint
+    angles uniform in (-pi, pi], the base's velocities of
+    :func:`states_near_ground`'s spread and the joints' N(0, 1), the base
+    lifted so that its lowest witness point (the port's own signed
+    distances, float64 on the CPU) sits within (-4, 10) mm of the
+    ground."""
+    import torch
+    from dair_pll_tpu_torch.multibody.soa_terms import soa_multibody_terms
+    n_q, n_v = model.n_q, model.n_v
+    x = np.zeros((n, n_q + n_v))
+    quat = rng.standard_normal((n, 4))
+    x[:, :4] = quat / np.linalg.norm(quat, axis=-1, keepdims=True)
+    x[:, 4:6] = 0.02 * rng.standard_normal((n, 2))
+    x[:, 7:n_q] = rng.uniform(-np.pi, np.pi, (n, n_q - 7))
+    x[:, n_q:n_q + 6] = rng.standard_normal((n, 6)) * \
+        [2.0, 2.0, 2.0, 0.3, 0.3, 0.1]
+    x[:, n_q + 5] -= 0.5
+    x[:, n_q + 6:] = rng.standard_normal((n, n_v - 6))
+    rows = list(torch.tensor(x).T)
+    with torch.no_grad():
+        _, _, phi, _ = soa_multibody_terms(
+            model, model.initial_params(torch.float64), rows[:n_q],
+            rows[n_q:], [])
+    x[:, 6] += -phi.min(dim=0).values.numpy() + rng.uniform(-0.004, 0.01, n)
+    return x

@@ -23,6 +23,10 @@
 // VMEM blocks do not carry over: the kernel reads the batch-minor layout,
 // neighbouring threads on neighbouring addresses, and masks the ragged
 // edge.
+//
+// The elbow's instantiation, (n_v, k) = (7, 8), runs the same code on a
+// larger problem: one thread then carries M (49 values), J (168) and the
+// (3, 8) cone state, and spills far more than the cube's.
 
 #include "hybrid_solve.cuh"
 
@@ -52,12 +56,12 @@ __global__ void cold_hybrid_solve_kernel(
 
 constexpr int kThreads = 32;
 
-template <typename T>
+template <typename T, int NV, int K>
 int launch(const void* M, const void* Jc, const void* qc, void* force,
            void* valid, long long B, double eps, int ipm_iterations,
            int newton_iterations, void* stream) {
   const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
-  cold_hybrid_solve_kernel<T, 6, 4>
+  cold_hybrid_solve_kernel<T, NV, K>
       <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
           (const T*)M, (const T*)Jc, (const T*)qc, (T*)force,
           (unsigned char*)valid, B, eps, ipm_iterations, newton_iterations);
@@ -66,25 +70,21 @@ int launch(const void* M, const void* Jc, const void* qc, void* force,
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes). Tensors are contiguous and
-// batch-minor: M (36, B), Jc (3, 6, 4, B), qc (3, 4, B) -> force (3, 4, B),
-// valid (B,) as bytes. Returns cudaGetLastError() after the launch.
-extern "C" int cold_hybrid_solve_nv6_k4_f32(const void* M, const void* Jc,
-                                            const void* qc, void* force,
-                                            void* valid, long long B,
-                                            double eps, int ipm_iterations,
-                                            int newton_iterations,
-                                            void* stream) {
-  return launch<float>(M, Jc, qc, force, valid, B, eps, ipm_iterations,
-                       newton_iterations, stream);
-}
+// Plain C entry points (bound with ctypes), one per (n_v, k) and type: the
+// cube's (6, 4) and the elbow's (7, 8). Tensors are contiguous and
+// batch-minor: M (n_v * n_v, B), Jc (3, n_v, k, B), qc (3, k, B) -> force
+// (3, k, B), valid (B,) as bytes. Returns cudaGetLastError() after the
+// launch.
+#define DEFINE_ENTRY(NV, K, T, SUFFIX)                                        \
+  extern "C" int cold_hybrid_solve_nv##NV##_k##K##_##SUFFIX(                 \
+      const void* M, const void* Jc, const void* qc, void* force,            \
+      void* valid, long long B, double eps, int ipm_iterations,              \
+      int newton_iterations, void* stream) {                                 \
+    return launch<T, NV, K>(M, Jc, qc, force, valid, B, eps, ipm_iterations, \
+                            newton_iterations, stream);                      \
+  }
 
-extern "C" int cold_hybrid_solve_nv6_k4_f64(const void* M, const void* Jc,
-                                            const void* qc, void* force,
-                                            void* valid, long long B,
-                                            double eps, int ipm_iterations,
-                                            int newton_iterations,
-                                            void* stream) {
-  return launch<double>(M, Jc, qc, force, valid, B, eps, ipm_iterations,
-                        newton_iterations, stream);
-}
+DEFINE_ENTRY(6, 4, float, f32)
+DEFINE_ENTRY(6, 4, double, f64)
+DEFINE_ENTRY(7, 8, float, f32)
+DEFINE_ENTRY(7, 8, double, f64)

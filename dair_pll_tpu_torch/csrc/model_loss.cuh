@@ -1,0 +1,298 @@
+// ContactNets loss kernels of any model of the fused loss kernels' class,
+// one CUDA thread per sample, on the generic terms of model_terms.cuh:
+//
+//   K1 model_loss_fwd_kernel       replaces `_fwd_kernel` of
+//      dair_pll_tpu/ops/soa_loss_pallas.py: terms at the observed next
+//      state, the detached cold hybrid solve, the loss.
+//   K3 model_loss_fwd_warm_kernel  replaces `_fwd_kernel_warm`: as K1, with
+//      the solve warm-started from the impulse of a previous visit.
+//   K2 model_loss_bwd_kernel (+ model_reduce_partials_kernel) replaces
+//      `_bwd_kernel`: the gradient of sum(ct * loss) at the saved impulse
+//      with respect to the derived scalars (summed over the batch) and the
+//      states.
+//
+// The box cube keeps its own kernels (contactnets_loss.cu). Each source
+// model_loss_*.cu instantiates these for one ModelSize, so that the sizes
+// build in parallel; the wrappers are in ops/soa_loss_kernels.py, which
+// builds the model descriptor. The TPU kernels read a model's derived
+// scalars from SMEM; here each block stages them in shared memory.
+//
+// K2 differentiates K1's terms and assembly by forward mode, kTangents
+// input directions a pass (model_loss_vjp): correct by construction, since
+// K1, K3 and K2 run one body of code. Each thread keeps its sample's
+// derived-scalar gradient; a warp sums it with shuffles in a fixed tree,
+// the block its warps in order, and a second pass the blocks' partials in a
+// fixed order. No atomics: float64 results repeat bit for bit.
+//
+// What bounds them on an H100 (the elbow, float32, B = 2,097,152): K1 and K3
+// read 15 + 15 values (K3 24 more) and write 26 per sample, some 0.14 ms of
+// bytes at 3.35 TB/s; their solve's ~10^5 operations or more per sample
+// bound them by operations. K2 reads 54 values and writes 30 a sample
+// (0.14 ms of bytes); its forward-mode passes do several times the
+// operations of one forward pass, so operations bound it too. One thread
+// carries a whole sample with a few hundred live values (the (7, 8) solve's
+// M, J and cone state; K2's duals), far past the 255-register cap: all
+// three spill heavily to local memory. Several threads per sample, a
+// reverse-mode K2 for the tree and shared-memory staging are later work.
+#pragma once
+
+#include "model_terms.cuh"
+
+namespace {
+
+constexpr int kModelThreads = 64;      // K1, K3
+constexpr int kModelBwdThreads = 128;  // K2
+constexpr int kModelReduceThreads = 256;
+
+template <typename S, typename Z>
+__device__ __forceinline__ void stage_params(const ModelDesc<Z>& desc,
+                                             const S* __restrict__ pvec,
+                                             S* shared_p) {
+  for (int i = threadIdx.x; i < desc.n_params; i += blockDim.x)
+    shared_p[i] = pvec[i];
+  __syncthreads();
+}
+
+template <typename S, typename Z>
+__device__ __forceinline__ void load_model_states(
+    const ModelDesc<Z>& desc, const S* __restrict__ xin,
+    const S* __restrict__ xp, long long B, long long b,
+    S (&x)[Z::NX + Z::NU], S (&x_plus)[Z::NX]) {
+#pragma unroll
+  for (int i = 0; i < Z::NX; ++i) {
+    x[i] = xin[i * B + b];
+    x_plus[i] = xp[i * B + b];
+  }
+#pragma unroll
+  for (int i = 0; i < Z::NU; ++i)
+    x[Z::NX + i] = i < desc.n_u ? xin[(Z::NX + i) * B + b] : S(0);
+}
+
+template <typename S, typename Z>
+__device__ __forceinline__ void store_model_solution(
+    S loss, const S (&f)[3][Z::K], bool valid, long long B, long long b,
+    S* __restrict__ l, S* __restrict__ force, unsigned char* __restrict__ v) {
+  l[b] = loss;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int c = 0; c < Z::K; ++c) force[(i * Z::K + c) * B + b] = f[i][c];
+  v[b] = valid ? 1 : 0;
+}
+
+// K1.
+template <typename S, typename Z>
+__global__ void __launch_bounds__(kModelThreads) model_loss_fwd_kernel(
+    const __grid_constant__ ModelDesc<Z> desc, const S* __restrict__ pvec,
+    const S* __restrict__ xin, const S* __restrict__ xp,
+    S* __restrict__ loss, S* __restrict__ force,
+    unsigned char* __restrict__ valid, long long B, double dt, double eps,
+    int ipm_iterations, int newton_iterations) {
+  __shared__ S shared_p[Z::PMAX];
+  stage_params<S, Z>(desc, pvec, shared_p);
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  S x[Z::NX + Z::NU], x_plus[Z::NX], f[3][Z::K];
+  load_model_states<S, Z>(desc, xin, xp, B, b, x, x_plus);
+  bool ok;
+  const S l = model_loss_cold<S, Z>(desc, shared_p, x, x_plus, S(dt), eps,
+                                    ipm_iterations, newton_iterations, f, ok);
+  store_model_solution<S, Z>(l, f, ok, B, b, loss, force, valid);
+}
+
+// K3.
+template <typename S, typename Z>
+__global__ void __launch_bounds__(kModelThreads) model_loss_fwd_warm_kernel(
+    const __grid_constant__ ModelDesc<Z> desc, const S* __restrict__ pvec,
+    const S* __restrict__ xin, const S* __restrict__ xp,
+    const S* __restrict__ fprev, S* __restrict__ loss, S* __restrict__ force,
+    unsigned char* __restrict__ valid, long long B, double dt, double eps,
+    int ipm_iterations, int newton_iterations) {
+  __shared__ S shared_p[Z::PMAX];
+  stage_params<S, Z>(desc, pvec, shared_p);
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  S x[Z::NX + Z::NU], x_plus[Z::NX], f_prev[3][Z::K], f[3][Z::K];
+  load_model_states<S, Z>(desc, xin, xp, B, b, x, x_plus);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int c = 0; c < Z::K; ++c)
+      f_prev[i][c] = fprev[(i * Z::K + c) * B + b];
+  bool ok;
+  const S l = model_loss_warm<S, Z>(desc, shared_p, x, x_plus, f_prev, S(dt),
+                                    eps, ipm_iterations, newton_iterations, f,
+                                    ok);
+  store_model_solution<S, Z>(l, f, ok, B, b, loss, force, valid);
+}
+
+// K2, first pass: each thread's sample (model_loss_vjp) writes the state
+// gradients; each warp sums its samples' derived-scalar gradients with
+// shuffles, and the block its warps in order, into partial (n_blocks,
+// n_params).
+template <typename S, typename Z>
+__global__ void __launch_bounds__(kModelBwdThreads) model_loss_bwd_kernel(
+    const __grid_constant__ ModelDesc<Z> desc, const S* __restrict__ pvec,
+    const S* __restrict__ xin, const S* __restrict__ xp,
+    const S* __restrict__ force, const unsigned char* __restrict__ valid,
+    const S* __restrict__ ct, S* __restrict__ partial, S* __restrict__ dxin,
+    S* __restrict__ dxp, long long B, double dt) {
+  constexpr int kWarps = kModelBwdThreads / 32;
+  __shared__ S shared_p[Z::PMAX];
+  __shared__ S warp_dp[kWarps][Z::PMAX];
+  stage_params<S, Z>(desc, pvec, shared_p);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const long long b = (long long)blockIdx.x * blockDim.x + tid;
+  const int n_p = desc.n_params;
+  S g_p[Z::PMAX];
+  if (b < B) {
+    S x[Z::NX + Z::NU], x_plus[Z::NX], f[3][Z::K];
+    load_model_states<S, Z>(desc, xin, xp, B, b, x, x_plus);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int c = 0; c < Z::K; ++c) f[i][c] = force[(i * Z::K + c) * B + b];
+    S g_xin[Z::NX + Z::NU], g_xp[Z::NX];
+    model_loss_vjp<S, Z>(desc, shared_p, x, x_plus, f, valid[b] != 0, ct[b],
+                         S(dt), g_p, g_xin, g_xp);
+#pragma unroll
+    for (int i = 0; i < Z::NX; ++i) {
+      dxin[i * B + b] = g_xin[i];
+      dxp[i * B + b] = g_xp[i];
+    }
+#pragma unroll
+    for (int i = 0; i < Z::NU; ++i)
+      if (i < desc.n_u) dxin[(Z::NX + i) * B + b] = g_xin[Z::NX + i];
+  } else {
+    for (int s = 0; s < n_p; ++s) g_p[s] = S(0);
+  }
+  for (int s = 0; s < n_p; ++s) {
+    S g = g_p[s];
+#pragma unroll
+    for (int offset = 16; offset > 0; offset >>= 1)
+      g = g + __shfl_down_sync(0xffffffffu, g, offset);
+    if (lane == 0) warp_dp[warp][s] = g;
+  }
+  __syncthreads();
+  for (int s = tid; s < n_p; s += kModelBwdThreads) {
+    S acc = warp_dp[0][s];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) acc = acc + warp_dp[w][s];
+    partial[blockIdx.x * (long long)n_p + s] = acc;
+  }
+}
+
+// K2, second pass: one block per derived scalar sums the blocks' partials,
+// each thread a fixed stride of them in order, then a fixed tree.
+template <typename S>
+__global__ void __launch_bounds__(kModelReduceThreads)
+model_reduce_partials_kernel(const S* __restrict__ partial,
+                             long long n_blocks, int n_p,
+                             S* __restrict__ dp) {
+  __shared__ S sums[kModelReduceThreads];
+  const int tid = threadIdx.x;
+  S acc = S(0);
+  for (long long j = tid; j < n_blocks; j += kModelReduceThreads)
+    acc = acc + partial[j * n_p + blockIdx.x];
+  sums[tid] = acc;
+  __syncthreads();
+  for (int stride = kModelReduceThreads / 2; stride > 0; stride >>= 1) {
+    if (tid < stride) sums[tid] = sums[tid] + sums[tid + stride];
+    __syncthreads();
+  }
+  if (tid == 0) dp[blockIdx.x] = sums[0];
+}
+
+inline long long model_blocks(long long B, int threads) {
+  return (B + threads - 1) / threads;
+}
+
+template <typename S, typename Z>
+int launch_model_fwd(const void* desc, const void* pvec, const void* xin,
+                     const void* xp, void* loss, void* force, void* valid,
+                     long long B, double dt, double eps, int ipm_iterations,
+                     int newton_iterations, void* stream) {
+  model_loss_fwd_kernel<S, Z>
+      <<<(unsigned)model_blocks(B, kModelThreads), kModelThreads, 0,
+         (cudaStream_t)stream>>>(
+          *(const ModelDesc<Z>*)desc, (const S*)pvec, (const S*)xin,
+          (const S*)xp, (S*)loss, (S*)force, (unsigned char*)valid, B, dt,
+          eps, ipm_iterations, newton_iterations);
+  return (int)cudaGetLastError();
+}
+
+template <typename S, typename Z>
+int launch_model_fwd_warm(const void* desc, const void* pvec,
+                          const void* xin, const void* xp, const void* fprev,
+                          void* loss, void* force, void* valid, long long B,
+                          double dt, double eps, int ipm_iterations,
+                          int newton_iterations, void* stream) {
+  model_loss_fwd_warm_kernel<S, Z>
+      <<<(unsigned)model_blocks(B, kModelThreads), kModelThreads, 0,
+         (cudaStream_t)stream>>>(
+          *(const ModelDesc<Z>*)desc, (const S*)pvec, (const S*)xin,
+          (const S*)xp, (const S*)fprev, (S*)loss, (S*)force,
+          (unsigned char*)valid, B, dt, eps, ipm_iterations,
+          newton_iterations);
+  return (int)cudaGetLastError();
+}
+
+template <typename S, typename Z>
+int launch_model_bwd(const void* desc, const void* pvec, const void* xin,
+                     const void* xp, const void* force, const void* valid,
+                     const void* ct, void* partial, void* dp, void* dxin,
+                     void* dxp, long long B, double dt, void* stream) {
+  const ModelDesc<Z>& d = *(const ModelDesc<Z>*)desc;
+  const long long n_blocks = model_blocks(B, kModelBwdThreads);
+  model_loss_bwd_kernel<S, Z>
+      <<<(unsigned)n_blocks, kModelBwdThreads, 0, (cudaStream_t)stream>>>(
+          d, (const S*)pvec, (const S*)xin, (const S*)xp, (const S*)force,
+          (const unsigned char*)valid, (const S*)ct, (S*)partial, (S*)dxin,
+          (S*)dxp, B, dt);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  model_reduce_partials_kernel<S>
+      <<<(unsigned)d.n_params, kModelReduceThreads, 0,
+         (cudaStream_t)stream>>>((const S*)partial, n_blocks, d.n_params,
+                                 (S*)dp);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points of one ModelSize (bound with ctypes). Tensors are
+// contiguous and batch-minor: pvec (P,), xin (n_x + n_u, B), xp (n_x, B),
+// fprev and force (3, k, B), loss and ct (B,), valid (B,) as bytes; desc
+// points to the host's ModelDesc; the backward's scratch `partial` holds
+// model_loss_bwd_scratch(B, P) values. Each returns cudaGetLastError()
+// after its launches.
+#define DEFINE_MODEL_FWD_ENTRIES(Z, NAME, S, SUFFIX)                          \
+  extern "C" int contactnets_loss_fwd_##NAME##_##SUFFIX(                     \
+      const void* desc, const void* pvec, const void* xin, const void* xp,   \
+      void* loss, void* force, void* valid, long long B, double dt,          \
+      double eps, int ipm_iterations, int newton_iterations, void* stream) { \
+    return launch_model_fwd<S, Z>(desc, pvec, xin, xp, loss, force, valid,   \
+                                  B, dt, eps, ipm_iterations,                \
+                                  newton_iterations, stream);                \
+  }                                                                          \
+  extern "C" int contactnets_loss_fwd_warm_##NAME##_##SUFFIX(                \
+      const void* desc, const void* pvec, const void* xin, const void* xp,   \
+      const void* fprev, void* loss, void* force, void* valid, long long B,  \
+      double dt, double eps, int ipm_iterations, int newton_iterations,      \
+      void* stream) {                                                        \
+    return launch_model_fwd_warm<S, Z>(desc, pvec, xin, xp, fprev, loss,     \
+                                       force, valid, B, dt, eps,             \
+                                       ipm_iterations, newton_iterations,    \
+                                       stream);                              \
+  }
+
+#define DEFINE_MODEL_BWD_ENTRIES(Z, NAME, S, SUFFIX)                          \
+  extern "C" int contactnets_loss_bwd_##NAME##_##SUFFIX(                     \
+      const void* desc, const void* pvec, const void* xin, const void* xp,   \
+      const void* force, const void* valid, const void* ct, void* partial,   \
+      void* dp, void* dxin, void* dxp, long long B, double dt, double eps,   \
+      void* stream) {                                                        \
+    (void)eps; /* no term of the gradient at a fixed impulse */              \
+    return launch_model_bwd<S, Z>(desc, pvec, xin, xp, force, valid, ct,     \
+                                  partial, dp, dxin, dxp, B, dt, stream);    \
+  }

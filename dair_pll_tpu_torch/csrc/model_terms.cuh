@@ -1,0 +1,1095 @@
+// ContactNets loss terms of any model of the fused loss kernels' class, for
+// one sample per CUDA thread.
+//
+// The model-generic counterpart of cube_terms.cuh, and of
+// dair_pll_tpu_torch/multibody/soa_terms.py's soa_loss_parts and
+// soa_loss_assemble: kinematic trees of free, revolute, prismatic and fixed
+// joints, plane-versus-convex contact pairs whose convex is a box, a polygon
+// (up to kMaxVertices vertices) or a sphere, and actuation of revolute and
+// prismatic joints. The sizes are template parameters (ModelSize: bodies,
+// configuration and velocity dimension, contact pairs, witnesses per pair),
+// so every loop over bodies, pairs, witnesses and velocity rows unrolls;
+// the model itself is a small descriptor (ModelDesc) that the wrapper builds
+// once from the MultibodyModel and passes by value. Branches on the
+// descriptor are uniform across a warp, and array indices stay compile-time
+// constants: a runtime offset (a joint's place in q or v, a body's parent)
+// is met by a compile-time loop over the candidates (pick, put).
+//
+// Every product and sum comes in the plain version's order, so that in
+// float64 the two agree to the last bits (the library is built without fused
+// multiply-adds). The derived scalars p are the layout of
+// ops/soa_loss_kernels.pack_derived: pi (10 per body), mu (one per
+// geometry), then each geometry's shape (a box's 3 half lengths, a
+// polygon's vertices, a sphere's radius).
+//
+// The scalar type T is float, double or DualN<S, N>, a forward-mode dual
+// carrying N tangents: the backward kernel K2 differentiates these same
+// functions along N input directions a pass (model_loss_vjp). The
+// kinematics' rates along qdot are a forward-mode JVP in Dual<T>, as the
+// plain version's torch.func.jvp.
+#pragma once
+
+#include "cube_terms.cuh"
+
+namespace {
+
+// The math library's functions beside this file's overloads for the dual
+// types (a name declared here would otherwise hide them).
+using ::cos;
+using ::fabs;
+using ::sin;
+using ::sqrt;
+
+// ---------------------------------------------------------------------------
+// Forward-mode dual numbers with N tangents.
+template <typename S, int N> struct DualN {
+  S v;     // value
+  S d[N];  // derivatives along N seeded directions
+  DualN() = default;
+  __device__ __forceinline__ DualN(S value) : v(value) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) d[i] = S(0);
+  }
+};
+template <typename S, int N> struct BaseOf<DualN<S, N>> { using type = S; };
+
+#define DUALN_FN template <typename S, int N> __device__ __forceinline__
+DUALN_FN DualN<S, N> operator+(const DualN<S, N>& a, const DualN<S, N>& b) {
+  DualN<S, N> r;
+  r.v = a.v + b.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] + b.d[i];
+  return r;
+}
+DUALN_FN DualN<S, N> operator-(const DualN<S, N>& a, const DualN<S, N>& b) {
+  DualN<S, N> r;
+  r.v = a.v - b.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] - b.d[i];
+  return r;
+}
+DUALN_FN DualN<S, N> operator*(const DualN<S, N>& a, const DualN<S, N>& b) {
+  DualN<S, N> r;
+  r.v = a.v * b.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * b.v + a.v * b.d[i];
+  return r;
+}
+DUALN_FN DualN<S, N> operator/(const DualN<S, N>& a, const DualN<S, N>& b) {
+  DualN<S, N> r;
+  r.v = a.v / b.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = (a.d[i] - r.v * b.d[i]) / b.v;
+  return r;
+}
+DUALN_FN DualN<S, N> operator-(const DualN<S, N>& a) {
+  DualN<S, N> r;
+  r.v = -a.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = -a.d[i];
+  return r;
+}
+// Mixed with a constant of the base type.
+DUALN_FN DualN<S, N> operator+(const DualN<S, N>& a, S c) {
+  DualN<S, N> r = a;
+  r.v = a.v + c;
+  return r;
+}
+DUALN_FN DualN<S, N> operator+(S c, const DualN<S, N>& a) {
+  DualN<S, N> r = a;
+  r.v = c + a.v;
+  return r;
+}
+DUALN_FN DualN<S, N> operator-(const DualN<S, N>& a, S c) {
+  DualN<S, N> r = a;
+  r.v = a.v - c;
+  return r;
+}
+DUALN_FN DualN<S, N> operator-(S c, const DualN<S, N>& a) {
+  DualN<S, N> r = -a;
+  r.v = c - a.v;
+  return r;
+}
+DUALN_FN DualN<S, N> operator*(const DualN<S, N>& a, S c) {
+  DualN<S, N> r;
+  r.v = a.v * c;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * c;
+  return r;
+}
+DUALN_FN DualN<S, N> operator*(S c, const DualN<S, N>& a) { return a * c; }
+DUALN_FN DualN<S, N> operator/(const DualN<S, N>& a, S c) {
+  DualN<S, N> r;
+  r.v = a.v / c;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] / c;
+  return r;
+}
+DUALN_FN DualN<S, N> sqrt(const DualN<S, N>& a) {
+  DualN<S, N> r;
+  r.v = sqrt(a.v);
+  const S half_inv = S(0.5) / r.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * half_inv;
+  return r;
+}
+// |a|, with derivative sign(a) (0 at 0, as torch's abs).
+DUALN_FN DualN<S, N> fabs(const DualN<S, N>& a) {
+  if (a.v < S(0)) return -a;
+  if (a.v > S(0)) return a;
+  return DualN<S, N>(fabs(a.v));
+}
+DUALN_FN DualN<S, N> sin(const DualN<S, N>& a) {
+  DualN<S, N> r;
+  r.v = sin(a.v);
+  const S c = cos(a.v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * c;
+  return r;
+}
+DUALN_FN DualN<S, N> cos(const DualN<S, N>& a) {
+  DualN<S, N> r;
+  r.v = cos(a.v);
+  const S s = -sin(a.v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * s;
+  return r;
+}
+// Comparisons read the value.
+DUALN_FN bool operator<(const DualN<S, N>& a, const DualN<S, N>& b) {
+  return a.v < b.v;
+}
+DUALN_FN bool operator<(const DualN<S, N>& a, S c) { return a.v < c; }
+DUALN_FN bool operator>(const DualN<S, N>& a, S c) { return a.v > c; }
+#undef DUALN_FN
+
+// Dual (value and rate along qdot) operations beyond cube_terms.cuh's, with
+// the tangents of torch's forward-mode rules.
+template <typename S>
+__device__ __forceinline__ Dual<S> operator-(const Dual<S>& a) {
+  return Dual<S>(-a.v, -a.d);
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> sin(const Dual<S>& a) {
+  return Dual<S>(sin(a.v), a.d * cos(a.v));
+}
+template <typename S>
+__device__ __forceinline__ Dual<S> cos(const Dual<S>& a) {
+  return Dual<S>(cos(a.v), a.d * (-sin(a.v)));
+}
+
+// A constant of the code in any scalar type (zero tangents).
+template <typename X> struct Const {
+  __device__ __forceinline__ static X make(double c) {
+    return X(base_t<X>(c));
+  }
+};
+template <typename T> struct Const<Dual<T>> {
+  __device__ __forceinline__ static Dual<T> make(double c) {
+    return Dual<T>(Const<T>::make(c), Const<T>::make(0.0));
+  }
+};
+template <typename X> __device__ __forceinline__ X cst(double c) {
+  return Const<X>::make(c);
+}
+
+// a[i] for a runtime index i < N, by a compile-time loop (no local memory).
+template <int N, typename X>
+__device__ __forceinline__ X pick(const X (&a)[N], int i) {
+  X r = a[0];
+#pragma unroll
+  for (int n = 1; n < N; ++n)
+    if (n == i) r = a[n];
+  return r;
+}
+// a[i] = x for a runtime index i (no store when i is out of range).
+template <int N, typename X>
+__device__ __forceinline__ void put(X (&a)[N], int i, const X& x) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+    if (n == i) a[n] = x;
+}
+
+// ---------------------------------------------------------------------------
+// Small algebra in soa.py's order of operations, on any scalar type.
+template <typename X>
+__device__ __forceinline__ void mm3(const X (&A)[3][3], const X (&B)[3][3],
+                                   X (&out)[3][3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      out[i][j] = A[i][0] * B[0][j] + A[i][1] * B[1][j] + A[i][2] * B[2][j];
+}
+// A' B.
+template <typename X>
+__device__ __forceinline__ void mtm3(const X (&A)[3][3], const X (&B)[3][3],
+                                    X (&out)[3][3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      out[i][j] = A[0][i] * B[0][j] + A[1][i] * B[1][j] + A[2][i] * B[2][j];
+}
+template <typename X>
+__device__ __forceinline__ void mv3(const X (&A)[3][3], const X (&x)[3],
+                                   X (&out)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    out[i] = A[i][0] * x[0] + A[i][1] * x[1] + A[i][2] * x[2];
+}
+// A' x (soa.matvec_t).
+template <typename X>
+__device__ __forceinline__ void mtv3(const X (&A)[3][3], const X (&x)[3],
+                                    X (&out)[3]) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    out[j] = A[0][j] * x[0] + A[1][j] * x[1] + A[2][j] * x[2];
+}
+// soa.skew, its zeros `zero`.
+template <typename X>
+__device__ __forceinline__ void skew(const X (&v)[3], const X& zero,
+                                    X (&S)[3][3]) {
+  S[0][0] = zero;  S[0][1] = -v[2]; S[0][2] = v[1];
+  S[1][0] = v[2];  S[1][1] = zero;  S[1][2] = -v[0];
+  S[2][0] = -v[1]; S[2][1] = v[0];  S[2][2] = zero;
+}
+// A (3 x 3) times J (3 x NV).
+template <typename X, int NV>
+__device__ __forceinline__ void mm3n(const X (&A)[3][3], const X (&J)[3][NV],
+                                    X (&out)[3][NV]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      out[i][j] = A[i][0] * J[0][j] + A[i][1] * J[1][j] + A[i][2] * J[2][j];
+}
+// J_a - skew(r) J_w (soa.msub(J_a, soa.matmul(soa.skew(r), J_w))).
+template <typename X, int NV>
+__device__ __forceinline__ void shift_jacobian(const X (&Ja)[3][NV],
+                                              const X (&r)[3],
+                                              const X (&Jw)[3][NV],
+                                              const X& zero,
+                                              X (&out)[3][NV]) {
+  X S[3][3], SJ[3][NV];
+  skew(r, zero, S);
+  mm3n<X, NV>(S, Jw, SJ);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < NV; ++j) out[i][j] = Ja[i][j] - SJ[i][j];
+}
+// soa.dot over n entries.
+template <typename X, int N>
+__device__ __forceinline__ X dotn(const X (&a)[N], const X (&b)[N]) {
+  X acc = a[0] * b[0];
+#pragma unroll
+  for (int i = 1; i < N; ++i) acc = acc + a[i] * b[i];
+  return acc;
+}
+
+// ---------------------------------------------------------------------------
+// The model descriptor. Joint and geometry kinds:
+constexpr int kJointFree = 0, kJointRevolute = 1, kJointPrismatic = 2,
+              kJointFixed = 3;
+constexpr int kGeomPlane = 0, kGeomBox = 1, kGeomPolygon = 2,
+              kGeomSphere = 3;
+constexpr int kMaxVertices = 8;  // vertices of a polygon
+
+// A body and its inboard joint: q_off and v_off its coordinates' place in
+// q and v, u_index its actuator's row of u (-1 for none); R_PJ, p_PJ the
+// joint frame in the parent's, axis the joint axis.
+struct BodyDesc {
+  int joint, parent, q_off, v_off, u_index;
+  double R_PJ[3][3], p_PJ[3], axis[3];
+};
+// A collision geometry: its kind, body (-1 the world), vertex count (a
+// polygon's), the indices of its friction and of its first shape scalar in
+// p, and its pose in the body frame.
+struct GeomDesc {
+  int kind, body, n_vertices, mu_index, shape_index;
+  double R_BG[3][3], p_BG[3];
+};
+
+// Sizes of an instantiation: NB bodies, NQ/NV configuration and velocity
+// dimensions, NPAIR plane-convex pairs of KQ witnesses each (K contacts,
+// pair-major); NU the most actuators, PMAX the most derived scalars.
+template <int NB_, int NQ_, int NV_, int NPAIR_, int KQ_> struct ModelSize {
+  static constexpr int NB = NB_, NQ = NQ_, NV = NV_, NPAIR = NPAIR_,
+                       KQ = KQ_, K = NPAIR_ * KQ_, NU = NB_,
+                       NX = NQ_ + NV_,
+                       PMAX = 11 * NB_ + 1 + 3 * kMaxVertices * NPAIR_;
+};
+
+template <typename Z> struct ModelDesc {
+  BodyDesc body[Z::NB];
+  GeomDesc plane[Z::NPAIR], convex[Z::NPAIR];  // each pair's geometries
+  int n_params, n_u;
+};
+
+// The derived scalars in the scalar type T: index i of p, seeded as
+// direction i (Seed).
+template <typename T> struct Seed {
+  __device__ __forceinline__ static T make(T value, int, int) {
+    return value;
+  }
+};
+template <typename S, int N> struct Seed<DualN<S, N>> {
+  // value with tangent n set where its direction d is base + n.
+  __device__ __forceinline__ static DualN<S, N> make(S value, int d,
+                                                     int base) {
+    DualN<S, N> r(value);
+#pragma unroll
+    for (int n = 0; n < N; ++n) r.d[n] = d == base + n ? S(1) : S(0);
+    return r;
+  }
+};
+template <typename T> struct ParamReader {
+  const base_t<T>* p;
+  int base;  // the first direction of this pass (DualN)
+  __device__ __forceinline__ T operator()(int i) const {
+    return Seed<T>::make(p[i], i, base);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// soa_body_kinematics with its JVP along qdot: each body's world pose and
+// angular and linear Jacobians, every entry a Dual (value, rate).
+template <typename T, int NV> struct Frame {
+  Dual<T> R[3][3], p[3], Jw[3][NV], Jv[3][NV];
+};
+
+template <typename X>
+__device__ __forceinline__ void const_mat(const double (&a)[3][3],
+                                          X (&out)[3][3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) out[i][j] = cst<X>(a[i][j]);
+}
+template <typename X>
+__device__ __forceinline__ void const_vec(const double (&a)[3], X (&out)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) out[i] = cst<X>(a[i]);
+}
+
+// Rodrigues rotation about a constant unit axis (_axis_angle_rotation).
+template <typename X>
+__device__ __forceinline__ void axis_angle_rotation(const X (&axis)[3],
+                                                    const X& angle,
+                                                    X (&out)[3][3]) {
+  const X zero = cst<X>(0.0);
+  const X s = sin(angle), c = cos(angle);
+  const X one_c = cst<X>(1.0) - c;
+  X K[3][3];
+  skew(axis, zero, K);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      out[i][j] = (i == j ? c : zero) + s * K[i][j] +
+                  one_c * axis[i] * axis[j];
+}
+
+template <typename T, typename Z>
+__device__ void body_kinematics(const ModelDesc<Z>& desc,
+                                const Dual<T> (&q)[Z::NQ],
+                                Frame<T, Z::NV> (&F)[Z::NB]) {
+  using X = Dual<T>;
+  constexpr int NV = Z::NV;
+  const X zero = cst<X>(0.0), one = cst<X>(1.0);
+#pragma unroll
+  for (int b = 0; b < Z::NB; ++b) {
+    const BodyDesc& bd = desc.body[b];
+    Frame<T, NV>& f = F[b];
+    if (bd.joint == kJointFree) {
+      X quat[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) quat[j] = pick<Z::NQ>(q, bd.q_off + j);
+      quat_to_rotmat(quat, f.R);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        f.p[i] = pick<Z::NQ>(q, bd.q_off + 4 + i);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) f.Jw[i][v] = f.Jv[i][v] = zero;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) put<NV>(f.Jw[i], bd.v_off + j, f.R[i][j]);
+        put<NV>(f.Jv[i], bd.v_off + 3 + i, one);
+      }
+      continue;
+    }
+    X R_PJ[3][3], p_PJ[3];
+    const_mat(bd.R_PJ, R_PJ);
+    const_vec(bd.p_PJ, p_PJ);
+    if (bd.joint == kJointFixed && bd.parent < 0) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        f.p[i] = p_PJ[i];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) f.R[i][j] = R_PJ[i][j];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) f.Jw[i][v] = f.Jv[i][v] = zero;
+      }
+      continue;
+    }
+    // The parent's frame; the world's for -1.
+    Frame<T, NV> P;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      P.p[i] = zero;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) P.R[i][j] = i == j ? one : zero;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) P.Jw[i][v] = P.Jv[i][v] = zero;
+    }
+#pragma unroll
+    for (int pb = 0; pb < Z::NB; ++pb)
+      if (pb < b && bd.parent == pb) P = F[pb];
+
+    X R_WJ[3][3], offset[3], r[3];
+    mm3(P.R, R_PJ, R_WJ);
+    mv3(P.R, p_PJ, offset);
+    if (bd.joint == kJointRevolute) {
+      X axis[3], rot[3][3], axis_W[3];
+      const_vec(bd.axis, axis);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) f.p[i] = P.p[i] + offset[i];
+      axis_angle_rotation(axis, pick<Z::NQ>(q, bd.q_off), rot);
+      mm3(R_WJ, rot, f.R);
+      mv3(R_WJ, axis, axis_W);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        r[i] = f.p[i] - P.p[i];
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+          f.Jw[i][v] = v == bd.v_off ? P.Jw[i][v] + axis_W[i] : P.Jw[i][v];
+      }
+      shift_jacobian<X, NV>(P.Jv, r, P.Jw, zero, f.Jv);
+    } else if (bd.joint == kJointPrismatic) {
+      X axis[3], axis_W[3];
+      const_vec(bd.axis, axis);
+      mv3(R_WJ, axis, axis_W);
+      const X disp = pick<Z::NQ>(q, bd.q_off);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        f.p[i] = P.p[i] + offset[i] + disp * axis_W[i];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        r[i] = f.p[i] - P.p[i];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) f.R[i][j] = R_WJ[i][j];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) f.Jw[i][v] = P.Jw[i][v];
+      }
+      shift_jacobian<X, NV>(P.Jv, r, P.Jw, zero, f.Jv);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+          if (v == bd.v_off) f.Jv[i][v] = f.Jv[i][v] + axis_W[i];
+    } else {  // fixed, to a body
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        f.p[i] = P.p[i] + offset[i];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) f.R[i][j] = R_WJ[i][j];
+      }
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        r[i] = f.p[i] - P.p[i];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) f.Jw[i][v] = P.Jw[i][v];
+      }
+      shift_jacobian<X, NV>(P.Jv, r, P.Jw, zero, f.Jv);
+    }
+  }
+}
+
+// soa_configuration_rate: qdot from (q, v).
+template <typename T, typename Z>
+__device__ void configuration_rate(const ModelDesc<Z>& desc,
+                                   const T (&q)[Z::NQ], const T (&v)[Z::NV],
+                                   T (&qdot)[Z::NQ]) {
+  using B = base_t<T>;
+#pragma unroll
+  for (int i = 0; i < Z::NQ; ++i) qdot[i] = T(B(0));
+#pragma unroll
+  for (int b = 0; b < Z::NB; ++b) {
+    const BodyDesc& bd = desc.body[b];
+    if (bd.joint == kJointFree) {
+      const T qw = pick<Z::NQ>(q, bd.q_off), qx = pick<Z::NQ>(q, bd.q_off + 1),
+              qy = pick<Z::NQ>(q, bd.q_off + 2),
+              qz = pick<Z::NQ>(q, bd.q_off + 3);
+      const T wx = pick<Z::NV>(v, bd.v_off), wy = pick<Z::NV>(v, bd.v_off + 1),
+              wz = pick<Z::NV>(v, bd.v_off + 2);
+      put<Z::NQ>(qdot, bd.q_off, B(0.5) * (-qx * wx - qy * wy - qz * wz));
+      put<Z::NQ>(qdot, bd.q_off + 1, B(0.5) * (qw * wx + qy * wz - qz * wy));
+      put<Z::NQ>(qdot, bd.q_off + 2, B(0.5) * (qw * wy + qz * wx - qx * wz));
+      put<Z::NQ>(qdot, bd.q_off + 3, B(0.5) * (qw * wz + qx * wy - qy * wx));
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        put<Z::NQ>(qdot, bd.q_off + 4 + i, pick<Z::NV>(v, bd.v_off + 3 + i));
+    } else if (bd.joint == kJointRevolute || bd.joint == kJointPrismatic) {
+      put<Z::NQ>(qdot, bd.q_off, pick<Z::NV>(v, bd.v_off));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// soa_geometry_kinematics for one geometry: world pose and Jacobians.
+template <typename T, typename Z>
+__device__ void geometry_frame(const GeomDesc& g,
+                               const Frame<T, Z::NV> (&F)[Z::NB],
+                               T (&R)[3][3], T (&p)[3], T (&Jw)[3][Z::NV],
+                               T (&Jv)[3][Z::NV]) {
+  using B = base_t<T>;
+  constexpr int NV = Z::NV;
+  const T zero = T(B(0));
+  T R_BG[3][3], p_BG[3];
+  const_mat(g.R_BG, R_BG);
+  const_vec(g.p_BG, p_BG);
+  if (g.body < 0) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      p[i] = p_BG[i];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) R[i][j] = R_BG[i][j];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) Jw[i][v] = Jv[i][v] = zero;
+    }
+    return;
+  }
+  T R_WB[3][3], p_WB[3], Jw_B[3][NV], Jv_B[3][NV];
+#pragma unroll
+  for (int b = 0; b < Z::NB; ++b)
+    if (b == 0 || g.body == b) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        p_WB[i] = F[b].p[i].v;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) R_WB[i][j] = F[b].R[i][j].v;
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          Jw_B[i][v] = F[b].Jw[i][v].v;
+          Jv_B[i][v] = F[b].Jv[i][v].v;
+        }
+      }
+    }
+  T offset_W[3];
+  mv3(R_WB, p_BG, offset_W);
+  mm3(R_WB, R_BG, R);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    p[i] = p_WB[i] + offset_W[i];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) Jw[i][v] = Jw_B[i][v];
+  }
+  shift_jacobian<T, NV>(Jv_B, offset_W, Jw_B, zero, Jv);
+}
+
+// _soa_support_points: the KQ witnesses of a convex geometry for a support
+// direction (in its frame): a box's or polygon's top vertices by support
+// value, through soa.sort_with_payload's insertion network (whose tie order
+// picks the witnesses); a sphere's point along the direction.
+template <typename T, typename Z>
+__device__ void support_points(const GeomDesc& g, const ParamReader<T>& p,
+                               const T (&dir)[3], T (&w)[Z::KQ][3]) {
+  using B = base_t<T>;
+  if constexpr (Z::KQ == 1) {
+    if (g.kind == kGeomSphere) {
+      const T radius = p(g.shape_index);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) w[0][i] = dir[i] * radius;
+      return;
+    }
+  }
+  T key[kMaxVertices], pay[3][kMaxVertices];
+  const int n = g.kind == kGeomBox ? 8 : g.n_vertices;
+#pragma unroll
+  for (int m = 0; m < kMaxVertices; ++m) {
+    T vert[3];
+    if (g.kind == kGeomBox) {
+      // _UNIT_BOX_VERTICES: signs (x, y, z) counting in binary, - before +.
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        vert[i] = B((m >> (2 - i)) & 1 ? 1 : -1) * p(g.shape_index + i);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        vert[i] = m < n ? p(g.shape_index + 3 * m + i) : T(B(0));
+    }
+    key[m] = vert[0] * dir[0] + vert[1] * dir[1] + vert[2] * dir[2];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) pay[i][m] = vert[i];
+  }
+#pragma unroll
+  for (int i = 1; i < kMaxVertices; ++i)
+    if (i < n) {
+#pragma unroll
+      for (int j = i; j > 0; --j) {
+        const bool swap = key[j - 1] < key[j];
+        const T a = key[j - 1], b = key[j];
+        key[j - 1] = swap ? b : a;
+        key[j] = swap ? a : b;
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          const T pa = pay[r][j - 1], pb = pay[r][j];
+          pay[r][j - 1] = swap ? pb : pa;
+          pay[r][j] = swap ? pa : pb;
+        }
+      }
+    }
+#pragma unroll
+  for (int c = 0; c < Z::KQ; ++c)
+#pragma unroll
+    for (int i = 0; i < 3; ++i) w[c][i] = pay[i][c];
+}
+
+// ---------------------------------------------------------------------------
+// Everything soa_loss_parts returns: mass matrix, cone-major contact
+// Jacobian [J_n; mu J_t], signed distances, the QP's linear term and the
+// velocity residual.
+template <typename T, typename Z> struct ModelParts {
+  T M[Z::NV][Z::NV];
+  T J[3][Z::NV][Z::K];
+  T phi[Z::K];
+  T qc[3][Z::K];
+  T dv[Z::NV];
+};
+
+// soa_contact_terms: each pair's witnesses, signed distances and Jacobian
+// rows, pair-major.
+template <typename T, typename Z>
+__device__ void contact_terms(const ModelDesc<Z>& desc,
+                              const ParamReader<T>& p,
+                              const Frame<T, Z::NV> (&F)[Z::NB],
+                              T (&J)[3][Z::NV][Z::K], T (&phi)[Z::K]) {
+  using B = base_t<T>;
+  constexpr int NV = Z::NV;
+#pragma unroll
+  for (int pp = 0; pp < Z::NPAIR; ++pp) {
+    T R_WA[3][3], p_WA[3], Jw_A[3][NV], Jv_A[3][NV];
+    T R_WB[3][3], p_WB[3], Jw_B[3][NV], Jv_B[3][NV];
+    geometry_frame<T, Z>(desc.plane[pp], F, R_WA, p_WA, Jw_A, Jv_A);
+    geometry_frame<T, Z>(desc.convex[pp], F, R_WB, p_WB, Jw_B, Jv_B);
+    T R_AB[3][3], d[3], p_AoBo_A[3];
+    mtm3(R_WA, R_WB, R_AB);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) d[i] = p_WB[i] - p_WA[i];
+    mtv3(R_WA, d, p_AoBo_A);
+    // Support direction on B: -z axis of A, in B coordinates.
+    const T dir[3] = {-R_AB[2][0], -R_AB[2][1], -R_AB[2][2]};
+    T wit[Z::KQ][3];
+    support_points<T, Z>(desc.convex[pp], p, dir, wit);
+    const T mu_a = p(desc.plane[pp].mu_index);
+    const T mu_b = p(desc.convex[pp].mu_index);
+    const T mu_pair = (B(2) * mu_a * mu_b) / (mu_a + mu_b);
+#pragma unroll
+    for (int c = 0; c < Z::KQ; ++c) {
+      const int k = pp * Z::KQ + c;
+      T w_A[3], pa[3], off_A[3], off_B[3];
+      mv3(R_AB, wit[c], w_A);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) w_A[i] = w_A[i] + p_AoBo_A[i];
+      phi[k] = w_A[2];
+      pa[0] = w_A[0];
+      pa[1] = w_A[1];
+      pa[2] = T(B(0));
+      mv3(R_WA, pa, off_A);
+      mv3(R_WB, wit[c], off_B);
+      // J_rel = (J_Bc - J_Ac), J_*c = Jv - skew(off) Jw; rows [t_x, t_y,
+      // n] in the plane's axes.
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const T sB0 = off_B[1] * Jw_B[2][v] - off_B[2] * Jw_B[1][v];
+        const T sB1 = off_B[2] * Jw_B[0][v] - off_B[0] * Jw_B[2][v];
+        const T sB2 = off_B[0] * Jw_B[1][v] - off_B[1] * Jw_B[0][v];
+        const T sA0 = off_A[1] * Jw_A[2][v] - off_A[2] * Jw_A[1][v];
+        const T sA1 = off_A[2] * Jw_A[0][v] - off_A[0] * Jw_A[2][v];
+        const T sA2 = off_A[0] * Jw_A[1][v] - off_A[1] * Jw_A[0][v];
+        const T rel[3] = {(Jv_B[0][v] - Jv_A[0][v]) - sB0 + sA0,
+                          (Jv_B[1][v] - Jv_A[1][v]) - sB1 + sA1,
+                          (Jv_B[2][v] - Jv_A[2][v]) - sB2 + sA2};
+        const T t_x = R_WA[0][0] * rel[0] + R_WA[1][0] * rel[1] +
+                      R_WA[2][0] * rel[2];
+        const T t_y = R_WA[0][1] * rel[0] + R_WA[1][1] * rel[1] +
+                      R_WA[2][1] * rel[2];
+        const T n_r = R_WA[0][2] * rel[0] + R_WA[1][2] * rel[1] +
+                      R_WA[2][2] * rel[2];
+        J[0][v][k] = n_r;
+        J[1][v][k] = mu_pair * t_x;
+        J[2][v][k] = mu_pair * t_y;
+      }
+    }
+  }
+}
+
+// soa_lagrangian_terms: mass matrix M and force F (gravity, the
+// Coriolis and centrifugal bias, actuation).
+template <typename T, typename Z>
+__device__ void lagrangian_terms(const ModelDesc<Z>& desc,
+                                 const ParamReader<T>& p,
+                                 const Frame<T, Z::NV> (&F)[Z::NB],
+                                 const T (&v)[Z::NV], const T (&u)[Z::NU],
+                                 T (&M)[Z::NV][Z::NV], T (&Fo)[Z::NV]) {
+  using B = base_t<T>;
+  constexpr int NV = Z::NV;
+  const T zero = T(B(0));
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    Fo[i] = zero;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) M[i][j] = zero;
+  }
+  const T g_W[3] = {zero, zero, T(B(-kGravity))};
+#pragma unroll
+  for (int b = 0; b < Z::NB; ++b) {
+    const Frame<T, NV>& f = F[b];
+    const T mass = p(10 * b);
+    const T c_B[3] = {p(10 * b + 1) / mass, p(10 * b + 2) / mass,
+                      p(10 * b + 3) / mass};
+    const T I_B[3][3] = {{p(10 * b + 4), p(10 * b + 7), p(10 * b + 8)},
+                         {p(10 * b + 7), p(10 * b + 5), p(10 * b + 9)},
+                         {p(10 * b + 8), p(10 * b + 9), p(10 * b + 6)}};
+    T R[3][3], Rd[3][3], Jw[3][NV], Jwd[3][NV], Jv[3][NV], Jvd[3][NV];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        R[i][j] = f.R[i][j].v;
+        Rd[i][j] = f.R[i][j].d;
+      }
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        Jw[i][j] = f.Jw[i][j].v;
+        Jwd[i][j] = f.Jw[i][j].d;
+        Jv[i][j] = f.Jv[i][j].v;
+        Jvd[i][j] = f.Jv[i][j].d;
+      }
+    }
+    T c_W[3], c_W_dot[3];
+    mv3(R, c_B, c_W);
+    mv3(Rd, c_B, c_W_dot);
+    T J_cm[3][NV], J_cm_dot[3][NV];
+    shift_jacobian<T, NV>(Jv, c_W, Jw, zero, J_cm);
+    {
+      T A[3][NV], SJ[3][3], CJ[3][NV];
+      shift_jacobian<T, NV>(Jvd, c_W_dot, Jw, zero, A);
+      skew(c_W, zero, SJ);
+      mm3n<T, NV>(SJ, Jwd, CJ);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < NV; ++j) J_cm_dot[i][j] = A[i][j] - CJ[i][j];
+    }
+    T omega[3], omega_dot_bias[3], a_cm_bias[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      omega[i] = dotn<T, NV>(Jw[i], v);
+      omega_dot_bias[i] = dotn<T, NV>(Jwd[i], v);
+      a_cm_bias[i] = dotn<T, NV>(J_cm_dot[i], v);
+    }
+    // I_cm_W = (R I_B) R'.
+    T RI[3][3], I_W[3][3];
+    mm3(R, I_B, RI);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        I_W[i][j] = RI[i][0] * R[j][0] + RI[i][1] * R[j][1] +
+                    RI[i][2] * R[j][2];
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+#pragma unroll
+      for (int j = 0; j <= i; ++j) {
+        T acc = M[i][j];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) acc = acc + mass * J_cm[a][i] * J_cm[a][j];
+#pragma unroll
+        for (int x = 0; x < 3; ++x)
+#pragma unroll
+          for (int y = 0; y < 3; ++y)
+            acc = acc + Jw[x][i] * I_W[x][y] * Jw[y][j];
+        M[i][j] = acc;
+      }
+    T I_omega[3], torque_bias[3], force_bias[3];
+    mv3(I_W, omega, I_omega);
+    mv3(I_W, omega_dot_bias, torque_bias);
+    torque_bias[0] = torque_bias[0] +
+                     (omega[1] * I_omega[2] - omega[2] * I_omega[1]);
+    torque_bias[1] = torque_bias[1] +
+                     (omega[2] * I_omega[0] - omega[0] * I_omega[2]);
+    torque_bias[2] = torque_bias[2] +
+                     (omega[0] * I_omega[1] - omega[1] * I_omega[0]);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) force_bias[a] = mass * a_cm_bias[a];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      T cor = zero, grav = zero;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        cor = cor + Jw[a][i] * torque_bias[a] + J_cm[a][i] * force_bias[a];
+        grav = grav + J_cm[a][i] * mass * g_W[a];
+      }
+      Fo[i] = Fo[i] + grav - cor;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int j = i + 1; j < NV; ++j) M[i][j] = M[j][i];
+#pragma unroll
+  for (int b = 0; b < Z::NB; ++b) {
+    const int row = desc.body[b].u_index;
+    if (row >= 0) {
+      const T ub = pick<Z::NU>(u, row);
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+        if (i == desc.body[b].v_off) Fo[i] = Fo[i] + ub;
+    }
+  }
+}
+
+// soa_loss_parts: the multibody terms at the observed next state (q, vp),
+// then the ContactNets QP pieces; v is the current state's velocity and u
+// its actuation.
+template <typename T, typename Z>
+__device__ void model_loss_parts(const ModelDesc<Z>& desc,
+                                 const ParamReader<T>& p,
+                                 const T (&v)[Z::NV], const T (&u)[Z::NU],
+                                 const T (&q)[Z::NQ], const T (&vp)[Z::NV],
+                                 base_t<T> dt, ModelParts<T, Z>& out) {
+  using B = base_t<T>;
+  constexpr int NV = Z::NV, K = Z::K;
+  Frame<T, NV> F[Z::NB];
+  {
+    T qdot[Z::NQ];
+    configuration_rate<T, Z>(desc, q, vp, qdot);
+    Dual<T> qd[Z::NQ];
+#pragma unroll
+    for (int i = 0; i < Z::NQ; ++i) qd[i] = Dual<T>(q[i], qdot[i]);
+    body_kinematics<T, Z>(desc, qd, F);
+  }
+  T Fo[NV], a_nc[NV];
+  lagrangian_terms<T, Z>(desc, p, F, vp, u, out.M, Fo);
+  contact_terms<T, Z>(desc, p, F, out.J, out.phi);
+  {
+    Ldlt<T, NV> F_M;
+    ldlt<T, NV>(out.M, F_M);
+    ldlt_solve<T, NV>(F_M, Fo, a_nc);
+  }
+#pragma unroll
+  for (int i = 0; i < NV; ++i) out.dv[i] = vp[i] - (v[i] + a_nc[i] * dt);
+  T j_dv[3][K], j_vp[3][K];
+  j_dot<T, NV, K>(out.J, out.dv, j_dv);
+  j_dot<T, NV, K>(out.J, vp, j_vp);
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    const T s1 = j_vp[1][c], s2 = j_vp[2][c];
+    const T sliding_sq = s1 * s1 + s2 * s2;
+    // Safe norm at exactly resting contacts: value 0, derivative 0.
+    const bool at_rest = sliding_sq < B(1e-24);
+    const T speed = sqrt(at_rest ? T(B(1)) : sliding_sq);
+    const T sliding_speed = at_rest ? T(B(0)) : speed;
+    out.qc[0][c] = -j_dv[0][c] + fabs(out.phi[c]) + dt * sliding_speed;
+    out.qc[1][c] = -j_dv[1][c] + dt * s1;
+    out.qc[2][c] = -j_dv[2][c] + dt * s2;
+  }
+}
+
+// soa_loss_assemble: the loss at a given (detached) impulse,
+// 0.5 f'(D + eps I) f + f'q + 0.5 dv'M dv + sum max(-phi, 0)^2, with f'D f
+// computed as (J'f)' M^-1 (J'f); 0 for a failed solve.
+template <typename T, typename Z>
+__device__ T model_loss_assemble(const ModelParts<T, Z>& lp,
+                                 const base_t<T> (&f)[3][Z::K], bool valid,
+                                 base_t<T> eps) {
+  using B = base_t<T>;
+  constexpr int NV = Z::NV, K = Z::K;
+  T jtf[NV], minv_jtf[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    T acc = T(B(0));
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      const T term = lp.J[0][j][c] * f[0][c] + lp.J[1][j][c] * f[1][c] +
+                     lp.J[2][j][c] * f[2][c];
+      acc = c == 0 ? term : acc + term;
+    }
+    jtf[j] = acc;
+  }
+  {
+    Ldlt<T, NV> F_M;
+    ldlt<T, NV>(lp.M, F_M);
+    ldlt_solve<T, NV>(F_M, jtf, minv_jtf);
+  }
+  B f_sq = B(0);
+  T f_dot_q = T(B(0)), penetration = T(B(0));
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    const B sq = f[0][c] * f[0][c] + f[1][c] * f[1][c] + f[2][c] * f[2][c];
+    const T fq = f[0][c] * lp.qc[0][c] + f[1][c] * lp.qc[1][c] +
+                 f[2][c] * lp.qc[2][c];
+    const T neg = -lp.phi[c];
+    const T pen = neg < B(0) ? T(B(0)) : neg;  // clamp_min(-phi, 0)
+    f_sq = c == 0 ? sq : f_sq + sq;
+    f_dot_q = c == 0 ? fq : f_dot_q + fq;
+    penetration = c == 0 ? pen * pen : penetration + pen * pen;
+  }
+  const T quad = dotn<T, NV>(jtf, minv_jtf) + eps * f_sq;
+  T M_dv[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) M_dv[i] = dotn<T, NV>(lp.M[i], lp.dv);
+  const T constant = B(0.5) * dotn<T, NV>(lp.dv, M_dv) + penetration;
+  const T loss = B(0.5) * quad + f_dot_q + constant;
+  return valid ? loss : T(B(0));
+}
+
+// ---------------------------------------------------------------------------
+// Per-sample bodies of the kernels. Inputs are one column of the
+// batch-minor tensors: p the derived scalars (uniform over the batch), xin
+// the current state and its actuation rows (only the velocity and the
+// actuation enter), xp the observed next state.
+template <typename S, typename Z>
+__device__ __forceinline__ void model_parts_at(const ModelDesc<Z>& desc,
+                                               const S* p,
+                                               const S (&xin)[Z::NX + Z::NU],
+                                               const S (&xp)[Z::NX], S dt,
+                                               ModelParts<S, Z>& lp) {
+  S v[Z::NV], u[Z::NU], q[Z::NQ], vp[Z::NV];
+#pragma unroll
+  for (int i = 0; i < Z::NV; ++i) {
+    v[i] = xin[Z::NQ + i];
+    vp[i] = xp[Z::NQ + i];
+  }
+#pragma unroll
+  for (int i = 0; i < Z::NU; ++i) u[i] = xin[Z::NX + i];
+#pragma unroll
+  for (int i = 0; i < Z::NQ; ++i) q[i] = xp[i];
+  model_loss_parts<S, Z>(desc, ParamReader<S>{p, 0}, v, u, q, vp, dt, lp);
+}
+
+template <typename S, typename Z>
+__device__ __forceinline__ void model_problem(const ModelParts<S, Z>& lp,
+                                              double eps,
+                                              Problem<S, Z::NV, Z::K>& P) {
+#pragma unroll
+  for (int i = 0; i < Z::NV; ++i)
+#pragma unroll
+    for (int j = 0; j < Z::NV; ++j) P.M[i][j] = lp.M[i][j];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int c = 0; c < Z::K; ++c) {
+      P.q[i][c] = lp.qc[i][c];
+#pragma unroll
+      for (int j = 0; j < Z::NV; ++j) P.J[i][j][c] = lp.J[i][j][c];
+    }
+  P.eps = S(eps);
+  P.inv_eps = S(1.0 / eps);
+  P.half_eps = S(0.5 * eps);
+}
+
+// K1's body: terms, the cold hybrid solve, the loss. Writes the impulse;
+// returns the loss and sets valid. The actuation rows of xin past n_u are
+// never read by the terms (no body's u_index reaches them).
+template <typename S, typename Z>
+__device__ S model_loss_cold(const ModelDesc<Z>& desc, const S* p,
+                             const S (&xin)[Z::NX + Z::NU],
+                             const S (&xp)[Z::NX], S dt, double eps,
+                             int ipm_iterations, int newton_iterations,
+                             S (&force)[3][Z::K], bool& valid) {
+  ModelParts<S, Z> lp;
+  model_parts_at<S, Z>(desc, p, xin, xp, dt, lp);
+  Problem<S, Z::NV, Z::K> P;
+  model_problem<S, Z>(lp, eps, P);
+  valid = cold_hybrid_solve<S, Z::NV, Z::K>(P, ipm_iterations,
+                                            newton_iterations, force);
+  return model_loss_assemble<S, Z>(lp, force, valid, S(eps));
+}
+
+// K3's body: as K1, with the warm solve from w = M^-1 J^T f_prev at the
+// current parameters.
+template <typename S, typename Z>
+__device__ S model_loss_warm(const ModelDesc<Z>& desc, const S* p,
+                             const S (&xin)[Z::NX + Z::NU],
+                             const S (&xp)[Z::NX],
+                             const S (&f_prev)[3][Z::K], S dt, double eps,
+                             int ipm_iterations, int newton_iterations,
+                             S (&force)[3][Z::K], bool& valid) {
+  ModelParts<S, Z> lp;
+  model_parts_at<S, Z>(desc, p, xin, xp, dt, lp);
+  Problem<S, Z::NV, Z::K> P;
+  model_problem<S, Z>(lp, eps, P);
+  S w[Z::NV];
+  minv_jt<S, Z::NV, Z::K>(P, f_prev, w);
+  valid = warm_hybrid_solve<S, Z::NV, Z::K>(P, ipm_iterations,
+                                            newton_iterations, w, force);
+  return model_loss_assemble<S, Z>(lp, force, valid, S(eps));
+}
+
+// Tangents carried per forward-mode pass of K2.
+constexpr int kTangents = 4;
+
+// K2's body: the gradient of ct * loss at the saved impulse f, by forward
+// mode over the input directions, kTangents a pass: the n_params derived
+// scalars (g_p), then the velocity and actuation rows of xin (g_xin's rows
+// NQ.., whose configuration rows get exactly 0), then the rows of xp
+// (g_xp). A failed solve's loss is 0, and so is its gradient.
+template <typename S, typename Z>
+__device__ void model_loss_vjp(const ModelDesc<Z>& desc, const S* p,
+                               const S (&xin)[Z::NX + Z::NU],
+                               const S (&xp)[Z::NX],
+                               const S (&f)[3][Z::K], bool valid, S ct, S dt,
+                               S* g_p, S (&g_xin)[Z::NX + Z::NU],
+                               S (&g_xp)[Z::NX]) {
+  using T = DualN<S, kTangents>;
+  const int n_p = desc.n_params, n_u = desc.n_u;
+  const int n_xin = Z::NV + n_u;  // the velocity and actuation rows
+  const int n_dir = n_p + n_xin + Z::NX;
+#pragma unroll
+  for (int i = 0; i < Z::NX + Z::NU; ++i) g_xin[i] = S(0);
+#pragma unroll
+  for (int i = 0; i < Z::NX; ++i) g_xp[i] = S(0);
+  for (int i = 0; i < n_p; ++i) g_p[i] = S(0);
+  if (!valid) return;
+#pragma unroll 1
+  for (int base = 0; base < n_dir; base += kTangents) {
+    T v[Z::NV], u[Z::NU], q[Z::NQ], vp[Z::NV];
+#pragma unroll
+    for (int i = 0; i < Z::NV; ++i)
+      v[i] = Seed<T>::make(xin[Z::NQ + i], n_p + i, base);
+#pragma unroll
+    for (int i = 0; i < Z::NU; ++i)
+      u[i] = i < n_u ? Seed<T>::make(xin[Z::NX + i], n_p + Z::NV + i, base)
+                     : T(xin[Z::NX + i]);
+#pragma unroll
+    for (int i = 0; i < Z::NQ; ++i)
+      q[i] = Seed<T>::make(xp[i], n_p + n_xin + i, base);
+#pragma unroll
+    for (int i = 0; i < Z::NV; ++i)
+      vp[i] = Seed<T>::make(xp[Z::NQ + i], n_p + n_xin + Z::NQ + i, base);
+    ModelParts<T, Z> lp;
+    model_loss_parts<T, Z>(desc, ParamReader<T>{p, base}, v, u, q, vp, dt,
+                           lp);
+    const T loss = model_loss_assemble<T, Z>(lp, f, true, S(0));
+#pragma unroll
+    for (int n = 0; n < kTangents; ++n) {
+      const int d = base + n;
+      const S g = ct * loss.d[n];
+      if (d < n_p) {
+        g_p[d] = g;
+      } else if (d < n_p + n_xin) {
+#pragma unroll
+        for (int i = 0; i < Z::NV + Z::NU; ++i)
+          if (i == d - n_p) g_xin[Z::NQ + i] = g;
+      } else if (d < n_dir) {
+#pragma unroll
+        for (int i = 0; i < Z::NX; ++i)
+          if (i == d - n_p - n_xin) g_xp[i] = g;
+      }
+    }
+  }
+}
+
+}  // namespace

@@ -23,6 +23,10 @@
 // leaves shared-memory staging, several threads per sample and occupancy
 // work to later changes.
 //
+// The elbow's instantiation, (n_v, k) = (7, 8), runs the same code on a
+// larger problem: one thread then carries M (49 values), J (168) and the
+// (3, 8) cone state, and spills far more than the cube's.
+//
 // Build: ops/soa_kernels.py compiles every source of this directory into one
 // library (no fast math: the solver relies on isfinite, NaN comparisons and
 // the |f| > 1e3 mask; no fused multiply-adds, -fmad=false, so that every
@@ -64,12 +68,12 @@ __global__ void warm_hybrid_solve_kernel(
 
 constexpr int kThreads = 32;
 
-template <typename T>
+template <typename T, int NV, int K>
 int launch(const void* M, const void* Jc, const void* qc, const void* w0,
            void* force, void* w, void* valid, long long B, double eps,
            int ipm_iterations, int newton_iterations, void* stream) {
   const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
-  warm_hybrid_solve_kernel<T, 6, 4>
+  warm_hybrid_solve_kernel<T, NV, K>
       <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
           (const T*)M, (const T*)Jc, (const T*)qc, (const T*)w0, (T*)force,
           (T*)w, (unsigned char*)valid, B, eps, ipm_iterations,
@@ -79,22 +83,21 @@ int launch(const void* M, const void* Jc, const void* qc, const void* w0,
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes). Tensors are contiguous and
-// batch-minor: M (36, B), Jc (3, 6, 4, B), qc (3, 4, B), w0 (6, B) ->
-// force (3, 4, B), w (6, B), valid (B,) as bytes. Returns
+// Plain C entry points (bound with ctypes), one per (n_v, k) and type: the
+// cube's (6, 4) and the elbow's (7, 8). Tensors are contiguous and
+// batch-minor: M (n_v * n_v, B), Jc (3, n_v, k, B), qc (3, k, B), w0 (n_v,
+// B) -> force (3, k, B), w (n_v, B), valid (B,) as bytes. Returns
 // cudaGetLastError() after the launch.
-extern "C" int warm_hybrid_solve_nv6_k4_f32(
-    const void* M, const void* Jc, const void* qc, const void* w0, void* force,
-    void* w, void* valid, long long B, double eps, int ipm_iterations,
-    int newton_iterations, void* stream) {
-  return launch<float>(M, Jc, qc, w0, force, w, valid, B, eps, ipm_iterations,
-                       newton_iterations, stream);
-}
+#define DEFINE_ENTRY(NV, K, T, SUFFIX)                                        \
+  extern "C" int warm_hybrid_solve_nv##NV##_k##K##_##SUFFIX(                 \
+      const void* M, const void* Jc, const void* qc, const void* w0,         \
+      void* force, void* w, void* valid, long long B, double eps,            \
+      int ipm_iterations, int newton_iterations, void* stream) {             \
+    return launch<T, NV, K>(M, Jc, qc, w0, force, w, valid, B, eps,          \
+                            ipm_iterations, newton_iterations, stream);      \
+  }
 
-extern "C" int warm_hybrid_solve_nv6_k4_f64(
-    const void* M, const void* Jc, const void* qc, const void* w0, void* force,
-    void* w, void* valid, long long B, double eps, int ipm_iterations,
-    int newton_iterations, void* stream) {
-  return launch<double>(M, Jc, qc, w0, force, w, valid, B, eps,
-                        ipm_iterations, newton_iterations, stream);
-}
+DEFINE_ENTRY(6, 4, float, f32)
+DEFINE_ENTRY(6, 4, double, f64)
+DEFINE_ENTRY(7, 8, float, f32)
+DEFINE_ENTRY(7, 8, double, f64)

@@ -17,9 +17,13 @@ Two paths, chosen by batch size as in the JAX package:
 * The fused batch-minor path (``use_fused``, the default from
   ``FUSED_ROLLOUT_MIN_BATCH`` rollouts and ``FUSED_LOSS_MIN_BATCH`` loss
   transitions): rollouts run the warm hybrid solve kernel K5 at every
-  step; the box cube's loss runs one CUDA kernel forward and one backward
-  (K1 or K3, and K2); a deep-support (ICNN) model runs the plain terms
-  under autograd with its detached solve on K4 (cold) or K5 (warm).
+  step (the cube's ``(n_v, k) = (6, 4)`` or the elbow's ``(7, 8)``); the
+  loss of a box, polygon or sphere model runs one CUDA kernel forward and
+  one backward (K1 or K3, and K2): the box cube's own, or the
+  model-generic ones for the sizes they are built for (the elbow, box or
+  polygon; the polygon cube); a deep-support (ICNN) model runs the plain
+  terms under autograd with its detached solve on K4 (cold) or K5
+  (warm). A model that no kernel covers raises on the card.
 * The vmapped path (the batch written out as leading dimensions): the
   integrator steps :meth:`forward_dynamics`, whose hybrid solve
   differentiates by the implicit-function theorem (or, with
@@ -172,8 +176,11 @@ class MultibodyLearnableSystem(System):
         """Whether the fused loss runs the fused loss kernels (K1-K3): on
         CUDA tensors, except for ICNN models, whose loss runs the plain
         terms with the solve kernels (K4, K5), as the JAX package runs them
-        through XLA with its solve kernels. The kernels raise for other
-        models they do not cover."""
+        through XLA with its solve kernels. The loss kernels take the box
+        cube (``soa_loss_kernels.cube_cover``) and the models of their
+        generic sizes (``generic_cover``: the elbow, box or polygon, and the
+        polygon cube, among others), and raise ``NotImplementedError`` for
+        any other model: no route runs the plain version on the card."""
         return x.device.type != "cpu" and not has_deep_support(self.model)
 
     def _check_on_device(self, **tensors: Tensor) -> None:
@@ -283,9 +290,10 @@ class MultibodyLearnableSystem(System):
         The fused path (the default from ``FUSED_ROLLOUT_MIN_BATCH``
         trajectories, for models it covers) runs one batch-minor step per
         time step (``soa_terms.soa_forward_dynamics_batch``: terms, the
-        warm-started hybrid solve on K5 for CUDA tensors, the velocity
-        update), carrying the SAP primal ``w``, forward only, under
-        ``torch.no_grad``. The vmapped path (``System.simulate_batch``)
+        warm-started hybrid solve on K5 for CUDA tensors, at the cube's
+        ``(n_v, k) = (6, 4)`` or the elbow's ``(7, 8)``, else raising; the
+        velocity update), carrying the SAP primal ``w``, forward only,
+        under ``torch.no_grad``. The vmapped path (``System.simulate_batch``)
         steps :meth:`forward_dynamics` with the batch written out, and
         differentiates through the solves' implicit-function theorem.
         ``x_0`` and ``params`` must lie on the system's device.
@@ -400,9 +408,11 @@ class MultibodyLearnableSystem(System):
           forces it and ignores ``use_apgd_kernel``. Cold budget
           ``(ipm_iterations, newton_iterations)``. CUDA tensors run the
           loss kernel K1 forward and K2 backward
-          (``ops/soa_loss_kernels.py``); ICNN models run the plain version
-          with its cold solve on K4. CPU tensors run the plain version
-          (``soa_terms.soa_contactnets_loss``) under autograd.
+          (``ops/soa_loss_kernels.py``: the box cube's, or the generic ones
+          of the elbow's or the polygon cube's size; other models raise);
+          ICNN models run the plain version with its cold solve on K4. CPU
+          tensors run the plain version (``soa_terms.soa_contactnets_loss``)
+          under autograd.
         * The vmapped path otherwise: terms and loss assembly with the
           batch written out, and one detached solve over the batch: the
           APGD kernel K6 at ``solver_iterations`` with
@@ -465,8 +475,9 @@ class MultibodyLearnableSystem(System):
         ``(3, k, n_batch)`` impulse cache (zeros for cold samples). Returns
         ``(loss (*batch,), force (3, k, n_batch))``, ``force`` the
         detached refreshed cache. CUDA tensors run the kernel K3 forward
-        and K2 backward, or, for ICNN models, the plain version with its
-        warm solve on the kernel K5; CPU tensors the plain version
+        and K2 backward (the models of ``contactnets_loss_batch``'s loss
+        kernels), or, for ICNN models, the plain version with its warm
+        solve on the kernel K5; CPU tensors the plain version
         (``soa_terms.soa_contactnets_loss_warm``).
 
         The cache is seeded, as ``bench.py`` seeds it, by a call from zeros

@@ -625,8 +625,12 @@ def soa_forward_dynamics_batch(model: MultibodyModel,
     # masking happens inside the solve.
     gamma = torch.where(phi <= contact_filter_eps, force, 0.0).unbind(0)
 
+    # J^T gamma with one reduction a row: no kernel repeats this update,
+    # so it need not fold the contacts in order as soa_solver.jt_dot does.
     M, Jc = unpack_qp(m, jc)
-    dv = soa.spd_solve(M, soa_solver.jt_dot(Jc, gamma))
+    dv = soa.spd_solve(M, [torch.sum(Jc[0][v] * gamma[0] + Jc[1][v] * gamma[1]
+                                     + Jc[2][v] * gamma[2], dim=0)
+                           for v in range(n_v)])
     v_plus = torch.stack([v_minus[i] + dv[i] for i in range(n_v)], dim=-1)
     return v_plus, w.T
 
@@ -669,12 +673,12 @@ def soa_loss_assemble(M: Smat, Jc, phi: Tensor, qc, dv: Svec, force,
     matrix-free as ``(J'f)' M^{-1} (J'f)``; 0 where the solve failed."""
     jtf = soa_solver.jt_dot(Jc, force)
     minv_jtf = soa.spd_solve(M, jtf)
-    f_sq = torch.sum(force[0] ** 2 + force[1] ** 2 + force[2] ** 2, dim=0)
-    f_dot_q = torch.sum(force[0] * qc[0] + force[1] * qc[1] +
-                        force[2] * qc[2], dim=0)
+    f_sq = soa.sum_rows(force[0] ** 2 + force[1] ** 2 + force[2] ** 2)
+    f_dot_q = soa.sum_rows(force[0] * qc[0] + force[1] * qc[1] +
+                           force[2] * qc[2])
     quad = soa.dot(jtf, minv_jtf) + eps * f_sq
 
-    penetration = torch.sum(torch.clamp_min(-phi, 0.0) ** 2, dim=0)
+    penetration = soa.sum_rows(torch.clamp_min(-phi, 0.0) ** 2)
     constant = 0.5 * soa.dot(dv, soa.matvec(M, dv)) + penetration
 
     loss = 0.5 * quad + f_dot_q + constant

@@ -47,7 +47,8 @@ SHIM = r"""#pragma once
 #define __forceinline__ inline
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline double rsqrt(double x) { return 1.0 / std::sqrt(x); }
-using std::isfinite, std::isinf, std::isnan, std::sqrt, std::fabs;
+using std::isfinite, std::isinf, std::isnan, std::sqrt, std::fabs, std::sin,
+    std::cos;
 """
 
 #: The counting scalar. ``constant`` marks a constant of the code (built
@@ -119,6 +120,16 @@ template <typename B> struct Counted {
     r.v = std::fabs(a.v);
     return r;
   }
+  // A sine or cosine counts one, as a square root does.
+  friend Counted sin(const Counted& a) {
+    return op(std::sin(a.v), a, a, false, false);
+  }
+  friend Counted cos(const Counted& a) {
+    return op(std::cos(a.v), a, a, false, false);
+  }
+  friend bool isnan(const Counted& a) { return std::isnan(a.v); }
+  friend bool isinf(const Counted& a) { return std::isinf(a.v); }
+  friend bool isfinite(const Counted& a) { return std::isfinite(a.v); }
   friend bool operator<(const Counted& a, const Counted& b) {
     return a.v < b.v;
   }
@@ -255,29 +266,36 @@ def compiler() -> Optional[str]:
     return shutil.which("g++") or shutil.which("c++")
 
 
+def _build_host(work_dir: str, source: str, text: str, level: str
+                ) -> ctypes.CDLL:
+    """Writes the stand-in headers and ``text`` as ``source`` into
+    ``work_dir``, compiles it with ``g++`` at optimization ``level``
+    against ``csrc/``, and loads it."""
+    cxx = compiler()
+    if cxx is None:
+        raise RuntimeError("no host C++ compiler (g++ or c++) found")
+    os.makedirs(work_dir, exist_ok=True)
+    for name, body in (("cuda_runtime.h", SHIM), ("counted.h", COUNTED),
+                       (source, text)):
+        with open(os.path.join(work_dir, name), "w") as handle:
+            handle.write(body)
+    library = os.path.join(work_dir, f"lib{os.path.splitext(source)[0]}.so")
+    proc = subprocess.run(
+        [cxx, "-std=c++17", level, "-ffp-contract=off", "-pthread",
+         "-shared", "-fPIC", f"-I{work_dir}", f"-I{soa_kernels.SOURCE_DIR}",
+         os.path.join(work_dir, source), "-o", library],
+        capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cxx} failed to build {source}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return ctypes.CDLL(library)
+
+
 class HostAdjoint:
     """``cube_loss_vjp`` built for the host into ``work_dir``."""
 
     def __init__(self, work_dir: str):
-        cxx = compiler()
-        if cxx is None:
-            raise RuntimeError("no host C++ compiler (g++ or c++) found")
-        os.makedirs(work_dir, exist_ok=True)
-        for name, text in (("cuda_runtime.h", SHIM), ("counted.h", COUNTED),
-                           ("batch.cpp", BATCH)):
-            with open(os.path.join(work_dir, name), "w") as handle:
-                handle.write(text)
-        library = os.path.join(work_dir, "libcube_adjoint_host.so")
-        proc = subprocess.run(
-            [cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-pthread",
-             "-shared", "-fPIC", f"-I{work_dir}",
-             f"-I{soa_kernels.SOURCE_DIR}",
-             os.path.join(work_dir, "batch.cpp"), "-o", library],
-            capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{cxx} failed to build cube_loss_vjp:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        self._lib = ctypes.CDLL(library)
+        self._lib = _build_host(work_dir, "batch.cpp", BATCH, "-O2")
         for name, argtypes in _SIGNATURES.items():
             getattr(self._lib, name).argtypes = argtypes
             getattr(self._lib, name).restype = None
@@ -323,3 +341,307 @@ class HostAdjoint:
         if gradients:
             result["gradients"] = tuple(torch.from_numpy(o) for o in outs)
         return result
+
+
+# -- the model-generic terms ----------------------------------------------------
+#: Host entries of ``csrc/model_terms.cuh``'s per-sample bodies (K1's
+#: ``model_loss_cold``, K3's ``model_loss_warm``, K2's ``model_loss_vjp``)
+#: at every generic size, in float64 and counted in float32 and float64;
+#: and the box cube's ``cube_loss_cold``/``_warm`` (``cube_terms.cuh``) in
+#: float64, to hold the two headers against each other.
+MODEL_BATCH = r"""#include <limits>
+#include <thread>
+#include <vector>
+
+#include "counted.h"
+#include "model_terms.cuh"
+
+namespace {
+// The solve's numeric traits for the counting scalar; rsqrt counts one.
+template <typename B> struct Num<Counted<B>> {
+  static constexpr B machine_eps = std::numeric_limits<B>::epsilon();
+  static constexpr B max_finite = std::numeric_limits<B>::max();
+  static Counted<B> rsqrt_(const Counted<B>& x) {
+    return Counted<B>::op(B(1) / std::sqrt(x.v), x, x, false, false);
+  }
+};
+}  // namespace
+
+// A value of the data in the scalar type S, and back.
+template <typename S> struct Scalar {
+  template <typename B> static S in(B x) { return S(x); }
+  static double out(S x) { return x; }
+};
+template <typename B> struct Scalar<Counted<B>> {
+  static Counted<B> in(B x) { return Counted<B>::data(x); }
+  static double out(const Counted<B>& x) { return x.v; }
+};
+
+enum Kind { kCold = 0, kWarm = 1, kVjp = 2 };
+
+// One kind of body over the samples [lo, hi) of n batch-minor ones: the
+// cold or warm loss (fin: the previous impulse) writing loss, force and
+// valid, or the gradient (fin: the saved impulse) writing dp (n, P), dxin
+// and dxp; outputs are skipped when null.
+template <typename S, typename B, typename Z>
+static void run(int kind, const ModelDesc<Z>& desc, const B* pvec,
+                const B* xin, const B* xp, const B* fin,
+                const unsigned char* valid_in, const B* ct, long long n,
+                long long lo, long long hi, double dt, double eps, int ipm,
+                int newton, B* loss, B* force, unsigned char* valid, B* dp,
+                B* dxin, B* dxp) {
+  using V = Scalar<S>;
+  constexpr int K = Z::K, NX = Z::NX, NU = Z::NU;
+  const int n_p = desc.n_params;
+  S p[Z::PMAX];
+  for (int i = 0; i < n_p; ++i) p[i] = V::in(pvec[i]);
+  const S dt_s = V::in(B(dt));
+  for (long long b = lo; b < hi; ++b) {
+    S x[NX + NU], x_plus[NX], f_in[3][K], f[3][K];
+    for (int i = 0; i < NX; ++i) {
+      x[i] = V::in(xin[i * n + b]);
+      x_plus[i] = V::in(xp[i * n + b]);
+    }
+    for (int i = 0; i < NU; ++i)
+      x[NX + i] = i < desc.n_u ? V::in(xin[(NX + i) * n + b]) : S(0);
+    if (fin != nullptr)
+      for (int i = 0; i < 3; ++i)
+        for (int c = 0; c < K; ++c) f_in[i][c] = V::in(fin[(i * K + c) * n + b]);
+    if (kind == kVjp) {
+      S g_p[Z::PMAX], g_xin[NX + NU], g_xp[NX];
+      model_loss_vjp<S, Z>(desc, p, x, x_plus, f_in, valid_in[b] != 0,
+                           V::in(ct[b]), dt_s, g_p, g_xin, g_xp);
+      if (dp == nullptr) continue;
+      for (int i = 0; i < n_p; ++i) dp[b * n_p + i] = B(V::out(g_p[i]));
+      for (int i = 0; i < NX + desc.n_u; ++i)
+        dxin[i * n + b] = B(V::out(g_xin[i]));
+      for (int i = 0; i < NX; ++i) dxp[i * n + b] = B(V::out(g_xp[i]));
+      continue;
+    }
+    bool ok;
+    const S l = kind == kCold
+                    ? model_loss_cold<S, Z>(desc, p, x, x_plus, dt_s, eps, ipm,
+                                            newton, f, ok)
+                    : model_loss_warm<S, Z>(desc, p, x, x_plus, f_in, dt_s,
+                                            eps, ipm, newton, f, ok);
+    if (loss == nullptr) continue;
+    loss[b] = B(V::out(l));
+    for (int i = 0; i < 3; ++i)
+      for (int c = 0; c < K; ++c) force[(i * K + c) * n + b] = B(V::out(f[i][c]));
+    valid[b] = ok ? 1 : 0;
+  }
+}
+
+// The counts of one kind on Counted<B> over n samples, on `threads`
+// threads; counts = {needed, executed}.
+template <typename B, typename Z>
+static void count(int kind, const ModelDesc<Z>& desc, const B* pvec,
+                  const B* xin, const B* xp, const B* fin,
+                  const unsigned char* valid_in, const B* ct, long long n,
+                  double dt, double eps, int ipm, int newton, int threads,
+                  long long* counts) {
+  std::vector<std::thread> pool;
+  std::vector<Tally> tallies(threads);
+  for (int t = 0; t < threads; ++t)
+    pool.emplace_back([=, &desc, &tallies] {
+      tally = Tally();
+      run<Counted<B>, B, Z>(kind, desc, pvec, xin, xp, fin, valid_in, ct, n,
+                            n * t / threads, n * (t + 1) / threads, dt, eps,
+                            ipm, newton, nullptr, nullptr, nullptr, nullptr,
+                            nullptr, nullptr);
+      tallies[t] = tally;
+    });
+  counts[0] = counts[1] = 0;
+  for (int t = 0; t < threads; ++t) {
+    pool[t].join();
+    counts[0] += tallies[t].needed;
+    counts[1] += tallies[t].executed;
+  }
+}
+
+#define HOST_ENTRIES(Z, NAME)                                                \
+  extern "C" void model_host_##NAME(                                         \
+      int kind, const void* desc, const double* pvec, const double* xin,     \
+      const double* xp, const double* fin, const unsigned char* valid_in,    \
+      const double* ct, long long n, double dt, double eps, int ipm,         \
+      int newton, double* loss, double* force, unsigned char* valid,         \
+      double* dp, double* dxin, double* dxp) {                               \
+    run<double, double, Z>(kind, *(const ModelDesc<Z>*)desc, pvec, xin, xp,  \
+                           fin, valid_in, ct, n, 0, n, dt, eps, ipm, newton, \
+                           loss, force, valid, dp, dxin, dxp);               \
+  }                                                                          \
+  extern "C" void model_count_##NAME##_f32(                                  \
+      int kind, const void* desc, const float* pvec, const float* xin,       \
+      const float* xp, const float* fin, const unsigned char* valid_in,      \
+      const float* ct, long long n, double dt, double eps, int ipm,          \
+      int newton, int threads, long long* counts) {                          \
+    count<float, Z>(kind, *(const ModelDesc<Z>*)desc, pvec, xin, xp, fin,    \
+                    valid_in, ct, n, dt, eps, ipm, newton, threads, counts); \
+  }                                                                          \
+  extern "C" void model_count_##NAME##_f64(                                  \
+      int kind, const void* desc, const double* pvec, const double* xin,     \
+      const double* xp, const double* fin, const unsigned char* valid_in,    \
+      const double* ct, long long n, double dt, double eps, int ipm,         \
+      int newton, int threads, long long* counts) {                          \
+    count<double, Z>(kind, *(const ModelDesc<Z>*)desc, pvec, xin, xp, fin,   \
+                     valid_in, ct, n, dt, eps, ipm, newton, threads,         \
+                     counts);                                                \
+  }
+
+SIZE_ENTRIES
+
+// cube_loss_cold<double> (fprev null) or cube_loss_warm<double>.
+extern "C" void cube_host_f64(const double* pvec, const double* xin,
+                              const double* xp, const double* fprev,
+                              long long n, double dt, double eps, int ipm,
+                              int newton, double* loss, double* force,
+                              unsigned char* valid) {
+  double p[kCubeP];
+  for (int i = 0; i < kCubeP; ++i) p[i] = pvec[i];
+  for (long long b = 0; b < n; ++b) {
+    double x[kCubeNX], x_plus[kCubeNX], f_prev[3][kCubeK], f[3][kCubeK];
+    for (int i = 0; i < kCubeNX; ++i) {
+      x[i] = xin[i * n + b];
+      x_plus[i] = xp[i * n + b];
+    }
+    bool ok;
+    double l;
+    if (fprev == nullptr) {
+      l = cube_loss_cold<double>(p, x, x_plus, dt, eps, ipm, newton, f, ok);
+    } else {
+      for (int i = 0; i < 3; ++i)
+        for (int c = 0; c < kCubeK; ++c)
+          f_prev[i][c] = fprev[(i * kCubeK + c) * n + b];
+      l = cube_loss_warm<double>(p, x, x_plus, f_prev, dt, eps, ipm, newton,
+                                 f, ok);
+    }
+    loss[b] = l;
+    for (int i = 0; i < 3; ++i)
+      for (int c = 0; c < kCubeK; ++c) force[(i * kCubeK + c) * n + b] = f[i][c];
+    valid[b] = ok ? 1 : 0;
+  }
+}
+"""
+
+_KINDS = {"cold": 0, "warm": 1, "vjp": 2}
+_HOST_ARGS = [_I, _P] + [_P] * 6 + [_LL, _D, _D, _I, _I] + [_P] * 6
+_COUNT_ARGS = [_I, _P] + [_P] * 6 + [_LL, _D, _D, _I, _I, _I, _P]
+
+
+def _model_batch_source() -> str:
+    sizes = "\n".join(
+        f"using Size_{name} = ModelSize<{', '.join(map(str, dims))}>;\n"
+        f"HOST_ENTRIES(Size_{name}, {name})"
+        for name, dims in soa_kernels.MODEL_SIZES.items())
+    return MODEL_BATCH.replace("SIZE_ENTRIES", sizes)
+
+
+class HostModelTerms:
+    """``csrc/model_terms.cuh``'s per-sample bodies built for the host
+    into ``work_dir``: the loss kernels' cold and warm loss and K2's
+    gradient of any model the generic kernels cover, in float64 and
+    counted; and the box cube's loss from ``cube_terms.cuh``."""
+
+    def __init__(self, work_dir: str):
+        # -O1: the unrolled bodies of every size and scalar make one large
+        # source, which -O2 compiles several times slower.
+        self._lib = _build_host(work_dir, "model_batch.cpp",
+                                _model_batch_source(), "-O1")
+        for name in soa_kernels.MODEL_SIZES:
+            getattr(self._lib, f"model_host_{name}").argtypes = _HOST_ARGS
+            for s in ("f32", "f64"):
+                getattr(self._lib, f"model_count_{name}_{s}").argtypes = \
+                    _COUNT_ARGS
+        self._lib.cube_host_f64.argtypes = [_P] * 4 + [_LL, _D, _D, _I, _I] + \
+            [_P] * 3
+        for fn in (self._lib.cube_host_f64,
+                   *(getattr(self._lib, f"model_host_{n}")
+                     for n in soa_kernels.MODEL_SIZES)):
+            fn.restype = None
+
+    @staticmethod
+    def _desc(model):
+        from dair_pll_tpu_torch.ops import soa_loss_kernels
+        name = soa_loss_kernels.generic_size(model)
+        if name is None:
+            raise NotImplementedError("the generic loss kernels do not cover "
+                                      "this model")
+        return name, soa_loss_kernels.model_descriptor(model)
+
+    @staticmethod
+    def _array(t, dtype):
+        if t is None:
+            return None
+        return np.ascontiguousarray(t.detach().cpu().numpy(), dtype=dtype)
+
+    def loss(self, model, pvec: Tensor, xin: Tensor, xp: Tensor, dt: float,
+             eps: float, ipm: int, newton: int,
+             fprev: Optional[Tensor] = None) -> Tuple[Tensor, Tensor,
+                                                      Tensor]:
+        """K1's body (``fprev`` None) or K3's in float64 over a
+        batch-minor batch: ``(loss (B,), force (3, k, B), valid (B,))``."""
+        name, desc = self._desc(model)
+        n = xin.shape[1]
+        ins = [self._array(t, np.float64) for t in (pvec, xin, xp, fprev)]
+        outs = [np.zeros(n), np.zeros((3, model.n_contacts, n)),
+                np.zeros(n, dtype=np.uint8)]
+        getattr(self._lib, f"model_host_{name}")(
+            _KINDS["cold" if fprev is None else "warm"],
+            ctypes.addressof(desc), *[_ptr(a) for a in ins], None, None, n,
+            dt, eps, ipm, newton, *[_ptr(a) for a in outs], None, None, None)
+        return (torch.from_numpy(outs[0]), torch.from_numpy(outs[1]),
+                torch.from_numpy(outs[2].astype(bool)))
+
+    def cube_loss(self, pvec: Tensor, xin: Tensor, xp: Tensor, dt: float,
+                  eps: float, ipm: int, newton: int,
+                  fprev: Optional[Tensor] = None):
+        """``cube_terms.cuh``'s ``cube_loss_cold`` (``fprev`` None) or
+        ``cube_loss_warm`` in float64: ``(loss, force, valid)``."""
+        n = xin.shape[1]
+        ins = [self._array(t, np.float64) for t in (pvec, xin, xp, fprev)]
+        outs = [np.zeros(n), np.zeros((3, 4, n)), np.zeros(n, dtype=np.uint8)]
+        self._lib.cube_host_f64(*[_ptr(a) for a in ins], n, dt, eps, ipm,
+                                newton, *[_ptr(a) for a in outs])
+        return (torch.from_numpy(outs[0]), torch.from_numpy(outs[1]),
+                torch.from_numpy(outs[2].astype(bool)))
+
+    def vjp(self, model, pvec: Tensor, xin: Tensor, xp: Tensor,
+            force: Tensor, valid: Tensor, ct: Tensor, dt: float
+            ) -> Tuple[Tensor, Tensor, Tensor]:
+        """K2's body in float64: ``dp`` per sample ``(B, P)``, ``dxin`` and
+        ``dxp`` shaped as the inputs."""
+        name, desc = self._desc(model)
+        n = xin.shape[1]
+        ins = [self._array(t, np.float64) for t in (pvec, xin, xp, force)]
+        ins += [self._array(valid, np.uint8), self._array(ct, np.float64)]
+        outs = [np.zeros((n, pvec.numel())), np.zeros(tuple(xin.shape)),
+                np.zeros(tuple(xp.shape))]
+        getattr(self._lib, f"model_host_{name}")(
+            _KINDS["vjp"], ctypes.addressof(desc), *[_ptr(a) for a in ins],
+            n, dt, 0.0, 0, 0, None, None, None, *[_ptr(a) for a in outs])
+        return tuple(torch.from_numpy(o) for o in outs)
+
+    def count(self, kind: str, model, pvec: Tensor, xin: Tensor, xp: Tensor,
+              fin: Optional[Tensor], valid: Optional[Tensor],
+              ct: Optional[Tensor], dt: float, eps: float, ipm: int,
+              newton: int, threads: int = 1) -> Dict:
+        """The operations one body (``kind`` ``cold``, ``warm`` or
+        ``vjp``; ``fin`` the previous or the saved impulse) does over the
+        batch in ``xin``'s dtype (float32 or float64), on ``threads``
+        threads: ``{"needed": ..., "executed": ...}``."""
+        name, desc = self._desc(model)
+        dtype = _NP[xin.dtype]
+        ins = [self._array(t, dtype) for t in (pvec, xin, xp, fin)]
+        ins += [self._array(valid, np.uint8), self._array(ct, dtype)]
+        counts = np.zeros(2, dtype=np.int64)
+        getattr(self._lib, f"model_count_{name}_{_SUFFIX[xin.dtype]}")(
+            _KINDS[kind], ctypes.addressof(desc), *[_ptr(a) for a in ins],
+            xin.shape[1], dt, eps, ipm, newton, threads, counts.ctypes.data)
+        return {"needed": int(counts[0]), "executed": int(counts[1])}
+
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _ptr(array) -> Optional[int]:
+    return None if array is None else array.ctypes.data

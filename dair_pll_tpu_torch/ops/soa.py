@@ -89,6 +89,18 @@ def dot(a: Svec, b: Svec) -> Tensor:
     return acc
 
 
+def sum_rows(t: Tensor) -> Tensor:
+    """Sum over the leading (contact) axis of ``(k, B)``, added in row
+    order: ``((t[0] + t[1]) + t[2]) + ...``. The CUDA kernels add in this
+    order, and so does ``torch.sum`` over a few rows on the CPU; on the
+    card ``torch.sum`` may pair the rows otherwise, so the plain versions
+    fold explicitly and repeat the kernels' rounding on either device."""
+    acc = t[0]
+    for i in range(1, t.shape[0]):
+        acc = acc + t[i]
+    return acc
+
+
 def norm(a: Svec, floor: float = 0.0) -> Tensor:
     return torch.sqrt(torch.clamp_min(dot(a, a), floor))
 

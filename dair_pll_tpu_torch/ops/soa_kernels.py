@@ -14,13 +14,16 @@ TPU kernel ``_warm_kernel``): the whole solve of
 ``csrc/warm_hybrid_solve.cu``, one CUDA thread per sample. For tensors on
 the CPU the wrapper calls the plain version in ``ops/soa_solver.py``; for
 CUDA tensors it launches the kernel or raises.
-``solve_warm_hybrid_soa_cuda.launches`` counts launches.
+``solve_warm_hybrid_soa_cuda.launches`` counts launches, and
+``launches_by`` counts them by instantiation: ``(n_v, k)`` is ``(6, 4)``
+(the cube) or ``(7, 8)`` (the elbow), each in float32 and float64.
 
 The cold hybrid solve kernel is the counterpart of
 ``solve_contact_impulse_soa_pallas`` (the TPU kernel ``_kernel``): the
 whole of ``ops/soa_solver.solve_contact_impulse_soa`` in one launch of
 ``csrc/cold_hybrid_solve.cu``, with the same routing;
-``solve_contact_impulse_soa_cuda.launches`` counts its launches. The
+``solve_contact_impulse_soa_cuda.launches`` (and ``launches_by``) counts
+its launches. The
 ContactNets loss kernels' wrappers are in ``ops/soa_loss_kernels.py``,
 the APGD cone solve kernel's in ``ops/cone_kernels.py``.
 """
@@ -32,6 +35,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from typing import List, Optional, Tuple
 
 import torch
@@ -43,33 +47,56 @@ _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE_DIR = os.path.join(_PACKAGE_DIR, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "kernels")
 
-#: Problem sizes the kernel is instantiated for: (n_v, k) of the cube.
-KERNEL_SHAPES = ((6, 4),)
-_ENTRY = {torch.float32: "warm_hybrid_solve_nv6_k4_f32",
-          torch.float64: "warm_hybrid_solve_nv6_k4_f64"}
-_COLD_ENTRY = {torch.float32: "cold_hybrid_solve_nv6_k4_f32",
-               torch.float64: "cold_hybrid_solve_nv6_k4_f64"}
+#: Problem sizes the solve kernels are instantiated for, (n_v, k): the
+#: cube's and the elbow's.
+KERNEL_SHAPES = ((6, 4), (7, 8))
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_ENTRY = {(n_v, k, dtype): f"warm_hybrid_solve_nv{n_v}_k{k}_{suffix}"
+          for n_v, k in KERNEL_SHAPES for dtype, suffix in _SUFFIX.items()}
+_COLD_ENTRY = {(n_v, k, dtype): f"cold_hybrid_solve_nv{n_v}_k{k}_{suffix}"
+               for n_v, k in KERNEL_SHAPES
+               for dtype, suffix in _SUFFIX.items()}
+#: The model-generic ContactNets loss kernels' sizes (``csrc/
+#: model_loss_{fwd,bwd}_*.cu``): name -> (bodies, n_q, n_v, plane-convex
+#: pairs, witnesses per pair).
+MODEL_SIZES = {"b1_q7_v6_k4": (1, 7, 6, 1, 4),
+               "b2_q8_v7_k8": (2, 8, 7, 2, 4)}
 _P, _I, _LL, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_double)
+_FWD, _FWD_WARM, _BWD = ([_P] * 6 + [_LL, _D, _D, _I, _I, _P],
+                         [_P] * 7 + [_LL, _D, _D, _I, _I, _P],
+                         [_P] * 10 + [_LL, _D, _D, _P])
 #: ``ctypes`` signatures of the library's entry points: argument types and
-#: return type. Pointers and the stream are ``c_void_p``.
+#: return type. Pointers and the stream are ``c_void_p``; the model-generic
+#: loss entries take the model descriptor's address first.
 SIGNATURES = {
     **{name: ([_P] * 7 + [_LL, _D, _I, _I, _P], _I)
        for name in _ENTRY.values()},
     **{name: ([_P] * 5 + [_LL, _D, _I, _I, _P], _I)
        for name in _COLD_ENTRY.values()},
-    **{f"contactnets_loss_fwd_cube_{s}": ([_P] * 6 + [_LL, _D, _D, _I, _I,
-                                                      _P], _I)
-       for s in ("f32", "f64")},
-    **{f"contactnets_loss_fwd_warm_cube_{s}": ([_P] * 7 + [_LL, _D, _D, _I,
-                                                           _I, _P], _I)
-       for s in ("f32", "f64")},
-    **{f"contactnets_loss_bwd_cube_{s}": ([_P] * 10 + [_LL, _D, _D, _P], _I)
-       for s in ("f32", "f64")},
+    **{f"contactnets_loss_{kind}_{model}_{s}": (
+        args if model == "cube" else [_P] + args, _I)
+       for kind, args in (("fwd", _FWD), ("fwd_warm", _FWD_WARM),
+                          ("bwd", _BWD))
+       for model in ("cube", *MODEL_SIZES) for s in _SUFFIX.values()},
     "contactnets_loss_bwd_scratch": ([_LL], _LL),
+    "model_loss_bwd_scratch": ([_LL, _I], _LL),
     **{f"apgd_cone_solve_{s}": ([_P] * 3 + [_LL, _I, _I, _P], _I)
        for s in ("f32", "f64")},
 }
+
+
+def count_launch(wrapper, instance: str) -> None:
+    """Adds one launch to a wrapper's count, in all and for the kernel's
+    instantiation (``wrapper.launches_by``, by size or model)."""
+    wrapper.launches += 1
+    wrapper.launches_by[instance] = wrapper.launches_by.get(instance, 0) + 1
+
+
+def reset_launches(wrapper) -> None:
+    """Sets a wrapper's launch counts to 0."""
+    wrapper.launches = 0
+    wrapper.launches_by = {}
 
 
 class _Library:
@@ -126,21 +153,31 @@ def library_path(source_dir: str = SOURCE_DIR,
 
 def _build(path: str) -> str:
     """Compiles every source at once (one ``nvcc`` each), then links them
-    into ``path``; returns the compilers' output."""
+    into ``path``; returns the compilers' output, each source's headed by
+    its name and the seconds its compile took."""
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as work:
         procs = []
+        start = time.perf_counter()
         for source in _sources(SOURCE_DIR):
             obj = os.path.join(work, os.path.basename(source) + ".o")
-            procs.append((source, obj, subprocess.Popen(
+            out = open(obj + ".log", "w+")
+            procs.append((source, obj, out, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", "-o", obj, source],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+                stdout=out, stderr=subprocess.STDOUT, text=True)))
+        seconds = {}
+        while len(seconds) < len(procs):
+            for source, _, _, proc in procs:
+                if source not in seconds and proc.poll() is not None:
+                    seconds[source] = time.perf_counter() - start
+            time.sleep(0.05)
         log = []
         failed = []
-        for source, _, proc in procs:
-            out, _ = proc.communicate()
-            log.append(f"== {os.path.basename(source)}\n{out}")
+        for source, _, out, proc in procs:
+            out.seek(0)
+            log.append(f"== {os.path.basename(source)} "
+                       f"({seconds[source]:.1f} s)\n{out.read()}")
+            out.close()
             if proc.returncode != 0:
                 failed.append(source)
         if failed:
@@ -148,7 +185,7 @@ def _build(path: str) -> str:
                                + "\n".join(log))
         tmp = os.path.join(work, "lib.so")
         link = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp,
-                               *(obj for _, obj, _ in procs)],
+                               *(obj for _, obj, _, _ in procs)],
                               capture_output=True, text=True, check=False)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc failed to link the kernel library:\n"
@@ -237,9 +274,10 @@ def _check_qp(m: Tensor, jc: Tensor, qc: Tensor) -> Tuple[int, int, int]:
     _, n_v, k, B = jc.shape
     if (n_v, k) not in KERNEL_SHAPES:
         raise ValueError(f"no kernel for (n_v, k) = {(n_v, k)}; built for "
-                         f"{KERNEL_SHAPES}")
+                         f"{KERNEL_SHAPES} (other sizes: ROADMAP.md, Queue "
+                         "2)")
     dtype = m.dtype
-    if dtype not in _ENTRY:
+    if dtype not in _SUFFIX:
         raise TypeError(f"no kernel for dtype {dtype}")
     check_tensor("m", m, (n_v * n_v, B), dtype, m.device)
     check_tensor("jc", jc, (3, n_v, k, B), dtype, m.device)
@@ -268,8 +306,8 @@ def solve_warm_hybrid_soa_cuda_packed(
     ``w (n_v, B)``, ``valid (B,)`` bool.
 
     CPU tensors go to the plain version; CUDA tensors launch the kernel
-    on the current stream (float32 or float64, ``(n_v, k) = (6, 4)``,
-    contiguous) or raise."""
+    on the current stream (float32 or float64, ``(n_v, k)`` in
+    ``KERNEL_SHAPES``, contiguous) or raise."""
     if on_cpu(m, jc, qc, w0):
         return plain_packed(m, jc, qc, w0, eps, ipm_iterations,
                             newton_iterations)
@@ -282,7 +320,7 @@ def solve_warm_hybrid_soa_cuda_packed(
     valid = torch.empty((B,), dtype=torch.bool, device=m.device)
     if B == 0:
         return force, w, valid
-    fn = getattr(load_library(), _ENTRY[dtype])
+    fn = getattr(load_library(), _ENTRY[n_v, k, dtype])
     with torch.cuda.device(m.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(m.data_ptr(), jc.data_ptr(), qc.data_ptr(), w0.data_ptr(),
@@ -292,7 +330,7 @@ def solve_warm_hybrid_soa_cuda_packed(
     if err != 0:
         raise RuntimeError(f"warm hybrid solve kernel launch failed: CUDA "
                            f"error {err}")
-    solve_warm_hybrid_soa_cuda.launches += 1
+    count_launch(solve_warm_hybrid_soa_cuda, f"nv{n_v}_k{k}")
     return force, w, valid
 
 
@@ -311,7 +349,7 @@ def solve_warm_hybrid_soa_cuda(M, Jc, qc, w_carry, eps: float,
     return soa.unstack(force), soa.unstack(w), valid
 
 
-solve_warm_hybrid_soa_cuda.launches = 0
+reset_launches(solve_warm_hybrid_soa_cuda)
 
 
 def plain_packed_cold(m: Tensor, jc: Tensor, qc: Tensor, eps: float,
@@ -334,17 +372,17 @@ def solve_contact_impulse_soa_cuda_packed(
     ``valid (B,)`` bool.
 
     CPU tensors go to the plain version; CUDA tensors launch the kernel
-    on the current stream (float32 or float64, ``(n_v, k) = (6, 4)``,
-    contiguous) or raise."""
+    on the current stream (float32 or float64, ``(n_v, k)`` in
+    ``KERNEL_SHAPES``, contiguous) or raise."""
     if on_cpu(m, jc, qc):
         return plain_packed_cold(m, jc, qc, eps, ipm_iterations,
                                  newton_iterations)
-    _, k, B = _check_qp(m, jc, qc)
+    n_v, k, B = _check_qp(m, jc, qc)
     force = torch.empty((3, k, B), dtype=m.dtype, device=m.device)
     valid = torch.empty((B,), dtype=torch.bool, device=m.device)
     if B == 0:
         return force, valid
-    fn = getattr(load_library(), _COLD_ENTRY[m.dtype])
+    fn = getattr(load_library(), _COLD_ENTRY[n_v, k, m.dtype])
     with torch.cuda.device(m.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(m.data_ptr(), jc.data_ptr(), qc.data_ptr(),
@@ -353,7 +391,7 @@ def solve_contact_impulse_soa_cuda_packed(
     if err != 0:
         raise RuntimeError(f"cold hybrid solve kernel launch failed: CUDA "
                            f"error {err}")
-    solve_contact_impulse_soa_cuda.launches += 1
+    count_launch(solve_contact_impulse_soa_cuda, f"nv{n_v}_k{k}")
     return force, valid
 
 
@@ -370,4 +408,4 @@ def solve_contact_impulse_soa_cuda(M, Jc, qc, eps: float,
     return soa.unstack(force), valid
 
 
-solve_contact_impulse_soa_cuda.launches = 0
+reset_launches(solve_contact_impulse_soa_cuda)

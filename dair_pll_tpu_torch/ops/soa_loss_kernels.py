@@ -1,25 +1,37 @@
 r"""Hand-written CUDA kernels of the ContactNets loss and their autograd.
 
 Counterpart of ``dair_pll_tpu/ops/soa_loss_pallas.py``. The whole loss
-step runs in two launches, both in ``csrc/contactnets_loss.cu``, one CUDA
-thread per sample:
+step runs in two launches, one CUDA thread per sample:
 
 * **forward** (K1 cold, K3 epoch-warm): the terms at the observed next
   state, the detached hybrid cone solve and the loss assembly
   (:func:`fused_loss_fwd`, :func:`fused_loss_fwd_warm`).
 * **backward** (K2, shared by both): the gradient does not flow through
   the solve (envelope theorem), so the kernel recomputes the terms and
-  the assembly at the saved impulse and differentiates them in one
-  reverse-mode sweep per sample, with respect to the derived scalar
-  parameters (summed over the batch) and the states
+  the assembly at the saved impulse and differentiates them with respect
+  to the derived scalar parameters (summed over the batch) and the states
   (:func:`fused_loss_bwd`).
 
+Two sets of kernels serve the JAX kernels' model class (the fused path's
+models whose geometries are planes, boxes, polygons and spheres):
+
+* the box cube's own (:func:`cube_cover`; ``csrc/contactnets_loss.cu`` on
+  ``cube_terms.cuh``, K2 a hand-written reverse-mode sweep,
+  ``cube_adjoint.cuh``);
+* the model-generic ones (:func:`generic_cover`; ``csrc/model_loss_*.cu``
+  on ``model_terms.cuh``, K2 forward mode over the input directions), one
+  build per size of ``soa_kernels.MODEL_SIZES``: one free body with a
+  4-witness pair (the polygon cube), and a free base with a revolute or
+  prismatic joint and two 4-witness pairs (the elbow, box or polygon).
+  They read the model from a descriptor (:func:`model_descriptor`).
+
 Beside each kernel stands its plain PyTorch version (:func:`plain_loss_fwd`,
-:func:`plain_loss_fwd_warm`, :func:`plain_loss_bwd`): the wrappers run it
-for CPU tensors, and for CUDA tensors launch the kernel or raise. The
-``launches`` attribute of each wrapper counts its kernel's launches. The
-kernels are instantiated for the cube (:func:`kernels_cover`) in float32
-and float64.
+:func:`plain_loss_fwd_warm`, :func:`plain_loss_bwd`), which serves every
+model: the wrappers run it for CPU tensors, and for CUDA tensors launch
+the kernel or raise (a model outside both covers raises
+``NotImplementedError``). The ``launches`` attribute of each wrapper counts
+its kernel's launches, ``launches_by`` by instantiation (``"cube"`` or a
+size's name). The kernels take float32 and float64.
 
 The chain from ``MultibodyParams`` to the packed derived vector
 (``soa_terms.derive_scalar_params`` and :func:`pack_derived`) is ordinary
@@ -28,7 +40,9 @@ torch autograd outside the kernels; :class:`_FusedLoss` and
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import ctypes
+import functools
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,21 +50,27 @@ from torch import Tensor
 
 from dair_pll_tpu_torch.multibody.model import MultibodyModel
 from dair_pll_tpu_torch.multibody.soa_terms import (
-    derive_scalar_params, soa_loss_assemble, soa_loss_parts)
+    derive_scalar_params, soa_loss_assemble, soa_loss_parts, supports_fused)
 from dair_pll_tpu_torch.ops import soa, soa_kernels, soa_solver
 
-_CUBE_NOT_COVERED = (
-    "the ContactNets loss kernels are instantiated for the cube only (one "
-    "free body, a ground plane against a box with 4 witness points); other "
-    "models wait for ROADMAP.md, Queue 2: 'elbow, polygon and sphere "
-    "instantiations of K1-K3'")
+_NOT_COVERED = (
+    "the ContactNets loss kernels are instantiated for the box cube and for "
+    "the model sizes {sizes} (bodies, n_q, n_v, pairs, witnesses per pair) "
+    "of box and polygon geometry; other models wait for ROADMAP.md, Queue 2: "
+    "'K1-K3 at other sizes and for sphere models'")
+#: Geometries of the JAX kernels' model class (``supports_fused_kernel``).
+_KERNEL_GEOMETRIES = ("plane", "box", "polygon", "sphere")
+#: Vertices of a polygon the generic kernels take (``kMaxVertices``).
+MAX_VERTICES = 8
+_JOINT = {"free": 0, "revolute": 1, "prismatic": 2, "fixed": 3, "weld": 3}
+_GEOMETRY = {"plane": 0, "box": 1, "polygon": 2, "sphere": 3}
 
 
-# -- derived-parameter packing ---------------------------------------------------
-def kernels_cover(model: MultibodyModel) -> bool:
-    """Whether the CUDA kernels' instantiation covers the model: the cube,
-    one free body with a box (in the body frame, 4 witness points)
-    against a ground plane (in the world frame), no actuation."""
+# -- covers ------------------------------------------------------------------------
+def cube_cover(model: MultibodyModel) -> bool:
+    """Whether the box cube's kernels cover the model: one free body with
+    a box (in the body frame, 4 witness points) against a ground plane (in
+    the world frame), no actuation."""
     identity = tuple(tuple(row) for row in np.eye(3))
     if model.n_bodies != 1 or model.n_u != 0 or (model.n_q, model.n_v) != \
             (7, 6):
@@ -67,35 +87,200 @@ def kernels_cover(model: MultibodyModel) -> bool:
                 for g in (plane, box)))
 
 
-def _require_cover(model: MultibodyModel) -> None:
-    if not kernels_cover(model):
-        raise NotImplementedError(_CUBE_NOT_COVERED)
+def _pmax(n_bodies: int, n_pairs: int) -> int:
+    """Derived scalars a size's kernels take (``ModelSize::PMAX``)."""
+    return 11 * n_bodies + 1 + 3 * MAX_VERTICES * n_pairs
 
 
+def generic_size(model: MultibodyModel) -> Optional[str]:
+    """The generic kernels' size (a key of ``soa_kernels.MODEL_SIZES``)
+    that covers the model, or ``None``: a model of the JAX kernels' class
+    (``supports_fused_kernel``) whose bodies, ``n_q``, ``n_v`` and
+    plane-convex pairs of ``witnesses`` contacts each match an
+    instantiated size, with polygons of at most ``MAX_VERTICES`` vertices,
+    at most one actuator per body and at most the size's derived
+    scalars."""
+    if not supports_fused(model) or any(
+            g.geom_type not in _KERNEL_GEOMETRIES for g in model.geometries):
+        return None
+    for name, (n_b, n_q, n_v, n_pairs, witnesses) in \
+            soa_kernels.MODEL_SIZES.items():
+        if (model.n_bodies, model.n_q, model.n_v) != (n_b, n_q, n_v) or \
+                len(model.collision_candidates) != n_pairs:
+            continue
+        if model.n_u > n_b or derived_size(model) > _pmax(n_b, n_pairs):
+            continue
+        convex = [model.geometries[b] for _, b in model.collision_candidates]
+        if all(g.geom_type in ("box", "polygon") and
+               g.n_query == witnesses and
+               (g.geom_type == "box" or
+                witnesses <= len(g.vertices_init) <= MAX_VERTICES)
+               for g in convex):
+            return name
+    return None
+
+
+def generic_cover(model: MultibodyModel) -> bool:
+    """Whether the model-generic kernels cover the model
+    (:func:`generic_size`)."""
+    return generic_size(model) is not None
+
+
+def _require_generic(model: MultibodyModel) -> str:
+    """The generic size that covers the model; raises outside it."""
+    name = generic_size(model)
+    if name is None:
+        raise NotImplementedError(_NOT_COVERED.format(
+            sizes=sorted(soa_kernels.MODEL_SIZES.values())))
+    return name
+
+
+def _instance(model: MultibodyModel) -> str:
+    """The kernels' instantiation for the model: ``"cube"`` or a generic
+    size; raises for a model outside both covers."""
+    return "cube" if cube_cover(model) else _require_generic(model)
+
+
+# -- the model descriptor ------------------------------------------------------------
+class _BodyDesc(ctypes.Structure):
+    """``BodyDesc`` of ``csrc/model_terms.cuh``."""
+    _fields_ = [("joint", ctypes.c_int), ("parent", ctypes.c_int),
+                ("q_off", ctypes.c_int), ("v_off", ctypes.c_int),
+                ("u_index", ctypes.c_int),
+                ("R_PJ", ctypes.c_double * 3 * 3),
+                ("p_PJ", ctypes.c_double * 3), ("axis", ctypes.c_double * 3)]
+
+
+class _GeomDesc(ctypes.Structure):
+    """``GeomDesc`` of ``csrc/model_terms.cuh``."""
+    _fields_ = [("kind", ctypes.c_int), ("body", ctypes.c_int),
+                ("n_vertices", ctypes.c_int), ("mu_index", ctypes.c_int),
+                ("shape_index", ctypes.c_int),
+                ("R_BG", ctypes.c_double * 3 * 3),
+                ("p_BG", ctypes.c_double * 3)]
+
+
+@functools.lru_cache(maxsize=None)
+def _desc_type(n_bodies: int, n_pairs: int):
+    """``ModelDesc<Z>`` of ``csrc/model_terms.cuh`` for a size."""
+    return type(f"ModelDesc_{n_bodies}_{n_pairs}", (ctypes.Structure,), {
+        "_fields_": [("body", _BodyDesc * n_bodies),
+                     ("plane", _GeomDesc * n_pairs),
+                     ("convex", _GeomDesc * n_pairs),
+                     ("n_params", ctypes.c_int), ("n_u", ctypes.c_int)]})
+
+
+def _matrix(values):
+    return (ctypes.c_double * 3 * 3)(*((ctypes.c_double * 3)(*map(float, row))
+                                       for row in values))
+
+
+def _shape_size(spec) -> int:
+    """Derived shape scalars of a geometry: a box's half lengths, a
+    polygon's vertices, a sphere's radius."""
+    if spec.geom_type == "box":
+        return 3
+    if spec.geom_type == "polygon":
+        return 3 * len(spec.vertices_init)
+    return 1 if spec.geom_type == "sphere" else 0
+
+
+def _shape_indices(model: MultibodyModel):
+    """Each geometry's first shape scalar in the packed derived vector."""
+    index = 10 * model.n_bodies + len(model.geometries)
+    out = []
+    for spec in model.geometries:
+        out.append(index)
+        index += _shape_size(spec)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def model_descriptor(model: MultibodyModel) -> ctypes.Structure:
+    """The generic kernels' descriptor of a model they cover: each body's
+    joint (kind, parent, coordinates' offsets, actuator row, frame, axis)
+    and each pair's plane and convex geometry (kind, body, vertex count,
+    friction and shape indices in the derived vector, pose)."""
+    n_b, _, _, n_pairs, _ = soa_kernels.MODEL_SIZES[_require_generic(model)]
+    desc = _desc_type(n_b, n_pairs)()
+    u_index = 0
+    for i, body in enumerate(model.bodies):
+        joint = body.joint
+        entry = desc.body[i]
+        entry.joint, entry.parent = _JOINT[joint.joint_type], joint.parent
+        entry.q_off = model.body_q_offset(i)
+        entry.v_off = model.body_v_offset(i)
+        entry.u_index = -1
+        if joint.joint_type in ("revolute", "prismatic") and joint.actuated:
+            entry.u_index = u_index
+            u_index += 1
+        entry.R_PJ = _matrix(joint.R_PJ)
+        entry.p_PJ = (ctypes.c_double * 3)(*map(float, joint.p_PJ))
+        entry.axis = (ctypes.c_double * 3)(*map(float, joint.axis))
+    shape = _shape_indices(model)
+    for pair, (a, b) in enumerate(model.collision_candidates):
+        for side, g in ((desc.plane[pair], a), (desc.convex[pair], b)):
+            spec = model.geometries[g]
+            side.kind, side.body = _GEOMETRY[spec.geom_type], spec.body
+            side.n_vertices = (len(spec.vertices_init)
+                               if spec.geom_type == "polygon" else 0)
+            side.mu_index = 10 * model.n_bodies + g
+            side.shape_index = shape[g]
+            side.R_BG = _matrix(spec.R_BG)
+            side.p_BG = (ctypes.c_double * 3)(*map(float, spec.p_BG))
+    desc.n_params = derived_size(model)
+    desc.n_u = model.n_u
+    return desc
+
+
+# -- derived-parameter packing ---------------------------------------------------
 def derived_size(model: MultibodyModel) -> int:
-    """Number of packed derived scalars: the body's inertial vector (10),
-    the plane's and the box's friction (2), the box's half lengths (3)."""
-    _require_cover(model)
-    return 15
+    """Number of packed derived scalars: each body's inertial vector (10),
+    each geometry's friction (1), a box's half lengths (3), a polygon's
+    vertices (3 each), a sphere's radius (1)."""
+    return 10 * model.n_bodies + len(model.geometries) + sum(
+        _shape_size(spec) for spec in model.geometries)
 
 
 def pack_derived(model: MultibodyModel, derived) -> Tensor:
     """Flattens the derived parameters (``soa_terms.derive_scalar_params``)
-    into the ``(15,)`` vector the kernels take, in the layout
+    into the ``(P,)`` vector the kernels take, in the layout
     :func:`unpack_scalarized` mirrors. Differentiable: the gradient back to
     ``MultibodyParams`` is ordinary autograd."""
-    _require_cover(model)
-    return torch.cat([derived["pi"].reshape(-1), derived["mu"].reshape(-1),
-                      derived["geom"][1]["half"].reshape(-1)])
+    parts = [derived["pi"].reshape(-1), derived["mu"].reshape(-1)]
+    for spec, entry in zip(model.geometries, derived["geom"]):
+        if spec.geom_type == "box":
+            parts.append(entry["half"].reshape(-1))
+        elif spec.geom_type == "polygon":
+            parts.append(entry["verts"].reshape(-1))
+        elif spec.geom_type == "sphere":
+            parts.append(entry["radius"].reshape(1))
+    return torch.cat(parts)
 
 
 def unpack_scalarized(model: MultibodyModel,
                       read: Callable[[int], Tensor]) -> dict:
     """Rebuilds the scalarized derived structure
     (``soa_terms.scalarize_derived``'s) from an indexed scalar reader."""
-    values = [read(i) for i in range(derived_size(model))]
-    return {"pi": [values[:10]], "mu": values[10:12],
-            "geom": [{}, {"half": values[12:15]}]}
+    index = iter(range(derived_size(model)))
+
+    def nxt():
+        return read(next(index))
+
+    pi = [[nxt() for _ in range(10)] for _ in range(model.n_bodies)]
+    mu = [nxt() for _ in model.geometries]
+    geom = []
+    for spec in model.geometries:
+        if spec.geom_type == "box":
+            geom.append({"half": [nxt() for _ in range(3)]})
+        elif spec.geom_type == "polygon":
+            geom.append({"verts": [[nxt() for _ in range(3)]
+                                   for _ in spec.vertices_init]})
+        elif spec.geom_type == "sphere":
+            geom.append({"radius": nxt()})
+        else:
+            geom.append({})
+    return {"pi": pi, "mu": mu, "geom": geom}
 
 
 # -- plain versions --------------------------------------------------------------
@@ -159,25 +344,35 @@ def plain_loss_bwd(model: MultibodyModel, pvec: Tensor, xin: Tensor,
 
 
 # -- kernel wrappers -------------------------------------------------------------
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-
-
 def _check_launch(model: MultibodyModel, pvec: Tensor, xin: Tensor,
                   xp: Tensor) -> Tuple[str, int]:
-    """Raises unless the kernels take these inputs; returns the entry
-    points' dtype suffix and the batch size."""
-    _require_cover(model)
+    """Raises unless the kernels take these inputs; returns the
+    instantiation (:func:`_instance`) and the batch size."""
+    instance = _instance(model)
     dtype = pvec.dtype
-    if dtype not in _SUFFIX:
+    if dtype not in soa_kernels._SUFFIX:
         raise TypeError(f"no kernel for dtype {dtype}")
     B = xin.shape[-1]
+    n_x = model.n_q + model.n_v
     soa_kernels.check_tensor("pvec", pvec, (derived_size(model),), dtype,
                              pvec.device)
-    soa_kernels.check_tensor("xin", xin, (model.n_q + model.n_v, B), dtype,
+    soa_kernels.check_tensor("xin", xin, (n_x + model.n_u, B), dtype,
                              pvec.device)
-    soa_kernels.check_tensor("xp", xp, (model.n_q + model.n_v, B), dtype,
-                             pvec.device)
-    return _SUFFIX[dtype], B
+    soa_kernels.check_tensor("xp", xp, (n_x, B), dtype, pvec.device)
+    return instance, B
+
+
+def _entry(model: MultibodyModel, kind: str, instance: str,
+           dtype) -> Tuple[Callable, tuple]:
+    """The library's entry point of a kernel (``kind`` ``fwd``,
+    ``fwd_warm`` or ``bwd``) for an instantiation, and the arguments that
+    lead its call: the model descriptor's address for a generic size."""
+    fn = getattr(soa_kernels.load_library(),
+                 f"contactnets_loss_{kind}_{instance}_"
+                 f"{soa_kernels._SUFFIX[dtype]}")
+    if instance == "cube":
+        return fn, ()
+    return fn, (ctypes.addressof(model_descriptor(model)),)
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -196,26 +391,25 @@ def fused_loss_fwd(model: MultibodyModel, pvec: Tensor, xin: Tensor,
                    xp: Tensor, dt: float, eps: float, ipm_iterations: int,
                    newton_iterations: int) -> Tuple[Tensor, Tensor, Tensor]:
     """K1: ``(loss (B,), force (3, k, B), valid (B,))`` from
-    ``pvec (P,)``, ``xin (n_x, B)``, ``xp (n_x, B)``. CPU tensors run
-    :func:`plain_loss_fwd`; CUDA tensors launch the kernel on the current
-    stream or raise."""
+    ``pvec (P,)``, ``xin (n_x + n_u, B)``, ``xp (n_x, B)``. CPU tensors
+    run :func:`plain_loss_fwd`; CUDA tensors launch the kernel on the
+    current stream or raise."""
     if soa_kernels.on_cpu(pvec, xin, xp):
         return plain_loss_fwd(model, pvec, xin, xp, dt, eps, ipm_iterations,
                               newton_iterations)
-    suffix, B = _check_launch(model, pvec, xin, xp)
+    instance, B = _check_launch(model, pvec, xin, xp)
     loss, force, valid = _outputs(model, pvec, B)
     if B == 0:
         return loss, force, valid
-    fn = getattr(soa_kernels.load_library(),
-                 f"contactnets_loss_fwd_cube_{suffix}")
+    fn, lead = _entry(model, "fwd", instance, pvec.dtype)
     with torch.cuda.device(pvec.device):
-        err = fn(pvec.data_ptr(), xin.data_ptr(), xp.data_ptr(),
+        err = fn(*lead, pvec.data_ptr(), xin.data_ptr(), xp.data_ptr(),
                  loss.data_ptr(), force.data_ptr(), valid.data_ptr(), B,
                  float(dt), float(eps), int(ipm_iterations),
                  int(newton_iterations),
                  torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "ContactNets loss forward (K1)")
-    fused_loss_fwd.launches += 1
+    soa_kernels.count_launch(fused_loss_fwd, instance)
     return loss, force, valid
 
 
@@ -228,22 +422,21 @@ def fused_loss_fwd_warm(model: MultibodyModel, pvec: Tensor, xin: Tensor,
     if soa_kernels.on_cpu(pvec, xin, xp, fprev):
         return plain_loss_fwd_warm(model, pvec, xin, xp, fprev, dt, eps,
                                    ipm_iterations, newton_iterations)
-    suffix, B = _check_launch(model, pvec, xin, xp)
+    instance, B = _check_launch(model, pvec, xin, xp)
     soa_kernels.check_tensor("fprev", fprev, (3, model.n_contacts, B),
                              pvec.dtype, pvec.device)
     loss, force, valid = _outputs(model, pvec, B)
     if B == 0:
         return loss, force, valid
-    fn = getattr(soa_kernels.load_library(),
-                 f"contactnets_loss_fwd_warm_cube_{suffix}")
+    fn, lead = _entry(model, "fwd_warm", instance, pvec.dtype)
     with torch.cuda.device(pvec.device):
-        err = fn(pvec.data_ptr(), xin.data_ptr(), xp.data_ptr(),
+        err = fn(*lead, pvec.data_ptr(), xin.data_ptr(), xp.data_ptr(),
                  fprev.data_ptr(), loss.data_ptr(), force.data_ptr(),
                  valid.data_ptr(), B, float(dt), float(eps),
                  int(ipm_iterations), int(newton_iterations),
                  torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "ContactNets loss warm forward (K3)")
-    fused_loss_fwd_warm.launches += 1
+    soa_kernels.count_launch(fused_loss_fwd_warm, instance)
     return loss, force, valid
 
 
@@ -257,7 +450,7 @@ def fused_loss_bwd(model: MultibodyModel, pvec: Tensor, xin: Tensor,
     if soa_kernels.on_cpu(pvec, xin, xp, force, valid, ct):
         return plain_loss_bwd(model, pvec, xin, xp, force, valid, ct, dt,
                               eps)
-    suffix, B = _check_launch(model, pvec, xin, xp)
+    instance, B = _check_launch(model, pvec, xin, xp)
     soa_kernels.check_tensor("force", force, (3, model.n_contacts, B),
                              pvec.dtype, pvec.device)
     soa_kernels.check_tensor("valid", valid, (B,), torch.bool, pvec.device)
@@ -268,23 +461,23 @@ def fused_loss_bwd(model: MultibodyModel, pvec: Tensor, xin: Tensor,
         return torch.zeros_like(pvec), dxin, dxp
     lib = soa_kernels.load_library()
     dp = torch.empty_like(pvec)
-    partial = torch.empty((lib.contactnets_loss_bwd_scratch(B),),
-                          dtype=pvec.dtype, device=pvec.device)
-    fn = getattr(lib, f"contactnets_loss_bwd_cube_{suffix}")
+    n_scratch = (lib.contactnets_loss_bwd_scratch(B) if instance == "cube"
+                 else lib.model_loss_bwd_scratch(B, pvec.numel()))
+    partial = torch.empty((n_scratch,), dtype=pvec.dtype, device=pvec.device)
+    fn, lead = _entry(model, "bwd", instance, pvec.dtype)
     with torch.cuda.device(pvec.device):
-        err = fn(pvec.data_ptr(), xin.data_ptr(), xp.data_ptr(),
+        err = fn(*lead, pvec.data_ptr(), xin.data_ptr(), xp.data_ptr(),
                  force.data_ptr(), valid.data_ptr(), ct.data_ptr(),
                  partial.data_ptr(), dp.data_ptr(), dxin.data_ptr(),
                  dxp.data_ptr(), B, float(dt), float(eps),
                  torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "ContactNets loss backward (K2)")
-    fused_loss_bwd.launches += 1
+    soa_kernels.count_launch(fused_loss_bwd, instance)
     return dp, dxin, dxp
 
 
-fused_loss_fwd.launches = 0
-fused_loss_fwd_warm.launches = 0
-fused_loss_bwd.launches = 0
+for _wrapper in (fused_loss_fwd, fused_loss_fwd_warm, fused_loss_bwd):
+    soa_kernels.reset_launches(_wrapper)
 
 
 # -- autograd ----------------------------------------------------------------------

@@ -46,12 +46,12 @@ def jt_dot(Jc: ConeMat, u: ConeField) -> Svec:
     """``J^T u`` accumulated over cones and components -> svec of
     ``(B,)`` leaves."""
     n_v = len(Jc[0])
-    return [torch.sum(Jc[0][v] * u[0] + Jc[1][v] * u[1] + Jc[2][v] * u[2],
-                      dim=0) for v in range(n_v)]
+    return [soa.sum_rows(Jc[0][v] * u[0] + Jc[1][v] * u[1] +
+                         Jc[2][v] * u[2]) for v in range(n_v)]
 
 
 def _field_sqnorm(u: ConeField) -> Tensor:
-    return torch.sum(u[0] * u[0] + u[1] * u[1] + u[2] * u[2], dim=0)
+    return soa.sum_rows(u[0] * u[0] + u[1] * u[1] + u[2] * u[2])
 
 
 def _field_isfinite(u: ConeField) -> Tensor:
@@ -65,13 +65,22 @@ def _where_field(mask: Tensor, a: ConeField, b: ConeField) -> ConeField:
 
 
 def _gap(x: ConeField, z: ConeField, k: int) -> Tensor:
-    return torch.sum(x[0] * z[0] + x[1] * z[1] + x[2] * z[2],
-                     dim=0) / (2.0 * k)
+    return soa.sum_rows(x[0] * z[0] + x[1] * z[1] + x[2] * z[2]) / \
+        (2.0 * k)
+
+
+def _divide(t: Tensor, c) -> Tensor:
+    """``t / c`` rounded as one IEEE division, on any device: on the card
+    torch divides by a Python scalar as a product with its reciprocal,
+    which the kernels' division does not repeat to the last bit."""
+    if isinstance(c, Tensor):
+        return t / c
+    return t / torch.full((), c, dtype=t.dtype, device=t.device)
 
 
 def _violation(u: ConeField) -> Tensor:
-    return torch.sum(torch.clamp_min(
-        torch.sqrt(u[1] * u[1] + u[2] * u[2]) - u[0], 0.0), dim=0)
+    return soa.sum_rows(torch.clamp_min(
+        torch.sqrt(u[1] * u[1] + u[2] * u[2]) - u[0], 0.0))
 
 
 def solve_ipm_mj(M: Smat, Jc: ConeMat, qc: ConeField, eps,
@@ -94,7 +103,7 @@ def solve_ipm_mj(M: Smat, Jc: ConeMat, qc: ConeField, eps,
             1e6 * (_violation(x) + _violation(z))
 
     scale = torch.clamp_min(
-        torch.sqrt(_field_sqnorm(qc) / float(3 * k)), 1.0)
+        torch.sqrt(_divide(_field_sqnorm(qc), float(3 * k))), 1.0)
     sqrt_scale = torch.sqrt(scale)
     like = qc[0]
     machine_eps = torch.finfo(like.dtype).eps
@@ -124,9 +133,9 @@ def solve_ipm_mj(M: Smat, Jc: ConeMat, qc: ConeField, eps,
         S = [row[:] for row in M]
         for v1 in range(n_v):
             for v2 in range(v1 + 1):
-                acc = torch.sum(Jc[0][v1] * AJ[0][v2] +
-                                Jc[1][v1] * AJ[1][v2] +
-                                Jc[2][v1] * AJ[2][v2], dim=0)
+                acc = soa.sum_rows(Jc[0][v1] * AJ[0][v2] +
+                                   Jc[1][v1] * AJ[1][v2] +
+                                   Jc[2][v1] * AJ[2][v2])
                 S[v1][v2] = S[v1][v2] + acc
                 if v2 < v1:
                     S[v2][v1] = S[v2][v1] + acc
@@ -237,8 +246,8 @@ def _line_search(M: Smat, Jc: ConeMat, qc: ConeField, eps, w: Svec,
     def g_prime(alpha):
         za = [z0[i] + alpha * dz[i] for i in range(3)]
         gamma = soa_cones.project(za)
-        return a0 + a1 * alpha + eps * torch.sum(
-            dz[0] * gamma[0] + dz[1] * gamma[1] + dz[2] * gamma[2], dim=0)
+        return a0 + a1 * alpha + eps * soa.sum_rows(
+            dz[0] * gamma[0] + dz[1] * gamma[1] + dz[2] * gamma[2])
 
     # g' is nondecreasing along the ray (the SAP primal is convex), so the
     # bracket (max candidate with g' <= 0, min with g' > 0) needs no sort.
@@ -265,11 +274,11 @@ def _line_search(M: Smat, Jc: ConeMat, qc: ConeField, eps, w: Svec,
         # Fused g'/g'': one projection pass gives P(za) and D(za) dz.
         za = [z0[i] + alpha * dz[i] for i in range(3)]
         gamma, ddz = soa_cones.project_and_jacobian_apply(za, dz)
-        gp_a = a0 + a1 * alpha + eps * torch.sum(
-            dz[0] * gamma[0] + dz[1] * gamma[1] + dz[2] * gamma[2], dim=0)
+        gp_a = a0 + a1 * alpha + eps * soa.sum_rows(
+            dz[0] * gamma[0] + dz[1] * gamma[1] + dz[2] * gamma[2])
         gpp_a = torch.clamp_min(
-            a1 + eps * torch.sum(
-                dz[0] * ddz[0] + dz[1] * ddz[1] + dz[2] * ddz[2], dim=0),
+            a1 + eps * soa.sum_rows(
+                dz[0] * ddz[0] + dz[1] * ddz[1] + dz[2] * ddz[2]),
             1e-30)
         lo = torch.where(gp_a <= 0.0, alpha, lo)
         hi = torch.where(gp_a > 0.0, alpha, hi)
@@ -299,9 +308,9 @@ def sap_newton(M: Smat, Jc: ConeMat, qc: ConeField, eps, iterations: int,
         H = [row[:] for row in M]
         for v1 in range(n_v):
             for v2 in range(v1 + 1):
-                acc = inv_eps * torch.sum(
+                acc = inv_eps * soa.sum_rows(
                     Jc[0][v1] * DJ[0][v2] + Jc[1][v1] * DJ[1][v2] +
-                    Jc[2][v1] * DJ[2][v2], dim=0)
+                    Jc[2][v1] * DJ[2][v2])
                 H[v1][v2] = H[v1][v2] + acc
                 if v2 < v1:
                     H[v2][v1] = H[v2][v1] + acc
@@ -343,10 +352,11 @@ def primal_cost(M: Smat, Jc: ConeMat, qc: ConeField, eps,
                 w: Svec) -> Tensor:
     """Regularized SAP primal objective per sample, ``(B,)``."""
     jw = j_dot(Jc, w)
-    gamma = soa_cones.project([-(jw[i] + qc[i]) / eps for i in range(3)])
+    gamma = soa_cones.project([_divide(-(jw[i] + qc[i]), eps)
+                               for i in range(3)])
     quad = 0.5 * soa.dot(w, soa.matvec(M, w))
-    return quad + 0.5 * eps * torch.sum(
-        gamma[0] ** 2 + gamma[1] ** 2 + gamma[2] ** 2, dim=0)
+    return quad + 0.5 * eps * soa.sum_rows(
+        gamma[0] ** 2 + gamma[1] ** 2 + gamma[2] ** 2)
 
 
 def solve_warm_hybrid_soa(M: Smat, Jc: ConeMat, qc: ConeField,

@@ -190,21 +190,30 @@ def test_derived_packing_matches_jax():
         jpack.derived_size(jmodel) == 15
     assert soa_loss_kernels.unpack_scalarized(tmodel, lambda i: i) == \
         jpack.unpack_scalarized(jmodel, lambda i: i)
-    # The packing is the kernels' cube layout: other models raise.
+    # The packing is JAX's model-generic layout: the elbow's too.
+    jelbow = jbuild({"elbow": jassets.get_asset("elbow")})
     elbow = tbuild({"elbow": tassets.get_asset("elbow")})
-    for pack in (soa_loss_kernels.derived_size,
-                 lambda m: soa_loss_kernels.unpack_scalarized(m, float)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pack(elbow)
+    assert soa_loss_kernels.derived_size(elbow) == \
+        jpack.derived_size(jelbow) == 29
+    assert soa_loss_kernels.unpack_scalarized(elbow, lambda i: i) == \
+        jpack.unpack_scalarized(jelbow, lambda i: i)
 
 
 def test_kernel_instantiation_covers_the_cube_only():
-    assert soa_loss_kernels.kernels_cover(_port_system().model)
+    """The box cube's own kernels cover the box cube alone; the generic
+    kernels cover the elbow and the polygon cube at their sizes (and the
+    box cube); the ICNN cube lies outside both covers."""
+    cube = _port_system().model
     elbow = tbuild({"elbow": tassets.get_asset("elbow")})
     polygon = tbuild({"cube": tassets.get_asset("cube_mesh")},
                      mesh_representation="polygon")
-    assert not soa_loss_kernels.kernels_cover(elbow)
-    assert not soa_loss_kernels.kernels_cover(polygon)
+    icnn = tbuild({"cube": tassets.get_asset("cube_mesh")})
+    assert soa_loss_kernels.cube_cover(cube)
+    assert not any(soa_loss_kernels.cube_cover(m)
+                   for m in (elbow, polygon, icnn))
+    assert [soa_loss_kernels.generic_size(m)
+            for m in (cube, elbow, polygon, icnn)] == \
+        ["b1_q7_v6_k4", "b2_q8_v7_k8", "b1_q7_v6_k4", None]
 
 
 def test_small_batch_default_path_runs_vmapped(monkeypatch):

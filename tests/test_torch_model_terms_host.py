@@ -1,0 +1,192 @@
+"""The model-generic loss kernels' per-sample bodies
+(``dair_pll_tpu_torch/csrc/model_terms.cuh``: K1's ``model_loss_cold``,
+K3's ``model_loss_warm``, K2's forward-mode ``model_loss_vjp``), compiled
+for the host with ``g++`` by ``ops/host_adjoint.py`` through a stand-in
+``cuda_runtime.h``, against their plain versions in float64 on the five
+parity models of ``torch_parity.KERNEL_MODELS`` (the elbow in boxes and in
+polygons, the polygon cube, ``pris2``, the actuated ``paddle``) at
+perturbed parameters: the cold and warm loss within rtol 1e-12 (impulses
+atol 1e-10: torch's CPU float64 square root is one ulp off on some
+inputs, and a solve that has not converged carries that to some 1e-12;
+equal valid masks), and K2's gradient, each sample's and the
+batch's, within rtol 1e-10 (atol 1e-14) of torch autograd
+(``plain_loss_bwd``), invalid samples included. On the box cube, at the
+polygon cube's size, the generic forward equals ``cube_terms.cuh``'s bit
+for bit. Last, the counting build (``Counted`` in float32 and float64),
+which gives the generic kernels' rows their bounds in ``chip_smoke.py``:
+its counts add up over samples and threads, and an invalid sample's
+gradient counts nothing. The test computes nothing with JAX and skips
+without ``g++``.
+"""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from dair_pll_tpu_torch import assets
+from dair_pll_tpu_torch.multibody.learnable_system import (
+    MultibodyLearnableSystem)
+from dair_pll_tpu_torch.multibody.model import params_from_numpy
+from dair_pll_tpu_torch.multibody.soa_terms import derive_scalar_params
+from dair_pll_tpu_torch.ops import host_adjoint
+from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
+from dair_pll_tpu_torch.urdf import build_multibody_model
+from torch_parity import (COLD_BUDGET, DT, KERNEL_MODELS, LOSS_EPS,
+                          WARM_BUDGET, kernel_model_urdfs, kernel_transitions,
+                          map_tree, perturbed_params)
+
+LOSS_RTOL, FORCE_ATOL = 1e-12, 1e-10
+GRAD_RTOL, GRAD_ATOL = 1e-10, 1e-14
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    """``model_terms.cuh`` built for the host
+    (``host_adjoint.HostModelTerms``)."""
+    if host_adjoint.compiler() is None:
+        pytest.skip("g++ is not installed: the host build needs it")
+    return host_adjoint.HostModelTerms(
+        str(tmp_path_factory.mktemp("model_terms")))
+
+
+@pytest.fixture(scope="module")
+def urdf_dir(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("urdfs"))
+
+
+@functools.lru_cache(maxsize=None)
+def _inputs(name: str, urdf_dir: str):
+    """The port's model, a packed derived vector at perturbed parameters,
+    batch-minor ``(xin, xp)`` (``xin`` with the actuation rows), the cold
+    loss's plain impulses and valid mask with two samples failed, and a
+    random cotangent."""
+    urdfs, representation = kernel_model_urdfs(name, urdf_dir, False)
+    model = build_multibody_model(
+        urdfs, **({} if representation is None else
+                  {"mesh_representation": representation}))
+    rng = np.random.default_rng(sorted(KERNEL_MODELS).index(name) + 7)
+    x, x_plus, u = kernel_transitions(name, model, rng)
+    initial = MultibodyLearnableSystem(model, DT, device="cpu") \
+        .initial_params(torch.float64)
+    numpy_params = perturbed_params(
+        rng, initial.theta.numpy(), initial.friction.numpy(),
+        [map_tree(lambda t: t.numpy(), g) for g in initial.geometry])
+    params = params_from_numpy(model, *numpy_params)
+    pvec = lk.pack_derived(model, derive_scalar_params(model,
+                                                       params)).detach()
+    xin = torch.cat([torch.tensor(x).T, torch.tensor(u).T]).contiguous()
+    xp = torch.tensor(x_plus).T.contiguous()
+    _, force, valid = lk.plain_loss_fwd(model, pvec, xin, xp, DT, LOSS_EPS,
+                                        *COLD_BUDGET)
+    valid = valid.clone()
+    valid[[2, 11]] = False
+    ct = torch.tensor(rng.uniform(0.5, 2.0, xin.shape[1]))
+    return model, pvec, xin, xp, force, valid, ct
+
+
+def _assert_close(got, want, rtol, atol, what):
+    err = (got - want).abs()
+    assert bool((err <= atol + rtol * want.abs()).all()), (
+        f"{what}: max abs error {err.max().item():.3e}")
+
+
+@pytest.mark.parametrize("kind", ["cold", "warm"])
+@pytest.mark.parametrize("name", sorted(KERNEL_MODELS))
+def test_loss_matches_plain_version(host, urdf_dir, name, kind):
+    """K1's (cold) and K3's (warm, from the cold impulses) body against
+    ``plain_loss_fwd`` and ``plain_loss_fwd_warm``."""
+    model, pvec, xin, xp, force, _, _ = _inputs(name, urdf_dir)
+    if kind == "cold":
+        want = lk.plain_loss_fwd(model, pvec, xin, xp, DT, LOSS_EPS,
+                                 *COLD_BUDGET)
+        got = host.loss(model, pvec, xin, xp, DT, LOSS_EPS, *COLD_BUDGET)
+    else:
+        want = lk.plain_loss_fwd_warm(model, pvec, xin, xp, force, DT,
+                                      LOSS_EPS, *WARM_BUDGET)
+        got = host.loss(model, pvec, xin, xp, DT, LOSS_EPS, *WARM_BUDGET,
+                        fprev=force)
+    _assert_close(got[0], want[0], LOSS_RTOL, 0.0, "loss")
+    _assert_close(got[1], want[1], 0.0, FORCE_ATOL, "impulse")
+    assert torch.equal(got[2], want[2]) and bool(want[2].all())
+    assert want[1][0].amax(dim=0).gt(1e-6).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_MODELS))
+def test_gradient_matches_plain_backward(host, urdf_dir, name):
+    """K2's forward-mode body: each sample's derived-scalar gradient, the
+    batch's, and the state gradients against torch autograd; a failed
+    solve's sample, and the configuration rows of ``xin``, get exactly
+    0."""
+    model, pvec, xin, xp, force, valid, ct = _inputs(name, urdf_dir)
+    dp, dxin, dxp = host.vjp(model, pvec, xin, xp, force, valid, ct, DT)
+    want = lk.plain_loss_bwd(model, pvec, xin, xp, force, valid, ct, DT,
+                             LOSS_EPS)
+    for what, got, ref in zip(("dp", "dxin", "dxp"),
+                              (dp.sum(dim=0), dxin, dxp), want):
+        _assert_close(got, ref, GRAD_RTOL, GRAD_ATOL, what)
+    for b in (0, 5, 9, 15):
+        cols = slice(b, b + 1)
+        ref = lk.plain_loss_bwd(model, pvec, xin[:, cols], xp[:, cols],
+                                force[..., cols], valid[cols], ct[cols], DT,
+                                LOSS_EPS)[0]
+        _assert_close(dp[b], ref, GRAD_RTOL, GRAD_ATOL, f"dp[{b}]")
+    assert not dp[~valid].any() and not dxin[:, ~valid].any()
+    assert not dxp[:, ~valid].any() and not dxin[:model.n_q].any()
+    assert dp[valid].abs().amax() > 0 and dxp[:, valid].abs().amax() > 0
+
+
+@pytest.mark.parametrize("kind", ["cold", "warm"])
+def test_generic_forward_equals_cube_header_on_the_box_cube(host, kind):
+    """The box cube at the generic size ``(1, 7, 6, 1, 4)``: the generic
+    terms, solve and assembly give the box cube's kernels' results
+    (``cube_terms.cuh``) bit for bit."""
+    model = build_multibody_model({"cube": assets.get_asset("cube")})
+    assert lk.cube_cover(model) and lk.generic_cover(model)
+    rng = np.random.default_rng(4)
+    x, x_plus, _ = kernel_transitions("cube_polygon", model, rng)
+    params = MultibodyLearnableSystem(model, DT, device="cpu") \
+        .initial_params(torch.float64)
+    pvec = lk.pack_derived(model, derive_scalar_params(model,
+                                                       params)).detach()
+    xin, xp = torch.tensor(x).T.contiguous(), torch.tensor(x_plus).T \
+        .contiguous()
+    fprev = None
+    budget = COLD_BUDGET
+    if kind == "warm":
+        fprev = host.cube_loss(pvec, xin, xp, DT, LOSS_EPS, *COLD_BUDGET)[1]
+        budget = WARM_BUDGET
+    generic = host.loss(model, pvec, xin, xp, DT, LOSS_EPS, *budget,
+                        fprev=fprev)
+    cube = host.cube_loss(pvec, xin, xp, DT, LOSS_EPS, *budget, fprev=fprev)
+    for got, want in zip(generic, cube):
+        assert torch.equal(got, want)
+    assert cube[1].abs().max() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_operation_counts_add_up(host, urdf_dir, dtype):
+    """The counted bodies on the elbow, in ``dtype``'s arithmetic: each
+    kind counts work, structural operations are a share of what runs,
+    counts add up over threads and (for K2) over samples, and a failed
+    sample's gradient counts nothing."""
+    model, pvec, xin, xp, force, valid, ct = _inputs("elbow", urdf_dir)
+    args = [t.to(dtype) for t in (pvec, xin, xp)]
+    f = force.to(dtype)
+    for kind, fin in (("cold", None), ("warm", f), ("vjp", f)):
+        whole = host.count(kind, model, *args, fin, valid, ct.to(dtype), DT,
+                           LOSS_EPS, *(WARM_BUDGET if kind == "warm" else
+                                       COLD_BUDGET))
+        assert 0 < whole["needed"] < whole["executed"], kind
+        threaded = host.count(kind, model, *args, fin, valid, ct.to(dtype),
+                              DT, LOSS_EPS, *COLD_BUDGET, threads=3) \
+            if kind != "warm" else whole
+        assert threaded == whole, kind
+    per_sample = [host.count("vjp", model, args[0], args[1][:, b:b + 1],
+                             args[2][:, b:b + 1], f[..., b:b + 1],
+                             valid[b:b + 1], ct[b:b + 1].to(dtype), DT,
+                             LOSS_EPS, *COLD_BUDGET)
+                  for b in range(xin.shape[1])]
+    assert sum(c["needed"] for c in per_sample) == whole["needed"]
+    assert all(c["needed"] == c["executed"] == 0
+               for c, ok in zip(per_sample, valid) if not ok)

@@ -3,6 +3,9 @@ states and parameters that feed the JAX package and its PyTorch port
 alike (the two frameworks' generators differ, so inputs come from
 numpy). Cube states near the ground come from the port's
 ``assets.cube_states_near_ground``, which ``chip_smoke.py`` uses too."""
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -169,3 +172,237 @@ def random_qps(rng: np.random.Generator, n: int, eps: float, k: int = 4,
     J = rng.standard_normal((n, 3 * k, n_v))
     q = rng.standard_normal((n, 3 * k))
     return J @ np.linalg.solve(M, J.transpose(0, 2, 1)), M, J, q, eps
+
+
+# -- the model-generic loss kernels' models ----------------------------------------
+_BOX_INERTIAL = """
+      <inertial>
+        <origin xyz="0 0 0" rpy="0 0 0"/>
+        <mass value="0.5"/>
+        <inertia ixx="0.002" iyy="0.003" izz="0.004"
+                 ixy="0" ixz="0" iyz="0"/>
+      </inertial>"""
+_BOX_COLLISION = """
+      <collision>
+        <origin xyz="0 0 0" rpy="0 0 0"/>
+        <geometry><box size="0.1 0.1 0.1"/></geometry>
+      </collision>"""
+#: ``tests/test_urdf_features.py``'s prismatic ``pris2`` and
+#: ``tests/test_fused_loss.py``'s actuated ``paddle``.
+FEATURE_URDFS = {
+    "pris2": f"""<robot name="pris2">
+  <link name="base">{_BOX_INERTIAL}{_BOX_COLLISION}
+  </link>
+  <link name="slider">{_BOX_INERTIAL}{_BOX_COLLISION}
+  </link>
+  <joint name="slide" type="prismatic">
+    <parent link="base"/>
+    <child link="slider"/>
+    <origin xyz="0 0 0.15" rpy="0 0 0"/>
+    <axis xyz="0 0 1"/>
+  </joint>
+</robot>
+""",
+    "paddle": """<robot name="paddle">
+  <link name="base">
+    <inertial>
+      <mass value="0.5"/>
+      <inertia ixx="0.002" iyy="0.003" izz="0.004"
+               ixy="0" ixz="0" iyz="0"/>
+    </inertial>
+    <collision>
+      <geometry><box size="0.1 0.1 0.1"/></geometry>
+    </collision>
+  </link>
+  <link name="arm">
+    <inertial>
+      <mass value="0.2"/>
+      <inertia ixx="0.001" iyy="0.001" izz="0.001"
+               ixy="0" ixz="0" iyz="0"/>
+    </inertial>
+    <collision>
+      <geometry><box size="0.08 0.02 0.02"/></geometry>
+    </collision>
+  </link>
+  <joint name="swing" type="revolute">
+    <parent link="base"/>
+    <child link="arm"/>
+    <origin xyz="0 0 0.1" rpy="0 0 0"/>
+    <axis xyz="0 1 0"/>
+  </joint>
+  <transmission name="swing_drive">
+    <joint name="swing"/>
+  </transmission>
+</robot>
+"""}
+#: The generic loss kernels' parity models: (asset or URDF name, mesh
+#: representation); the elbow in boxes and in polygons, the polygon cube,
+#: ``pris2`` and the actuated ``paddle``.
+KERNEL_MODELS = {"elbow": ("elbow", None),
+                 "elbow_polygon": ("elbow_mesh", "polygon"),
+                 "cube_polygon": ("cube_mesh", "polygon"),
+                 "pris2": ("pris2", None), "paddle": ("paddle", None)}
+#: Base heights of the near-ground states by model: the elbow and the
+#: cubes rest on their boxes; pris2's and the paddle's second body sits
+#: above the base.
+_BASE_HEIGHT = {"elbow": 0.03, "elbow_polygon": 0.03, "cube_polygon": 0.05,
+                "pris2": 0.05, "paddle": 0.05}
+
+
+def kernel_model_urdfs(name: str, tmp_dir: str, jax_side: bool):
+    """``({model name: URDF path}, mesh_representation)`` of a model of
+    :data:`KERNEL_MODELS`; the feature URDFs are written to ``tmp_dir``."""
+    import os
+    asset, representation = KERNEL_MODELS[name]
+    if asset in FEATURE_URDFS:
+        path = os.path.join(str(tmp_dir), f"{asset}.urdf")
+        with open(path, "w", encoding="utf-8") as handle:
+            handle.write(FEATURE_URDFS[asset])
+    elif jax_side:
+        from dair_pll_tpu.assets import get_asset
+        path = get_asset(asset)
+    else:
+        from dair_pll_tpu_torch import assets
+        path = assets.get_asset(asset)
+    return {asset: path}, representation
+
+
+def kernel_model_pair(name: str, tmp_dir: str):
+    """The JAX package's and the port's ``MultibodyModel`` of a model of
+    :data:`KERNEL_MODELS`."""
+    from dair_pll_tpu.urdf import build_multibody_model as jbuild
+    from dair_pll_tpu_torch.urdf import build_multibody_model as tbuild
+    models = []
+    for jax_side, build in ((True, jbuild), (False, tbuild)):
+        urdfs, representation = kernel_model_urdfs(name, tmp_dir, jax_side)
+        kwargs = ({} if representation is None else
+                  {"mesh_representation": representation})
+        models.append(build(urdfs, **kwargs))
+    return tuple(models)
+
+
+def kernel_transitions(name: str, tmodel, rng: np.random.Generator,
+                       n: int = 8):
+    """``(x, x_plus, u)`` of a model of :data:`KERNEL_MODELS`, ``2 n``
+    float64 transitions: ``n`` of the JAX package's random recipe (a
+    perturbed ``x_plus``) and ``n`` states near the ground with their next
+    state from one step of the port's float64 fused rollout (active
+    contacts); ``u`` random for actuated models."""
+    from dair_pll_tpu_torch.multibody.learnable_system import (
+        MultibodyLearnableSystem)
+    n_x = tmodel.n_q + tmodel.n_v
+
+    def states(height, spread):
+        x = rng.standard_normal((n, n_x))
+        x[:, 7:] *= 0.3
+        x[:, :4] /= np.linalg.norm(x[:, :4], axis=-1, keepdims=True)
+        x[:, 4:7] = spread * rng.standard_normal((n, 3))
+        x[:, 6] += height
+        return x
+
+    x = states(_BASE_HEIGHT[name] + 0.03, 0.03)
+    x_plus = x + 0.005 * rng.standard_normal((n, n_x))
+    x_plus[:, :4] /= np.linalg.norm(x_plus[:, :4], axis=-1, keepdims=True)
+    near = states(_BASE_HEIGHT[name], 0.01)
+    system = MultibodyLearnableSystem(tmodel, DT, device="cpu")
+    step = system.simulate_batch(system.initial_params(torch.float64),
+                                 torch.tensor(near), 1, use_fused=True)
+    u = 0.1 * rng.standard_normal((2 * n, tmodel.n_u))
+    return (np.concatenate([x, near]),
+            np.concatenate([x_plus, step[:, 1].numpy()]), u)
+
+
+# -- JAX references of the generic loss kernels' models ---------------------------
+LOSS_EPS = 1e-3
+COLD_BUDGET, WARM_BUDGET = (10, 10), (4, 10)
+#: Models whose warm loss the parity tests hold against JAX.
+WARM_CASES = ("elbow",)
+
+
+def _jax_loss_parts(jmodel, params, x, u, x_plus):
+    """JAX's ``soa_loss_parts`` of numpy transitions."""
+    from dair_pll_tpu.multibody import soa_terms as jterms
+    sp = jterms.scalarize_derived(
+        jmodel, jterms.derive_scalar_params(jmodel, params))
+    xT, xpT = jnp.asarray(x).T, jnp.asarray(x_plus).T
+    n_q, n_v = jmodel.n_q, jmodel.n_v
+    return jterms.soa_loss_parts(
+        jmodel, sp, list(xT[n_q:n_q + n_v]), list(xpT[:n_q]),
+        list(xpT[n_q:n_q + n_v]), list(jnp.asarray(u).T), DT)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_case(name: str, urdf_dir: str):
+    """Models, transitions, perturbed parameters (numpy) and JAX's cold
+    loss, impulses and valid mask (the steps of ``soa_contactnets_loss``:
+    its terms, its detached cold solve, its assembly), the warm loss's
+    impulses and valid mask from the cold impulses, and the packed derived
+    vector."""
+    from dair_pll_tpu.multibody import soa_terms as jterms
+    from dair_pll_tpu.ops import soa as jsoa
+    from dair_pll_tpu.ops import soa_loss_pallas as jpack
+    from dair_pll_tpu.ops import soa_solver as jsolver
+    jmodel, tmodel = kernel_model_pair(name, urdf_dir)
+    rng = np.random.default_rng(sorted(KERNEL_MODELS).index(name) + 31)
+    x, x_plus, u = kernel_transitions(name, tmodel, rng)
+    numpy_params = perturbed_params(
+        rng, *params_numpy(jmodel.initial_params(jnp.float64)))
+    params = jax_params(numpy_params)
+    eps = jnp.asarray(LOSS_EPS)
+    ref = {}
+    with jax.disable_jit():
+        M, Jc, phi, qc, dv = _jax_loss_parts(jmodel, params, x, u, x_plus)
+        force, valid = jsolver.solve_contact_impulse_soa(M, Jc, qc, eps,
+                                                         *COLD_BUDGET)
+        ref["loss"] = jterms.soa_loss_assemble(M, Jc, phi, qc, dv, force,
+                                               valid, eps).reshape(-1)
+        ref["force"], ref["valid"] = jnp.stack(force), valid.reshape(-1)
+        if name in WARM_CASES:
+            w_carry = jsoa.spd_solve(M, jsolver.jt_dot(Jc, force))
+            warm, _, warm_valid = jsolver.solve_warm_hybrid_soa(
+                M, Jc, qc, w_carry, eps, *WARM_BUDGET)
+            ref["warm_force"] = jnp.stack(warm)
+            ref["warm_valid"] = warm_valid.reshape(-1)
+        ref["pvec"] = jpack.pack_derived(
+            jmodel, jterms.derive_scalar_params(jmodel, params))
+    return jmodel, tmodel, (x, x_plus, u), numpy_params, \
+        jax.tree_util.tree_map(np.asarray, ref)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_gradients(name: str, kind: str, urdf_dir: str):
+    """JAX's per-sample loss and the gradients of the summed loss with
+    respect to (params, x, x_plus), at the impulse of the cold or warm
+    solve: the gradient ``jax.grad`` takes through ``soa_contactnets_loss``
+    and ``_warm``, whose solves are detached (the envelope theorem)."""
+    from dair_pll_tpu.multibody import soa_terms as jterms
+    jmodel, _, (x, x_plus, u), numpy_params, ref = kernel_case(name,
+                                                               urdf_dir)
+    key = "force" if kind == "cold" else "warm_force"
+    force = list(jnp.asarray(ref[key]))
+    valid = jnp.asarray(ref[key.replace("force", "valid")])
+
+    def total(p, xx, xxp):
+        M, Jc, phi, qc, dv = _jax_loss_parts(jmodel, p, xx, u, xxp)
+        loss = jterms.soa_loss_assemble(M, Jc, phi, qc, dv, force, valid,
+                                        jnp.asarray(LOSS_EPS)).reshape(-1)
+        return jnp.sum(loss), loss
+
+    with jax.disable_jit():
+        (_, loss), grads = jax.value_and_grad(
+            total, argnums=(0, 1, 2), has_aux=True)(
+                jax_params(numpy_params), jnp.asarray(x), jnp.asarray(x_plus))
+    return jax.tree_util.tree_map(np.asarray, (loss, grads))
+
+
+def kernel_port(name: str, urdf_dir: str):
+    """The port's CPU system, the perturbed parameters and the
+    transitions ``(x, x_plus, u)`` of :func:`kernel_case`, as tensors."""
+    from dair_pll_tpu_torch.multibody.learnable_system import (
+        MultibodyLearnableSystem)
+    from dair_pll_tpu_torch.multibody.model import params_from_numpy
+    _, tmodel, (x, x_plus, u), numpy_params, _ = kernel_case(name, urdf_dir)
+    system = MultibodyLearnableSystem(tmodel, DT, device="cpu")
+    params = params_from_numpy(tmodel, *numpy_params)
+    return system, params, torch.tensor(x), torch.tensor(x_plus), \
+        torch.tensor(u)
