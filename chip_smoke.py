@@ -117,12 +117,15 @@ slower (PERF.md).
    elbow's 15 states; K2 also in float64), bounds from the operations
    they need on the first COUNT_B samples, scaled (K1's and K3's own
    code's, ``ops/host_adjoint.py``'s counting build of
-   ``csrc/model_terms.cuh``; K2's the smaller of its own forward-mode
-   code's and torch autograd's reverse-mode sweep's) and ptxas's lines,
+   ``csrc/model_terms.cuh``; K2's the smaller of its own reverse-mode
+   sweep's, ``csrc/model_adjoint.cuh``, without the forward terms it
+   computes a second time, and torch autograd's) and ptxas's
+   lines for K2 at both sizes and types,
    then against their plain versions over chunks of a 65,536 slice (the
    plain versions over the whole batch would take minutes a kernel); the
    elbow's training round (as phase 10, traced); the polygon cube's
-   training round at 262,144 with its kernels' times.
+   training round at 262,144 with its kernels' times (K2 also in
+   float64).
 
 It prints, in this order: one JSON line per phase, the kernel table as
 one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
@@ -277,31 +280,6 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def count_operations(fn) -> int:
-    """Arithmetic operations ``fn()`` performs in PyTorch: one per output
-    element of each pointwise ATen operation and one per input element of
-    each reduction."""
-    import torch
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Counter(TorchDispatchMode):
-        ops = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            if torch.Tag.pointwise in func.tags:
-                outs = out if isinstance(out, (tuple, list)) else (out,)
-                Counter.ops += sum(o.numel() for o in outs
-                                   if isinstance(o, torch.Tensor))
-            elif torch.Tag.reduction in func.tags:
-                Counter.ops += args[0].numel()
-            return out
-
-    with Counter():
-        fn()
-    return Counter.ops
 
 
 def phase_device() -> str:
@@ -474,6 +452,7 @@ def check_float64(name: str, got, ref) -> float:
 def phase_kernel(system, x0_64):
     import torch
     from dair_pll_tpu_torch.ops import soa_kernels
+    from dair_pll_tpu_torch.ops.host_adjoint import count_torch_operations
     kernel = soa_kernels.solve_warm_hybrid_soa_cuda_packed
     plain = soa_kernels.plain_packed
 
@@ -520,7 +499,7 @@ def phase_kernel(system, x0_64):
         ms64 = cuda_ms(lambda: kernel(*qps64, EPS, *BUDGET), reps=10)
         plain_ms = cuda_ms(lambda: plain(*qps32, EPS, *BUDGET), reps=3,
                            warmup=1)
-        ops = count_operations(lambda: plain(*qps32, EPS, *BUDGET))
+        ops = count_torch_operations(lambda: plain(*qps32, EPS, *BUDGET))
     n_bytes = sum(t.numel() * t.element_size() for t in qps32) + \
         sum(t.numel() * t.element_size() for t in k32)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -828,7 +807,7 @@ def phase_loss_timing(system, transitions, x_train, xp_train):
     for name, (kernel, plain, n_bytes) in calls.items():
         ms = cuda_ms(kernel, reps=10)
         plain_ms = cuda_ms(plain, reps=3, warmup=1)
-        ops = count_operations(plain) * (n_train / B)
+        ops = host_adjoint.count_torch_operations(plain) * (n_train / B)
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / PEAK_OPS_PER_S["float32"] * 1e3
         result[name] = {
@@ -1331,6 +1310,7 @@ def phase_icnn_kernel(system, x0_64, x_train, xp_train):
     every reading before it raises."""
     import torch
     from dair_pll_tpu_torch.ops import soa_kernels
+    from dair_pll_tpu_torch.ops.host_adjoint import count_torch_operations
     kernel = soa_kernels.solve_contact_impulse_soa_cuda_packed
     plain = soa_kernels.plain_packed_cold
     params64 = system.initial_params(torch.float64)
@@ -1377,7 +1357,7 @@ def phase_icnn_kernel(system, x0_64, x_train, xp_train):
         result = kernel(*train32, LOSS_EPS, *COLD_BUDGET)
         plain_ms = cuda_ms(lambda: plain(*qps32, LOSS_EPS, *COLD_BUDGET),
                            reps=3, warmup=1)
-        ops = count_operations(
+        ops = count_torch_operations(
             lambda: plain(*qps32, LOSS_EPS, *COLD_BUDGET)) * (n_train / B)
     n_bytes = sum(t.numel() * t.element_size() for t in train32 + result)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -1682,10 +1662,11 @@ def apgd_operations(Q, q) -> int:
     plain version pads them to the kernel's 32 lanes, which is no work of
     the solve)."""
     from dair_pll_tpu_torch.ops import cone_kernels
+    from dair_pll_tpu_torch.ops.host_adjoint import count_torch_operations
     warp_sum = cone_kernels._warp_sum
     cone_kernels._warp_sum = lambda v: v.sum(-1)
     try:
-        return count_operations(
+        return count_torch_operations(
             lambda: cone_kernels.plain_apgd(Q, q, APGD_ITERATIONS))
     finally:
         cone_kernels._warp_sum = warp_sum
@@ -2070,13 +2051,14 @@ def solve_timing(kernel, plain, qps32, args, n_result) -> dict:
     float64), its plain version's, and its bound: the bytes it moves and
     the operations its plain version counts."""
     import torch
+    from dair_pll_tpu_torch.ops.host_adjoint import count_torch_operations
     qps64 = tuple(t.double() for t in qps32)
     with torch.no_grad():
         ms = cuda_ms(lambda: kernel(*qps32, *args), reps=20)
         ms64 = cuda_ms(lambda: kernel(*qps64, *args), reps=10)
         result = kernel(*qps32, *args)
         plain_ms = cuda_ms(lambda: plain(*qps32, *args), reps=3, warmup=1)
-        ops = count_operations(lambda: plain(*qps32, *args))
+        ops = count_torch_operations(lambda: plain(*qps32, *args))
     n_bytes = sum(t.numel() * t.element_size()
                   for t in qps32 + tuple(result[:n_result]))
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -2345,10 +2327,12 @@ def host_counts(model, pvec, xin, xp, force, valid, ct, fprev) -> dict:
     "K2": ...}`` and the count's seconds. K1's and K3's are their own
     code's (``host_adjoint.HostModelTerms``' counting build, in the
     batch's type). K2's is the smaller of two counts of the same gradient:
-    its own code's, forward mode with several tangents a pass, and a
-    reverse-mode sweep's, torch autograd's (``plain_loss_bwd``) pointwise
-    operations and reductions (``count_operations``); ``"K2"`` also holds
-    both as ``"forward_mode"`` and ``"reverse_mode"``."""
+    its own code's, one reverse-mode sweep a sample without the forward
+    terms it computes a second time, and torch autograd's
+    (``plain_loss_bwd``) pointwise operations and reductions
+    (``host_adjoint.count_torch_operations``); ``"K2"`` also holds both as
+    ``"own"`` and ``"autograd"``. Each kind's ``"recomputed"`` is that
+    second time's count (K2's only), in ``"executed"``."""
     from dair_pll_tpu_torch.ops import host_adjoint
     from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
     host = host_adjoint.HostModelTerms(os.path.join(HERE, "build",
@@ -2365,14 +2349,13 @@ def host_counts(model, pvec, xin, xp, force, valid, ct, fprev) -> dict:
                        sub[4], DT, LOSS_EPS, *budget,
                        threads=os.cpu_count() or 1)
         scale = n / sub[0].shape[1]
-        counts[name] = {"needed": c["needed"] * scale,
-                        "executed": c["executed"] * scale}
+        counts[name] = {what: c[what] * scale
+                        for what in ("needed", "executed", "recomputed")}
     counts["K2"]["needed"] += pvec.numel() * (n - 1)   # the batch sum
-    reverse = count_operations(lambda: lk.plain_loss_bwd(
+    autograd = host_adjoint.count_torch_operations(lambda: lk.plain_loss_bwd(
         model, pvec, *sub[:5], DT, LOSS_EPS)) * scale
-    counts["K2"].update(forward_mode=counts["K2"]["needed"],
-                        reverse_mode=reverse,
-                        needed=min(counts["K2"]["needed"], reverse))
+    counts["K2"].update(own=counts["K2"]["needed"], autograd=autograd,
+                        needed=min(counts["K2"]["needed"], autograd))
     counts["seconds"] = time.perf_counter() - t0
     return counts
 
@@ -2434,8 +2417,9 @@ def generic_loss_timing(system, pvec, xin_t, xp_t, small, reps: int,
             "bytes": n_bytes, "operations": ops,
             "operations_per_sample": ops / n,
             "operations_executed": counts[name]["executed"],
-            **({"operations_forward_mode": counts[name]["forward_mode"],
-                "operations_reverse_mode": counts[name]["reverse_mode"]}
+            **({"operations_own": counts[name]["own"],
+                "operations_autograd": counts[name]["autograd"],
+                "operations_recomputed": counts[name]["recomputed"]}
                if name == "K2" else {}),
             "bytes_ms": bytes_ms, "operations_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
@@ -2455,8 +2439,8 @@ def generic_loss_timing(system, pvec, xin_t, xp_t, small, reps: int,
                             xin_d, xp_d) / HBM_BYTES_PER_S * 1e3
         ops64_ms = c64["K2"]["needed"] / PEAK_OPS_PER_S["float64"] * 1e3
         k2["operations_float64"] = c64["K2"]["needed"]
-        k2["operations_float64_forward_mode"] = c64["K2"]["forward_mode"]
-        k2["operations_float64_reverse_mode"] = c64["K2"]["reverse_mode"]
+        k2["operations_float64_own"] = c64["K2"]["own"]
+        k2["operations_float64_autograd"] = c64["K2"]["autograd"]
         k2["bound_ms_float64"] = max(bytes64_ms, ops64_ms)
         k2["bound_by_float64"] = ("bytes" if bytes64_ms >= ops64_ms
                                   else "operations")
@@ -2518,7 +2502,8 @@ def phase_generic_train(system, x, x_plus, phase: str, size: str):
 def phase_polygon_train(system):
     """The polygon cube (the generic kernels' one-body size) trained on
     POLYGON_TRAIN_B transitions of the cube's recipe, then its kernels'
-    times at that batch, plain times at 8,192 and bounds."""
+    times at that batch (K2 also in float64), plain times at 8,192 and
+    bounds."""
     import torch
     x, x_plus = train_transitions(POLYGON_TRAIN_B, system.device)
     launches = phase_generic_train(system, x, x_plus, "polygon_cube_train",
@@ -2527,12 +2512,14 @@ def phase_polygon_train(system):
     small = tuple(t[:, :B].contiguous() for t in (x.T, x_plus.T))
     timing = generic_loss_timing(system, pvec, x.T.contiguous(),
                                  x_plus.T.contiguous(), small, reps=5,
-                                 with_float64=False)
+                                 with_float64=True)
     for name, kernel in (("K1", "model_loss_fwd_kernel"),
                          ("K3", "model_loss_fwd_warm_kernel")):
         timing[name]["ptxas"] = ptxas_lines("model_loss_fwd_b1.cu", kernel)
     timing["K2"]["ptxas"] = ptxas_lines("model_loss_bwd_b1_f32.cu",
                                         "model_loss_bwd_kernel")
+    timing["K2"]["ptxas_float64"] = ptxas_lines("model_loss_bwd_b1_f64.cu",
+                                                "model_loss_bwd_kernel")
     emit({"phase": "polygon_cube_kernel_timing", "B": POLYGON_TRAIN_B,
           "dtype": "float32", **timing})
     return launches, timing
@@ -2768,9 +2755,10 @@ def main() -> int:
                 "max_abs_err": errors["max_abs_err"],
                 "max_abs_err_float64": errors["max_abs_err_float64"],
                 "ms": times[name]["ms"],
-                **({"ms_float64": times[name]["ms_float64"],
-                    "design": "forward mode, 4 tangents a pass"}
+                **({"ms_float64": times[name]["ms_float64"]}
                    if "ms_float64" in times[name] else {}),
+                **({"design": "reverse-mode adjoint, one sweep per sample"}
+                   if name == "K2" else {}),
                 "plain_ms": times[name]["plain_ms"],
                 "bound_ms": times[name]["bound_ms"],
                 "bound_by": times[name]["bound_by"],

@@ -40,23 +40,25 @@ __device__ __forceinline__ void add_cross(S a0, S a1, S a2, S b0, S b1, S b2,
 }
 
 // out += the gradient of sum_ij A_ij R_ij(q) with respect to the wxyz
-// quaternion q, for R = quat_to_rotmat(q).
+// quaternion q, for R = quat_to_rotmat(q). Any scalar type: the generic
+// adjoint (model_adjoint.cuh) calls it in Dual arithmetic.
 template <typename S>
 __device__ __forceinline__ void quat_to_rotmat_vjp(const S (&A)[3][3],
                                                    const S (&q)[4],
                                                    S (&out)[4]) {
   const S w = q[0], x = q[1], y = q[2], z = q[3];
-  out[0] = out[0] + S(2) * (-A[0][1] * z + A[0][2] * y + A[1][0] * z -
-                            A[1][2] * x - A[2][0] * y + A[2][1] * x);
-  out[1] = out[1] + S(2) * (A[0][1] * y + A[0][2] * z + A[1][0] * y -
-                            A[1][2] * w + A[2][0] * z + A[2][1] * w) -
-           S(4) * x * (A[1][1] + A[2][2]);
-  out[2] = out[2] + S(2) * (A[0][1] * x + A[0][2] * w + A[1][0] * x +
-                            A[1][2] * z - A[2][0] * w + A[2][1] * z) -
-           S(4) * y * (A[0][0] + A[2][2]);
-  out[3] = out[3] + S(2) * (-A[0][1] * w + A[0][2] * x + A[1][0] * w +
-                            A[1][2] * y + A[2][0] * x + A[2][1] * y) -
-           S(4) * z * (A[0][0] + A[1][1]);
+  const S two = cst<S>(2.0), four = cst<S>(4.0);
+  out[0] = out[0] + two * (-A[0][1] * z + A[0][2] * y + A[1][0] * z -
+                           A[1][2] * x - A[2][0] * y + A[2][1] * x);
+  out[1] = out[1] + two * (A[0][1] * y + A[0][2] * z + A[1][0] * y -
+                           A[1][2] * w + A[2][0] * z + A[2][1] * w) -
+           four * x * (A[1][1] + A[2][2]);
+  out[2] = out[2] + two * (A[0][1] * x + A[0][2] * w + A[1][0] * x +
+                           A[1][2] * z - A[2][0] * w + A[2][1] * z) -
+           four * y * (A[0][0] + A[2][2]);
+  out[3] = out[3] + two * (-A[0][1] * w + A[0][2] * x + A[1][0] * w +
+                           A[1][2] * y + A[2][0] * x + A[2][1] * y) -
+           four * z * (A[0][0] + A[1][1]);
 }
 
 // The gradient of ct * L for one sample with respect to the 15 derived

@@ -61,6 +61,21 @@ __device__ __forceinline__ Dual<S> operator*(S c, const Dual<S>& a) {
   return Dual<S>(c * a.v, c * a.d);
 }
 
+// A constant of the code in any scalar type (zero tangents).
+template <typename X> struct Const {
+  __device__ __forceinline__ static X make(double c) {
+    return X(base_t<X>(c));
+  }
+};
+template <typename T> struct Const<Dual<T>> {
+  __device__ __forceinline__ static Dual<T> make(double c) {
+    return Dual<T>(Const<T>::make(c), Const<T>::make(0.0));
+  }
+};
+template <typename X> __device__ __forceinline__ X cst(double c) {
+  return Const<X>::make(c);
+}
+
 // ---------------------------------------------------------------------------
 // Small dense algebra on any scalar type, in soa.py's order of operations.
 template <typename T>

@@ -17,26 +17,28 @@
 // builds the model descriptor. The TPU kernels read a model's derived
 // scalars from SMEM; here each block stages them in shared memory.
 //
-// K2 differentiates K1's terms and assembly by forward mode, kTangents
-// input directions a pass (model_loss_vjp): correct by construction, since
-// K1, K3 and K2 run one body of code. Each thread keeps its sample's
-// derived-scalar gradient; a warp sums it with shuffles in a fixed tree,
-// the block its warps in order, and a second pass the blocks' partials in a
-// fixed order. No atomics: float64 results repeat bit for bit.
+// K2 is one reverse-mode sweep per sample (model_loss_vjp,
+// model_adjoint.cuh): K1's terms once forward in plain arithmetic, then
+// their adjoint, written out by hand, back through the assembly, the
+// contact and Lagrangian terms and the kinematic tree. Each thread keeps
+// its sample's derived-scalar gradient; a warp sums it with shuffles in a
+// fixed tree, the block its warps in order, and a second pass the blocks'
+// partials in a fixed order. No atomics: float64 results repeat bit for
+// bit.
 //
 // What bounds them on an H100 (the elbow, float32, B = 2,097,152): K1 and K3
 // read 15 + 15 values (K3 24 more) and write 26 per sample, some 0.14 ms of
 // bytes at 3.35 TB/s; their solve's ~10^5 operations or more per sample
 // bound them by operations. K2 reads 54 values and writes 30 a sample
-// (0.14 ms of bytes); its forward-mode passes do several times the
-// operations of one forward pass, so operations bound it too. One thread
-// carries a whole sample with a few hundred live values (the (7, 8) solve's
-// M, J and cone state; K2's duals), far past the 255-register cap: all
-// three spill heavily to local memory. Several threads per sample, a
-// reverse-mode K2 for the tree and shared-memory staging are later work.
+// (0.14 ms of bytes); its sweep's some 10^4 operations a sample bound it by
+// operations too. One thread carries a whole sample with a few hundred
+// live values (the (7, 8) solve's M, J and cone state; K2's frames and
+// their cotangents), past the 255-register cap: all three spill to local
+// memory. Several threads per sample and shared-memory staging are later
+// work.
 #pragma once
 
-#include "model_terms.cuh"
+#include "model_adjoint.cuh"
 
 namespace {
 
@@ -126,10 +128,10 @@ __global__ void __launch_bounds__(kModelThreads) model_loss_fwd_warm_kernel(
   store_model_solution<S, Z>(l, f, ok, B, b, loss, force, valid);
 }
 
-// K2, first pass: each thread's sample (model_loss_vjp) writes the state
-// gradients; each warp sums its samples' derived-scalar gradients with
-// shuffles, and the block its warps in order, into partial (n_blocks,
-// n_params).
+// K2, first pass: each thread's sample (model_loss_vjp, one reverse-mode
+// sweep) writes the state gradients; each warp sums its samples'
+// derived-scalar gradients with shuffles, and the block its warps in
+// order, into partial (n_blocks, n_params).
 template <typename S, typename Z>
 __global__ void __launch_bounds__(kModelBwdThreads) model_loss_bwd_kernel(
     const __grid_constant__ ModelDesc<Z> desc, const S* __restrict__ pvec,

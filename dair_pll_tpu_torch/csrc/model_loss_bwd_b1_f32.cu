@@ -1,8 +1,9 @@
 // K2 of model_loss.cuh in float32 at one ModelSize: one free body with one
 // plane-convex pair of 4 witnesses (n_v = 6, k = 4), such as the polygon
 // cube.
-// A source of its own for each type, so that nvcc builds it beside the
-// other sources (the two types' K2 together made the longest compile).
+// K2 is one reverse-mode sweep per sample (model_adjoint.cuh). A source
+// of its own for each type, so that nvcc builds the two types beside each
+// other and the other sources.
 
 #include "model_loss.cuh"
 

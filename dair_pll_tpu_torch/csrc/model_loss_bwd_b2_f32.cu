@@ -2,8 +2,9 @@
 // base and a revolute or prismatic joint, each with one plane-convex pair
 // of 4 witnesses (n_v = 7, k = 8): the elbow (box or polygon), pris2, the
 // actuated paddle.
-// A source of its own for each type, so that nvcc builds it beside the
-// other sources (the two types' K2 together made the longest compile).
+// K2 is one reverse-mode sweep per sample (model_adjoint.cuh). A source
+// of its own for each type, so that nvcc builds the two types beside each
+// other and the other sources.
 
 #include "model_loss.cuh"
 

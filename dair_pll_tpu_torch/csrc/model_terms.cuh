@@ -22,11 +22,13 @@
 // geometry), then each geometry's shape (a box's 3 half lengths, a
 // polygon's vertices, a sphere's radius).
 //
-// The scalar type T is float, double or DualN<S, N>, a forward-mode dual
-// carrying N tangents: the backward kernel K2 differentiates these same
-// functions along N input directions a pass (model_loss_vjp). The
-// kinematics' rates along qdot are a forward-mode JVP in Dual<T>, as the
-// plain version's torch.func.jvp.
+// The scalar type T is float or double (or, in the host build that counts
+// operations, a counting scalar). The kinematics' rates along qdot are a
+// forward-mode JVP in Dual<T>, as the plain version's torch.func.jvp. The
+// forward pieces keep what the backward kernel K2 needs (ModelParts' factor
+// of M, the sliding rates; PairTerms and BodyTerms, which the adjoint
+// recomputes per pair and per body): its reverse-mode sweep is in
+// model_adjoint.cuh.
 #pragma once
 
 #include "cube_terms.cuh"
@@ -39,129 +41,6 @@ using ::cos;
 using ::fabs;
 using ::sin;
 using ::sqrt;
-
-// ---------------------------------------------------------------------------
-// Forward-mode dual numbers with N tangents.
-template <typename S, int N> struct DualN {
-  S v;     // value
-  S d[N];  // derivatives along N seeded directions
-  DualN() = default;
-  __device__ __forceinline__ DualN(S value) : v(value) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) d[i] = S(0);
-  }
-};
-template <typename S, int N> struct BaseOf<DualN<S, N>> { using type = S; };
-
-#define DUALN_FN template <typename S, int N> __device__ __forceinline__
-DUALN_FN DualN<S, N> operator+(const DualN<S, N>& a, const DualN<S, N>& b) {
-  DualN<S, N> r;
-  r.v = a.v + b.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] + b.d[i];
-  return r;
-}
-DUALN_FN DualN<S, N> operator-(const DualN<S, N>& a, const DualN<S, N>& b) {
-  DualN<S, N> r;
-  r.v = a.v - b.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] - b.d[i];
-  return r;
-}
-DUALN_FN DualN<S, N> operator*(const DualN<S, N>& a, const DualN<S, N>& b) {
-  DualN<S, N> r;
-  r.v = a.v * b.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * b.v + a.v * b.d[i];
-  return r;
-}
-DUALN_FN DualN<S, N> operator/(const DualN<S, N>& a, const DualN<S, N>& b) {
-  DualN<S, N> r;
-  r.v = a.v / b.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.d[i] = (a.d[i] - r.v * b.d[i]) / b.v;
-  return r;
-}
-DUALN_FN DualN<S, N> operator-(const DualN<S, N>& a) {
-  DualN<S, N> r;
-  r.v = -a.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.d[i] = -a.d[i];
-  return r;
-}
-// Mixed with a constant of the base type.
-DUALN_FN DualN<S, N> operator+(const DualN<S, N>& a, S c) {
-  DualN<S, N> r = a;
-  r.v = a.v + c;
-  return r;
-}
-DUALN_FN DualN<S, N> operator+(S c, const DualN<S, N>& a) {
-  DualN<S, N> r = a;
-  r.v = c + a.v;
-  return r;
-}
-DUALN_FN DualN<S, N> operator-(const DualN<S, N>& a, S c) {
-  DualN<S, N> r = a;
-  r.v = a.v - c;
-  return r;
-}
-DUALN_FN DualN<S, N> operator-(S c, const DualN<S, N>& a) {
-  DualN<S, N> r = -a;
-  r.v = c - a.v;
-  return r;
-}
-DUALN_FN DualN<S, N> operator*(const DualN<S, N>& a, S c) {
-  DualN<S, N> r;
-  r.v = a.v * c;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * c;
-  return r;
-}
-DUALN_FN DualN<S, N> operator*(S c, const DualN<S, N>& a) { return a * c; }
-DUALN_FN DualN<S, N> operator/(const DualN<S, N>& a, S c) {
-  DualN<S, N> r;
-  r.v = a.v / c;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] / c;
-  return r;
-}
-DUALN_FN DualN<S, N> sqrt(const DualN<S, N>& a) {
-  DualN<S, N> r;
-  r.v = sqrt(a.v);
-  const S half_inv = S(0.5) / r.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * half_inv;
-  return r;
-}
-// |a|, with derivative sign(a) (0 at 0, as torch's abs).
-DUALN_FN DualN<S, N> fabs(const DualN<S, N>& a) {
-  if (a.v < S(0)) return -a;
-  if (a.v > S(0)) return a;
-  return DualN<S, N>(fabs(a.v));
-}
-DUALN_FN DualN<S, N> sin(const DualN<S, N>& a) {
-  DualN<S, N> r;
-  r.v = sin(a.v);
-  const S c = cos(a.v);
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * c;
-  return r;
-}
-DUALN_FN DualN<S, N> cos(const DualN<S, N>& a) {
-  DualN<S, N> r;
-  r.v = cos(a.v);
-  const S s = -sin(a.v);
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * s;
-  return r;
-}
-// Comparisons read the value.
-DUALN_FN bool operator<(const DualN<S, N>& a, const DualN<S, N>& b) {
-  return a.v < b.v;
-}
-DUALN_FN bool operator<(const DualN<S, N>& a, S c) { return a.v < c; }
-DUALN_FN bool operator>(const DualN<S, N>& a, S c) { return a.v > c; }
-#undef DUALN_FN
 
 // Dual (value and rate along qdot) operations beyond cube_terms.cuh's, with
 // the tangents of torch's forward-mode rules.
@@ -176,21 +55,6 @@ __device__ __forceinline__ Dual<S> sin(const Dual<S>& a) {
 template <typename S>
 __device__ __forceinline__ Dual<S> cos(const Dual<S>& a) {
   return Dual<S>(cos(a.v), a.d * (-sin(a.v)));
-}
-
-// A constant of the code in any scalar type (zero tangents).
-template <typename X> struct Const {
-  __device__ __forceinline__ static X make(double c) {
-    return X(base_t<X>(c));
-  }
-};
-template <typename T> struct Const<Dual<T>> {
-  __device__ __forceinline__ static Dual<T> make(double c) {
-    return Dual<T>(Const<T>::make(c), Const<T>::make(0.0));
-  }
-};
-template <typename X> __device__ __forceinline__ X cst(double c) {
-  return Const<X>::make(c);
 }
 
 // a[i] for a runtime index i < N, by a compile-time loop (no local memory).
@@ -325,31 +189,6 @@ template <typename Z> struct ModelDesc {
   BodyDesc body[Z::NB];
   GeomDesc plane[Z::NPAIR], convex[Z::NPAIR];  // each pair's geometries
   int n_params, n_u;
-};
-
-// The derived scalars in the scalar type T: index i of p, seeded as
-// direction i (Seed).
-template <typename T> struct Seed {
-  __device__ __forceinline__ static T make(T value, int, int) {
-    return value;
-  }
-};
-template <typename S, int N> struct Seed<DualN<S, N>> {
-  // value with tangent n set where its direction d is base + n.
-  __device__ __forceinline__ static DualN<S, N> make(S value, int d,
-                                                     int base) {
-    DualN<S, N> r(value);
-#pragma unroll
-    for (int n = 0; n < N; ++n) r.d[n] = d == base + n ? S(1) : S(0);
-    return r;
-  }
-};
-template <typename T> struct ParamReader {
-  const base_t<T>* p;
-  int base;  // the first direction of this pass (DualN)
-  __device__ __forceinline__ T operator()(int i) const {
-    return Seed<T>::make(p[i], i, base);
-  }
 };
 
 // ---------------------------------------------------------------------------
@@ -590,20 +429,24 @@ __device__ void geometry_frame(const GeomDesc& g,
 // _soa_support_points: the KQ witnesses of a convex geometry for a support
 // direction (in its frame): a box's or polygon's top vertices by support
 // value, through soa.sort_with_payload's insertion network (whose tie order
-// picks the witnesses); a sphere's point along the direction.
+// picks the witnesses); a sphere's point along the direction. vertex[c] is
+// the vertex witness c came from (the adjoint routes its cotangent there).
 template <typename T, typename Z>
-__device__ void support_points(const GeomDesc& g, const ParamReader<T>& p,
-                               const T (&dir)[3], T (&w)[Z::KQ][3]) {
+__device__ void support_points(const GeomDesc& g, const T* p,
+                               const T (&dir)[3], T (&w)[Z::KQ][3],
+                               int (&vertex)[Z::KQ]) {
   using B = base_t<T>;
   if constexpr (Z::KQ == 1) {
     if (g.kind == kGeomSphere) {
-      const T radius = p(g.shape_index);
+      const T radius = p[g.shape_index];
 #pragma unroll
       for (int i = 0; i < 3; ++i) w[0][i] = dir[i] * radius;
+      vertex[0] = 0;
       return;
     }
   }
   T key[kMaxVertices], pay[3][kMaxVertices];
+  int index[kMaxVertices];
   const int n = g.kind == kGeomBox ? 8 : g.n_vertices;
 #pragma unroll
   for (int m = 0; m < kMaxVertices; ++m) {
@@ -612,13 +455,14 @@ __device__ void support_points(const GeomDesc& g, const ParamReader<T>& p,
       // _UNIT_BOX_VERTICES: signs (x, y, z) counting in binary, - before +.
 #pragma unroll
       for (int i = 0; i < 3; ++i)
-        vert[i] = B((m >> (2 - i)) & 1 ? 1 : -1) * p(g.shape_index + i);
+        vert[i] = B((m >> (2 - i)) & 1 ? 1 : -1) * p[g.shape_index + i];
     } else {
 #pragma unroll
       for (int i = 0; i < 3; ++i)
-        vert[i] = m < n ? p(g.shape_index + 3 * m + i) : T(B(0));
+        vert[i] = m < n ? p[g.shape_index + 3 * m + i] : T(B(0));
     }
     key[m] = vert[0] * dir[0] + vert[1] * dir[1] + vert[2] * dir[2];
+    index[m] = m;
 #pragma unroll
     for (int i = 0; i < 3; ++i) pay[i][m] = vert[i];
   }
@@ -631,6 +475,9 @@ __device__ void support_points(const GeomDesc& g, const ParamReader<T>& p,
         const T a = key[j - 1], b = key[j];
         key[j - 1] = swap ? b : a;
         key[j] = swap ? a : b;
+        const int ia = index[j - 1], ib = index[j];
+        index[j - 1] = swap ? ib : ia;
+        index[j] = swap ? ia : ib;
 #pragma unroll
         for (int r = 0; r < 3; ++r) {
           const T pa = pay[r][j - 1], pb = pay[r][j];
@@ -640,95 +487,215 @@ __device__ void support_points(const GeomDesc& g, const ParamReader<T>& p,
       }
     }
 #pragma unroll
-  for (int c = 0; c < Z::KQ; ++c)
+  for (int c = 0; c < Z::KQ; ++c) {
+    vertex[c] = index[c];
 #pragma unroll
     for (int i = 0; i < 3; ++i) w[c][i] = pay[i][c];
+  }
 }
 
 // ---------------------------------------------------------------------------
 // Everything soa_loss_parts returns: mass matrix, cone-major contact
 // Jacobian [J_n; mu J_t], signed distances, the QP's linear term and the
-// velocity residual.
+// velocity residual. Then what the adjoint (model_adjoint.cuh) keeps from
+// the forward sweep; the forward kernels leave it unread.
 template <typename T, typename Z> struct ModelParts {
   T M[Z::NV][Z::NV];
   T J[3][Z::NV][Z::K];
   T phi[Z::K];
   T qc[3][Z::K];
   T dv[Z::NV];
+  Ldlt<T, Z::NV> F_M;  // M = L D L'
+  T a_nc[Z::NV];       // contact-free acceleration M^-1 F
+  T slide[3][Z::K];    // j_vp[1], j_vp[2], sliding speed (0 at rest)
 };
+
+// One plane-convex pair of soa_contact_terms up to its Jacobian rows: both
+// geometries' world frames (A the plane, B the convex), B's pose in A, the
+// witnesses (in B's frame, with their vertices) and the pair's friction.
+template <typename T, typename Z> struct PairTerms {
+  T R_WA[3][3], p_WA[3], Jw_A[3][Z::NV], Jv_A[3][Z::NV];
+  T R_WB[3][3], p_WB[3], Jw_B[3][Z::NV], Jv_B[3][Z::NV];
+  T R_AB[3][3], d[3], p_AoBo_A[3];
+  T wit[Z::KQ][3];
+  int vertex[Z::KQ];
+  T mu_a, mu_b, mu_pair;
+};
+
+template <typename T, typename Z>
+__device__ __forceinline__ void pair_terms(const ModelDesc<Z>& desc,
+                                           const T* p,
+                                           const Frame<T, Z::NV> (&F)[Z::NB],
+                                           int pp, PairTerms<T, Z>& t) {
+  using B = base_t<T>;
+  geometry_frame<T, Z>(desc.plane[pp], F, t.R_WA, t.p_WA, t.Jw_A, t.Jv_A);
+  geometry_frame<T, Z>(desc.convex[pp], F, t.R_WB, t.p_WB, t.Jw_B, t.Jv_B);
+  mtm3(t.R_WA, t.R_WB, t.R_AB);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) t.d[i] = t.p_WB[i] - t.p_WA[i];
+  mtv3(t.R_WA, t.d, t.p_AoBo_A);
+  // Support direction on B: -z axis of A, in B coordinates.
+  const T dir[3] = {-t.R_AB[2][0], -t.R_AB[2][1], -t.R_AB[2][2]};
+  support_points<T, Z>(desc.convex[pp], p, dir, t.wit, t.vertex);
+  t.mu_a = p[desc.plane[pp].mu_index];
+  t.mu_b = p[desc.convex[pp].mu_index];
+  t.mu_pair = (B(2) * t.mu_a * t.mu_b) / (t.mu_a + t.mu_b);
+}
+
+// Witness c of a pair: its point in A's frame (w_A, phi = w_A[2]), and the
+// world-frame offsets of its projection on the plane from A's origin
+// (off_A) and of the witness from B's origin (off_B).
+template <typename T, typename Z>
+__device__ __forceinline__ void witness_offsets(const PairTerms<T, Z>& t,
+                                                int c, T (&w_A)[3],
+                                                T (&off_A)[3],
+                                                T (&off_B)[3]) {
+  using B = base_t<T>;
+  T pa[3];
+  mv3(t.R_AB, t.wit[c], w_A);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) w_A[i] = w_A[i] + t.p_AoBo_A[i];
+  pa[0] = w_A[0];
+  pa[1] = w_A[1];
+  pa[2] = T(B(0));
+  mv3(t.R_WA, pa, off_A);
+  mv3(t.R_WB, t.wit[c], off_B);
+}
 
 // soa_contact_terms: each pair's witnesses, signed distances and Jacobian
 // rows, pair-major.
 template <typename T, typename Z>
 __device__ void contact_terms(const ModelDesc<Z>& desc,
-                              const ParamReader<T>& p,
+                              const T* p,
                               const Frame<T, Z::NV> (&F)[Z::NB],
                               T (&J)[3][Z::NV][Z::K], T (&phi)[Z::K]) {
-  using B = base_t<T>;
   constexpr int NV = Z::NV;
 #pragma unroll
   for (int pp = 0; pp < Z::NPAIR; ++pp) {
-    T R_WA[3][3], p_WA[3], Jw_A[3][NV], Jv_A[3][NV];
-    T R_WB[3][3], p_WB[3], Jw_B[3][NV], Jv_B[3][NV];
-    geometry_frame<T, Z>(desc.plane[pp], F, R_WA, p_WA, Jw_A, Jv_A);
-    geometry_frame<T, Z>(desc.convex[pp], F, R_WB, p_WB, Jw_B, Jv_B);
-    T R_AB[3][3], d[3], p_AoBo_A[3];
-    mtm3(R_WA, R_WB, R_AB);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) d[i] = p_WB[i] - p_WA[i];
-    mtv3(R_WA, d, p_AoBo_A);
-    // Support direction on B: -z axis of A, in B coordinates.
-    const T dir[3] = {-R_AB[2][0], -R_AB[2][1], -R_AB[2][2]};
-    T wit[Z::KQ][3];
-    support_points<T, Z>(desc.convex[pp], p, dir, wit);
-    const T mu_a = p(desc.plane[pp].mu_index);
-    const T mu_b = p(desc.convex[pp].mu_index);
-    const T mu_pair = (B(2) * mu_a * mu_b) / (mu_a + mu_b);
+    PairTerms<T, Z> t;
+    pair_terms<T, Z>(desc, p, F, pp, t);
 #pragma unroll
     for (int c = 0; c < Z::KQ; ++c) {
       const int k = pp * Z::KQ + c;
-      T w_A[3], pa[3], off_A[3], off_B[3];
-      mv3(R_AB, wit[c], w_A);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) w_A[i] = w_A[i] + p_AoBo_A[i];
+      T w_A[3], off_A[3], off_B[3];
+      witness_offsets<T, Z>(t, c, w_A, off_A, off_B);
       phi[k] = w_A[2];
-      pa[0] = w_A[0];
-      pa[1] = w_A[1];
-      pa[2] = T(B(0));
-      mv3(R_WA, pa, off_A);
-      mv3(R_WB, wit[c], off_B);
       // J_rel = (J_Bc - J_Ac), J_*c = Jv - skew(off) Jw; rows [t_x, t_y,
       // n] in the plane's axes.
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
-        const T sB0 = off_B[1] * Jw_B[2][v] - off_B[2] * Jw_B[1][v];
-        const T sB1 = off_B[2] * Jw_B[0][v] - off_B[0] * Jw_B[2][v];
-        const T sB2 = off_B[0] * Jw_B[1][v] - off_B[1] * Jw_B[0][v];
-        const T sA0 = off_A[1] * Jw_A[2][v] - off_A[2] * Jw_A[1][v];
-        const T sA1 = off_A[2] * Jw_A[0][v] - off_A[0] * Jw_A[2][v];
-        const T sA2 = off_A[0] * Jw_A[1][v] - off_A[1] * Jw_A[0][v];
-        const T rel[3] = {(Jv_B[0][v] - Jv_A[0][v]) - sB0 + sA0,
-                          (Jv_B[1][v] - Jv_A[1][v]) - sB1 + sA1,
-                          (Jv_B[2][v] - Jv_A[2][v]) - sB2 + sA2};
-        const T t_x = R_WA[0][0] * rel[0] + R_WA[1][0] * rel[1] +
-                      R_WA[2][0] * rel[2];
-        const T t_y = R_WA[0][1] * rel[0] + R_WA[1][1] * rel[1] +
-                      R_WA[2][1] * rel[2];
-        const T n_r = R_WA[0][2] * rel[0] + R_WA[1][2] * rel[1] +
-                      R_WA[2][2] * rel[2];
+        const T sB0 = off_B[1] * t.Jw_B[2][v] - off_B[2] * t.Jw_B[1][v];
+        const T sB1 = off_B[2] * t.Jw_B[0][v] - off_B[0] * t.Jw_B[2][v];
+        const T sB2 = off_B[0] * t.Jw_B[1][v] - off_B[1] * t.Jw_B[0][v];
+        const T sA0 = off_A[1] * t.Jw_A[2][v] - off_A[2] * t.Jw_A[1][v];
+        const T sA1 = off_A[2] * t.Jw_A[0][v] - off_A[0] * t.Jw_A[2][v];
+        const T sA2 = off_A[0] * t.Jw_A[1][v] - off_A[1] * t.Jw_A[0][v];
+        const T rel[3] = {(t.Jv_B[0][v] - t.Jv_A[0][v]) - sB0 + sA0,
+                          (t.Jv_B[1][v] - t.Jv_A[1][v]) - sB1 + sA1,
+                          (t.Jv_B[2][v] - t.Jv_A[2][v]) - sB2 + sA2};
+        const T t_x = t.R_WA[0][0] * rel[0] + t.R_WA[1][0] * rel[1] +
+                      t.R_WA[2][0] * rel[2];
+        const T t_y = t.R_WA[0][1] * rel[0] + t.R_WA[1][1] * rel[1] +
+                      t.R_WA[2][1] * rel[2];
+        const T n_r = t.R_WA[0][2] * rel[0] + t.R_WA[1][2] * rel[1] +
+                      t.R_WA[2][2] * rel[2];
         J[0][v][k] = n_r;
-        J[1][v][k] = mu_pair * t_x;
-        J[2][v][k] = mu_pair * t_y;
+        J[1][v][k] = t.mu_pair * t_x;
+        J[2][v][k] = t.mu_pair * t_y;
       }
     }
   }
+}
+
+// One body's share of soa_lagrangian_terms before it enters M and F: its
+// inertial parameters, its frame's values and rates along qdot, the
+// centre of mass offset c_W = R c_B and its Jacobian J_cm and their rates,
+// the angular velocity omega = Jw v, the biases Jw_dot v and J_cm_dot v,
+// the world inertia I_W = R I_B R', its momentum I_W omega and the torque
+// bias I_W Jw_dot v + omega x I_W omega.
+template <typename T, typename Z> struct BodyTerms {
+  T mass, c_B[3], I_B[3][3];
+  T R[3][3], Rd[3][3];
+  T Jw[3][Z::NV], Jwd[3][Z::NV], Jv[3][Z::NV], Jvd[3][Z::NV];
+  T c_W[3], c_W_dot[3], J_cm[3][Z::NV], J_cm_dot[3][Z::NV];
+  T omega[3], omega_dot_bias[3], a_cm_bias[3];
+  T I_W[3][3], I_omega[3], torque_bias[3];
+};
+
+template <typename T, typename Z>
+__device__ __forceinline__ void body_terms(const T* p,
+                                           const Frame<T, Z::NV>& f, int b,
+                                           const T (&v)[Z::NV],
+                                           BodyTerms<T, Z>& o) {
+  using B = base_t<T>;
+  constexpr int NV = Z::NV;
+  const T zero = T(B(0));
+  o.mass = p[10 * b];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) o.c_B[i] = p[10 * b + 1 + i] / o.mass;
+  const int inertia[3][3] = {{4, 7, 8}, {7, 5, 9}, {8, 9, 6}};
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) o.I_B[i][j] = p[10 * b + inertia[i][j]];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      o.R[i][j] = f.R[i][j].v;
+      o.Rd[i][j] = f.R[i][j].d;
+    }
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      o.Jw[i][j] = f.Jw[i][j].v;
+      o.Jwd[i][j] = f.Jw[i][j].d;
+      o.Jv[i][j] = f.Jv[i][j].v;
+      o.Jvd[i][j] = f.Jv[i][j].d;
+    }
+  }
+  mv3(o.R, o.c_B, o.c_W);
+  mv3(o.Rd, o.c_B, o.c_W_dot);
+  shift_jacobian<T, NV>(o.Jv, o.c_W, o.Jw, zero, o.J_cm);
+  {
+    T A[3][NV], SJ[3][3], CJ[3][NV];
+    shift_jacobian<T, NV>(o.Jvd, o.c_W_dot, o.Jw, zero, A);
+    skew(o.c_W, zero, SJ);
+    mm3n<T, NV>(SJ, o.Jwd, CJ);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < NV; ++j) o.J_cm_dot[i][j] = A[i][j] - CJ[i][j];
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    o.omega[i] = dotn<T, NV>(o.Jw[i], v);
+    o.omega_dot_bias[i] = dotn<T, NV>(o.Jwd[i], v);
+    o.a_cm_bias[i] = dotn<T, NV>(o.J_cm_dot[i], v);
+  }
+  // I_cm_W = (R I_B) R'.
+  T RI[3][3];
+  mm3(o.R, o.I_B, RI);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      o.I_W[i][j] = RI[i][0] * o.R[j][0] + RI[i][1] * o.R[j][1] +
+                    RI[i][2] * o.R[j][2];
+  mv3(o.I_W, o.omega, o.I_omega);
+  mv3(o.I_W, o.omega_dot_bias, o.torque_bias);
+  o.torque_bias[0] = o.torque_bias[0] + (o.omega[1] * o.I_omega[2] -
+                                         o.omega[2] * o.I_omega[1]);
+  o.torque_bias[1] = o.torque_bias[1] + (o.omega[2] * o.I_omega[0] -
+                                         o.omega[0] * o.I_omega[2]);
+  o.torque_bias[2] = o.torque_bias[2] + (o.omega[0] * o.I_omega[1] -
+                                         o.omega[1] * o.I_omega[0]);
 }
 
 // soa_lagrangian_terms: mass matrix M and force F (gravity, the
 // Coriolis and centrifugal bias, actuation).
 template <typename T, typename Z>
 __device__ void lagrangian_terms(const ModelDesc<Z>& desc,
-                                 const ParamReader<T>& p,
+                                 const T* p,
                                  const Frame<T, Z::NV> (&F)[Z::NB],
                                  const T (&v)[Z::NV], const T (&u)[Z::NU],
                                  T (&M)[Z::NV][Z::NV], T (&Fo)[Z::NV]) {
@@ -744,92 +711,34 @@ __device__ void lagrangian_terms(const ModelDesc<Z>& desc,
   const T g_W[3] = {zero, zero, T(B(-kGravity))};
 #pragma unroll
   for (int b = 0; b < Z::NB; ++b) {
-    const Frame<T, NV>& f = F[b];
-    const T mass = p(10 * b);
-    const T c_B[3] = {p(10 * b + 1) / mass, p(10 * b + 2) / mass,
-                      p(10 * b + 3) / mass};
-    const T I_B[3][3] = {{p(10 * b + 4), p(10 * b + 7), p(10 * b + 8)},
-                         {p(10 * b + 7), p(10 * b + 5), p(10 * b + 9)},
-                         {p(10 * b + 8), p(10 * b + 9), p(10 * b + 6)}};
-    T R[3][3], Rd[3][3], Jw[3][NV], Jwd[3][NV], Jv[3][NV], Jvd[3][NV];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        R[i][j] = f.R[i][j].v;
-        Rd[i][j] = f.R[i][j].d;
-      }
-#pragma unroll
-      for (int j = 0; j < NV; ++j) {
-        Jw[i][j] = f.Jw[i][j].v;
-        Jwd[i][j] = f.Jw[i][j].d;
-        Jv[i][j] = f.Jv[i][j].v;
-        Jvd[i][j] = f.Jv[i][j].d;
-      }
-    }
-    T c_W[3], c_W_dot[3];
-    mv3(R, c_B, c_W);
-    mv3(Rd, c_B, c_W_dot);
-    T J_cm[3][NV], J_cm_dot[3][NV];
-    shift_jacobian<T, NV>(Jv, c_W, Jw, zero, J_cm);
-    {
-      T A[3][NV], SJ[3][3], CJ[3][NV];
-      shift_jacobian<T, NV>(Jvd, c_W_dot, Jw, zero, A);
-      skew(c_W, zero, SJ);
-      mm3n<T, NV>(SJ, Jwd, CJ);
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < NV; ++j) J_cm_dot[i][j] = A[i][j] - CJ[i][j];
-    }
-    T omega[3], omega_dot_bias[3], a_cm_bias[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      omega[i] = dotn<T, NV>(Jw[i], v);
-      omega_dot_bias[i] = dotn<T, NV>(Jwd[i], v);
-      a_cm_bias[i] = dotn<T, NV>(J_cm_dot[i], v);
-    }
-    // I_cm_W = (R I_B) R'.
-    T RI[3][3], I_W[3][3];
-    mm3(R, I_B, RI);
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        I_W[i][j] = RI[i][0] * R[j][0] + RI[i][1] * R[j][1] +
-                    RI[i][2] * R[j][2];
+    BodyTerms<T, Z> o;
+    body_terms<T, Z>(p, F[b], b, v, o);
 #pragma unroll
     for (int i = 0; i < NV; ++i)
 #pragma unroll
       for (int j = 0; j <= i; ++j) {
         T acc = M[i][j];
 #pragma unroll
-        for (int a = 0; a < 3; ++a) acc = acc + mass * J_cm[a][i] * J_cm[a][j];
+        for (int a = 0; a < 3; ++a)
+          acc = acc + o.mass * o.J_cm[a][i] * o.J_cm[a][j];
 #pragma unroll
         for (int x = 0; x < 3; ++x)
 #pragma unroll
           for (int y = 0; y < 3; ++y)
-            acc = acc + Jw[x][i] * I_W[x][y] * Jw[y][j];
+            acc = acc + o.Jw[x][i] * o.I_W[x][y] * o.Jw[y][j];
         M[i][j] = acc;
       }
-    T I_omega[3], torque_bias[3], force_bias[3];
-    mv3(I_W, omega, I_omega);
-    mv3(I_W, omega_dot_bias, torque_bias);
-    torque_bias[0] = torque_bias[0] +
-                     (omega[1] * I_omega[2] - omega[2] * I_omega[1]);
-    torque_bias[1] = torque_bias[1] +
-                     (omega[2] * I_omega[0] - omega[0] * I_omega[2]);
-    torque_bias[2] = torque_bias[2] +
-                     (omega[0] * I_omega[1] - omega[1] * I_omega[0]);
+    T force_bias[3];
 #pragma unroll
-    for (int a = 0; a < 3; ++a) force_bias[a] = mass * a_cm_bias[a];
+    for (int a = 0; a < 3; ++a) force_bias[a] = o.mass * o.a_cm_bias[a];
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       T cor = zero, grav = zero;
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        cor = cor + Jw[a][i] * torque_bias[a] + J_cm[a][i] * force_bias[a];
-        grav = grav + J_cm[a][i] * mass * g_W[a];
+        cor = cor + o.Jw[a][i] * o.torque_bias[a] +
+              o.J_cm[a][i] * force_bias[a];
+        grav = grav + o.J_cm[a][i] * o.mass * g_W[a];
       }
       Fo[i] = Fo[i] + grav - cor;
     }
@@ -850,36 +759,40 @@ __device__ void lagrangian_terms(const ModelDesc<Z>& desc,
   }
 }
 
-// soa_loss_parts: the multibody terms at the observed next state (q, vp),
+// The body frames of soa_loss_parts at the observed next state (q, vp):
+// soa_configuration_rate, then soa_body_kinematics with its JVP along qdot.
+template <typename T, typename Z>
+__device__ __forceinline__ void model_frames(const ModelDesc<Z>& desc,
+                                             const T (&q)[Z::NQ],
+                                             const T (&vp)[Z::NV],
+                                             Frame<T, Z::NV> (&F)[Z::NB]) {
+  T qdot[Z::NQ];
+  configuration_rate<T, Z>(desc, q, vp, qdot);
+  Dual<T> qd[Z::NQ];
+#pragma unroll
+  for (int i = 0; i < Z::NQ; ++i) qd[i] = Dual<T>(q[i], qdot[i]);
+  body_kinematics<T, Z>(desc, qd, F);
+}
+
+// soa_loss_parts from the body frames F at (q, vp): the multibody terms,
 // then the ContactNets QP pieces; v is the current state's velocity and u
 // its actuation.
 template <typename T, typename Z>
-__device__ void model_loss_parts(const ModelDesc<Z>& desc,
-                                 const ParamReader<T>& p,
+__device__ void model_loss_parts(const ModelDesc<Z>& desc, const T* p,
                                  const T (&v)[Z::NV], const T (&u)[Z::NU],
-                                 const T (&q)[Z::NQ], const T (&vp)[Z::NV],
+                                 const T (&vp)[Z::NV],
+                                 const Frame<T, Z::NV> (&F)[Z::NB],
                                  base_t<T> dt, ModelParts<T, Z>& out) {
   using B = base_t<T>;
   constexpr int NV = Z::NV, K = Z::K;
-  Frame<T, NV> F[Z::NB];
-  {
-    T qdot[Z::NQ];
-    configuration_rate<T, Z>(desc, q, vp, qdot);
-    Dual<T> qd[Z::NQ];
-#pragma unroll
-    for (int i = 0; i < Z::NQ; ++i) qd[i] = Dual<T>(q[i], qdot[i]);
-    body_kinematics<T, Z>(desc, qd, F);
-  }
-  T Fo[NV], a_nc[NV];
+  T Fo[NV];
   lagrangian_terms<T, Z>(desc, p, F, vp, u, out.M, Fo);
   contact_terms<T, Z>(desc, p, F, out.J, out.phi);
-  {
-    Ldlt<T, NV> F_M;
-    ldlt<T, NV>(out.M, F_M);
-    ldlt_solve<T, NV>(F_M, Fo, a_nc);
-  }
+  ldlt<T, NV>(out.M, out.F_M);
+  ldlt_solve<T, NV>(out.F_M, Fo, out.a_nc);
 #pragma unroll
-  for (int i = 0; i < NV; ++i) out.dv[i] = vp[i] - (v[i] + a_nc[i] * dt);
+  for (int i = 0; i < NV; ++i)
+    out.dv[i] = vp[i] - (v[i] + out.a_nc[i] * dt);
   T j_dv[3][K], j_vp[3][K];
   j_dot<T, NV, K>(out.J, out.dv, j_dv);
   j_dot<T, NV, K>(out.J, vp, j_vp);
@@ -891,6 +804,9 @@ __device__ void model_loss_parts(const ModelDesc<Z>& desc,
     const bool at_rest = sliding_sq < B(1e-24);
     const T speed = sqrt(at_rest ? T(B(1)) : sliding_sq);
     const T sliding_speed = at_rest ? T(B(0)) : speed;
+    out.slide[0][c] = s1;
+    out.slide[1][c] = s2;
+    out.slide[2][c] = sliding_speed;
     out.qc[0][c] = -j_dv[0][c] + fabs(out.phi[c]) + dt * sliding_speed;
     out.qc[1][c] = -j_dv[1][c] + dt * s1;
     out.qc[2][c] = -j_dv[2][c] + dt * s2;
@@ -966,7 +882,9 @@ __device__ __forceinline__ void model_parts_at(const ModelDesc<Z>& desc,
   for (int i = 0; i < Z::NU; ++i) u[i] = xin[Z::NX + i];
 #pragma unroll
   for (int i = 0; i < Z::NQ; ++i) q[i] = xp[i];
-  model_loss_parts<S, Z>(desc, ParamReader<S>{p, 0}, v, u, q, vp, dt, lp);
+  Frame<S, Z::NV> F[Z::NB];
+  model_frames<S, Z>(desc, q, vp, F);
+  model_loss_parts<S, Z>(desc, p, v, u, vp, F, dt, lp);
 }
 
 template <typename S, typename Z>
@@ -1026,70 +944,6 @@ __device__ S model_loss_warm(const ModelDesc<Z>& desc, const S* p,
   valid = warm_hybrid_solve<S, Z::NV, Z::K>(P, ipm_iterations,
                                             newton_iterations, w, force);
   return model_loss_assemble<S, Z>(lp, force, valid, S(eps));
-}
-
-// Tangents carried per forward-mode pass of K2.
-constexpr int kTangents = 4;
-
-// K2's body: the gradient of ct * loss at the saved impulse f, by forward
-// mode over the input directions, kTangents a pass: the n_params derived
-// scalars (g_p), then the velocity and actuation rows of xin (g_xin's rows
-// NQ.., whose configuration rows get exactly 0), then the rows of xp
-// (g_xp). A failed solve's loss is 0, and so is its gradient.
-template <typename S, typename Z>
-__device__ void model_loss_vjp(const ModelDesc<Z>& desc, const S* p,
-                               const S (&xin)[Z::NX + Z::NU],
-                               const S (&xp)[Z::NX],
-                               const S (&f)[3][Z::K], bool valid, S ct, S dt,
-                               S* g_p, S (&g_xin)[Z::NX + Z::NU],
-                               S (&g_xp)[Z::NX]) {
-  using T = DualN<S, kTangents>;
-  const int n_p = desc.n_params, n_u = desc.n_u;
-  const int n_xin = Z::NV + n_u;  // the velocity and actuation rows
-  const int n_dir = n_p + n_xin + Z::NX;
-#pragma unroll
-  for (int i = 0; i < Z::NX + Z::NU; ++i) g_xin[i] = S(0);
-#pragma unroll
-  for (int i = 0; i < Z::NX; ++i) g_xp[i] = S(0);
-  for (int i = 0; i < n_p; ++i) g_p[i] = S(0);
-  if (!valid) return;
-#pragma unroll 1
-  for (int base = 0; base < n_dir; base += kTangents) {
-    T v[Z::NV], u[Z::NU], q[Z::NQ], vp[Z::NV];
-#pragma unroll
-    for (int i = 0; i < Z::NV; ++i)
-      v[i] = Seed<T>::make(xin[Z::NQ + i], n_p + i, base);
-#pragma unroll
-    for (int i = 0; i < Z::NU; ++i)
-      u[i] = i < n_u ? Seed<T>::make(xin[Z::NX + i], n_p + Z::NV + i, base)
-                     : T(xin[Z::NX + i]);
-#pragma unroll
-    for (int i = 0; i < Z::NQ; ++i)
-      q[i] = Seed<T>::make(xp[i], n_p + n_xin + i, base);
-#pragma unroll
-    for (int i = 0; i < Z::NV; ++i)
-      vp[i] = Seed<T>::make(xp[Z::NQ + i], n_p + n_xin + Z::NQ + i, base);
-    ModelParts<T, Z> lp;
-    model_loss_parts<T, Z>(desc, ParamReader<T>{p, base}, v, u, q, vp, dt,
-                           lp);
-    const T loss = model_loss_assemble<T, Z>(lp, f, true, S(0));
-#pragma unroll
-    for (int n = 0; n < kTangents; ++n) {
-      const int d = base + n;
-      const S g = ct * loss.d[n];
-      if (d < n_p) {
-        g_p[d] = g;
-      } else if (d < n_p + n_xin) {
-#pragma unroll
-        for (int i = 0; i < Z::NV + Z::NU; ++i)
-          if (i == d - n_p) g_xin[Z::NQ + i] = g;
-      } else if (d < n_dir) {
-#pragma unroll
-        for (int i = 0; i < Z::NX; ++i)
-          if (i == d - n_p - n_xin) g_xp[i] = g;
-      }
-    }
-  }
 }
 
 }  // namespace

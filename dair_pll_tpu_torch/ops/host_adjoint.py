@@ -1,7 +1,10 @@
-r"""Host builds of K2's per-sample body, ``cube_loss_vjp``
-(``csrc/cube_adjoint.cuh``), compiled with ``g++``: the gradient in float64
-(held against the plain version by the tests) and a count of the
-arithmetic the sweep needs (K2's bound in ``chip_smoke.py``).
+r"""Host builds of the loss backward kernel K2's per-sample bodies, compiled
+with ``g++``: the box cube's ``cube_loss_vjp`` (``csrc/cube_adjoint.cuh``,
+:class:`HostAdjoint`) and the generic ``model_loss_vjp``
+(``csrc/model_adjoint.cuh``, with the generic forward bodies,
+:class:`HostModelTerms`). Each gives the gradient in float64 (held against
+the plain version by the tests) and a count of the arithmetic the sweep
+needs (K2's bound in ``chip_smoke.py``).
 
 A stand-in ``cuda_runtime.h`` turns the CUDA qualifiers into plain C++, so
 the device code compiles unchanged. The count runs the same code on
@@ -20,6 +23,11 @@ It keeps two tallies:
   keeps ``x * 0`` and ``0 - x``; a compiler may still fold ``x * 1`` and
   ``x - 0``).
 
+The generic sweep recomputes some forward terms rather than keep them
+(``Recompute`` in ``model_adjoint.cuh``): that work is executed but not
+needed, and ``HostModelTerms.count`` reports its needed operations apart
+as ``recomputed``.
+
 Negations and absolute values are free (operand modifiers on the card);
 comparisons and selects are not counted; a quotient or a square root
 counts one, so the count is a floor on the card's instructions.
@@ -30,7 +38,7 @@ import ctypes
 import os
 import shutil
 import subprocess
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,7 +67,7 @@ COUNTED = r"""#pragma once
 #include <type_traits>
 
 struct Tally {
-  long long needed = 0, executed = 0;
+  long long needed = 0, executed = 0, recomputed = 0;
 };
 // One tally per thread; initial-exec keeps its address a register read.
 static thread_local Tally tally __attribute__((tls_model("initial-exec")));
@@ -151,14 +159,10 @@ template <typename B> struct Counted {
 };
 """
 
-#: Batch entry points over batch-minor inputs: the float64 gradient
-#: (``dp`` per sample, ``(B, 15)``) and the counts.
-BATCH = r"""#include <thread>
-#include <vector>
-
-#include "counted.h"
-#include "cube_adjoint.cuh"
-
+#: The box cube's K2 body over batch-minor inputs (``cube_adjoint.cuh``):
+#: ``sweep`` for any scalar, and the float64 gradient ``cube_loss_vjp_f64``
+#: (``dp`` per sample ``(B, 15)``). Both host builds carry it.
+CUBE_SWEEP = r"""
 // A value of the data in the scalar type S, and back.
 template <typename S, typename B> static S data(B x) { return S::data(x); }
 template <> double data<double, double>(double x) { return x; }
@@ -204,7 +208,16 @@ extern "C" void cube_loss_vjp_f64(const double* pvec, const double* xin,
   sweep<double, double>(pvec, xin, xp, force, valid, ct, n, 0, n, dt, dp,
                         dxin, dxp);
 }
+"""
 
+#: Batch entry points over batch-minor inputs: the float64 gradient
+#: (``CUBE_SWEEP``) and the counts.
+BATCH = r"""#include <thread>
+#include <vector>
+
+#include "counted.h"
+#include "cube_adjoint.cuh"
+""" + CUBE_SWEEP + r"""
 // The counts of cube_loss_vjp<Counted<B>> over n samples, on `threads`
 // threads; counts = {needed, executed}. With dp non-null (one thread) it
 // also writes the gradients, as cube_loss_vjp_f64 does.
@@ -261,16 +274,54 @@ _COUNT_ENTRY = {torch.float32: "cube_loss_vjp_count_f32",
 _NP = {torch.float32: np.float32, torch.float64: np.float64}
 
 
+def count_torch_operations(fn: Callable[[], object]) -> int:
+    """Arithmetic operations ``fn()`` performs in PyTorch: one per output
+    element of each pointwise ATen operation and one per input element of
+    each reduction (torch autograd's sweep, counted as the plain version
+    runs it, beside the kernels' own counts)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Counter(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if torch.Tag.pointwise in func.tags:
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                Counter.ops += sum(o.numel() for o in outs
+                                   if isinstance(o, torch.Tensor))
+            elif torch.Tag.reduction in func.tags:
+                Counter.ops += args[0].numel()
+            return out
+
+    with Counter():
+        fn()
+    return Counter.ops
+
+
+def _cube_vjp(lib, pvec, xin, xp, force, valid, ct, dt
+              ) -> Tuple[Tensor, Tensor, Tensor]:
+    """A host build's ``cube_loss_vjp_f64`` (``CUBE_SWEEP``) over a
+    batch-minor batch: ``dp`` per sample ``(B, 15)``, ``dxin`` and ``dxp``
+    ``(13, B)``."""
+    n = xin.shape[1]
+    ins = HostAdjoint._arrays(np.float64, pvec, xin, xp, force, valid, ct)
+    outs = [np.zeros((n, 15)), np.zeros((13, n)), np.zeros((13, n))]
+    lib.cube_loss_vjp_f64(*[a.ctypes.data for a in ins], n, dt,
+                          *[a.ctypes.data for a in outs])
+    return tuple(torch.from_numpy(o) for o in outs)
+
+
 def compiler() -> Optional[str]:
     """The host C++ compiler, or None."""
     return shutil.which("g++") or shutil.which("c++")
 
 
-def _build_host(work_dir: str, source: str, text: str, level: str
-                ) -> ctypes.CDLL:
+def _build_host(work_dir: str, source: str, text: str, level: str,
+                flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """Writes the stand-in headers and ``text`` as ``source`` into
-    ``work_dir``, compiles it with ``g++`` at optimization ``level``
-    against ``csrc/``, and loads it."""
+    ``work_dir``, compiles it with ``g++`` at optimization ``level`` (and
+    ``flags``) against ``csrc/``, and loads it."""
     cxx = compiler()
     if cxx is None:
         raise RuntimeError("no host C++ compiler (g++ or c++) found")
@@ -281,7 +332,7 @@ def _build_host(work_dir: str, source: str, text: str, level: str
             handle.write(body)
     library = os.path.join(work_dir, f"lib{os.path.splitext(source)[0]}.so")
     proc = subprocess.run(
-        [cxx, "-std=c++17", level, "-ffp-contract=off", "-pthread",
+        [cxx, "-std=c++17", level, *flags, "-ffp-contract=off", "-pthread",
          "-shared", "-fPIC", f"-I{work_dir}", f"-I{soa_kernels.SOURCE_DIR}",
          os.path.join(work_dir, source), "-o", library],
         capture_output=True, text=True, check=False)
@@ -311,12 +362,7 @@ class HostAdjoint:
             ) -> Tuple[Tensor, Tensor, Tensor]:
         """``cube_loss_vjp<double>`` over a batch-minor batch: ``dp`` per
         sample ``(B, 15)``, ``dxin`` and ``dxp`` ``(13, B)``."""
-        n = xin.shape[1]
-        ins = self._arrays(np.float64, pvec, xin, xp, force, valid, ct)
-        outs = [np.zeros((n, 15)), np.zeros((13, n)), np.zeros((13, n))]
-        self._lib.cube_loss_vjp_f64(*[a.ctypes.data for a in ins], n, dt,
-                                    *[a.ctypes.data for a in outs])
-        return tuple(torch.from_numpy(o) for o in outs)
+        return _cube_vjp(self._lib, pvec, xin, xp, force, valid, ct, dt)
 
     def count(self, pvec: Tensor, xin: Tensor, xp: Tensor, force: Tensor,
               valid: Tensor, ct: Tensor, dt: float, threads: int = 1,
@@ -344,17 +390,20 @@ class HostAdjoint:
 
 
 # -- the model-generic terms ----------------------------------------------------
-#: Host entries of ``csrc/model_terms.cuh``'s per-sample bodies (K1's
-#: ``model_loss_cold``, K3's ``model_loss_warm``, K2's ``model_loss_vjp``)
-#: at every generic size, in float64 and counted in float32 and float64;
-#: and the box cube's ``cube_loss_cold``/``_warm`` (``cube_terms.cuh``) in
-#: float64, to hold the two headers against each other.
+#: Host entries of the generic kernels' per-sample bodies (K1's
+#: ``model_loss_cold`` and K3's ``model_loss_warm`` of
+#: ``csrc/model_terms.cuh``, K2's reverse-mode ``model_loss_vjp`` of
+#: ``csrc/model_adjoint.cuh``) at every generic size, in float64 and
+#: counted in float32 and float64; and the box cube's
+#: ``cube_loss_cold``/``_warm`` (``cube_terms.cuh``) and ``cube_loss_vjp``
+#: (``cube_adjoint.cuh``) in float64, to hold the generic code against the
+#: cube's.
 MODEL_BATCH = r"""#include <limits>
 #include <thread>
 #include <vector>
 
 #include "counted.h"
-#include "model_terms.cuh"
+#include "model_adjoint.cuh"
 
 namespace {
 // The solve's numeric traits for the counting scalar; rsqrt counts one.
@@ -363,6 +412,16 @@ template <typename B> struct Num<Counted<B>> {
   static constexpr B max_finite = std::numeric_limits<B>::max();
   static Counted<B> rsqrt_(const Counted<B>& x) {
     return Counted<B>::op(B(1) / std::sqrt(x.v), x, x, false, false);
+  }
+};
+// The gradient's sweep recomputes some forward terms: executed, and
+// needed once already, so tallied apart as `recomputed`.
+template <typename B> struct Recompute<Counted<B>> {
+  template <typename F> static void run(const F& f) {
+    const long long needed = tally.needed;
+    f();
+    tally.recomputed += tally.needed - needed;
+    tally.needed = needed;
   }
 };
 }  // namespace
@@ -433,7 +492,7 @@ static void run(int kind, const ModelDesc<Z>& desc, const B* pvec,
 }
 
 // The counts of one kind on Counted<B> over n samples, on `threads`
-// threads; counts = {needed, executed}.
+// threads; counts = {needed, executed, recomputed}.
 template <typename B, typename Z>
 static void count(int kind, const ModelDesc<Z>& desc, const B* pvec,
                   const B* xin, const B* xp, const B* fin,
@@ -451,11 +510,12 @@ static void count(int kind, const ModelDesc<Z>& desc, const B* pvec,
                             nullptr, nullptr);
       tallies[t] = tally;
     });
-  counts[0] = counts[1] = 0;
+  counts[0] = counts[1] = counts[2] = 0;
   for (int t = 0; t < threads; ++t) {
     pool[t].join();
     counts[0] += tallies[t].needed;
     counts[1] += tallies[t].executed;
+    counts[2] += tallies[t].recomputed;
   }
 }
 
@@ -521,7 +581,8 @@ extern "C" void cube_host_f64(const double* pvec, const double* xin,
     valid[b] = ok ? 1 : 0;
   }
 }
-"""
+""" + CUBE_SWEEP
+
 
 _KINDS = {"cold": 0, "warm": 1, "vjp": 2}
 _HOST_ARGS = [_I, _P] + [_P] * 6 + [_LL, _D, _D, _I, _I] + [_P] * 6
@@ -537,16 +598,19 @@ def _model_batch_source() -> str:
 
 
 class HostModelTerms:
-    """``csrc/model_terms.cuh``'s per-sample bodies built for the host
-    into ``work_dir``: the loss kernels' cold and warm loss and K2's
-    gradient of any model the generic kernels cover, in float64 and
-    counted; and the box cube's loss from ``cube_terms.cuh``."""
+    """The generic loss kernels' per-sample bodies built for the host into
+    ``work_dir``: the cold and warm loss (``csrc/model_terms.cuh``) and
+    K2's gradient (``csrc/model_adjoint.cuh``) of any model the generic
+    kernels cover, in float64 and counted; and the box cube's loss and
+    gradient from ``cube_terms.cuh`` and ``cube_adjoint.cuh``."""
 
-    def __init__(self, work_dir: str):
+    def __init__(self, work_dir: str, flags: Tuple[str, ...] = ()):
         # -O1: the unrolled bodies of every size and scalar make one large
-        # source, which -O2 compiles several times slower.
+        # source, which -O2 compiles several times slower. ``flags`` go to
+        # g++ as well (tests/check_torch_k2_host_builds.py: sanitizers, the
+        # fill of uninitialised locals).
         self._lib = _build_host(work_dir, "model_batch.cpp",
-                                _model_batch_source(), "-O1")
+                                _model_batch_source(), "-O1", flags)
         for name in soa_kernels.MODEL_SIZES:
             getattr(self._lib, f"model_host_{name}").argtypes = _HOST_ARGS
             for s in ("f32", "f64"):
@@ -554,7 +618,9 @@ class HostModelTerms:
                     _COUNT_ARGS
         self._lib.cube_host_f64.argtypes = [_P] * 4 + [_LL, _D, _D, _I, _I] + \
             [_P] * 3
-        for fn in (self._lib.cube_host_f64,
+        self._lib.cube_loss_vjp_f64.argtypes = \
+            _SIGNATURES["cube_loss_vjp_f64"]
+        for fn in (self._lib.cube_host_f64, self._lib.cube_loss_vjp_f64,
                    *(getattr(self._lib, f"model_host_{n}")
                      for n in soa_kernels.MODEL_SIZES)):
             fn.restype = None
@@ -605,11 +671,20 @@ class HostModelTerms:
         return (torch.from_numpy(outs[0]), torch.from_numpy(outs[1]),
                 torch.from_numpy(outs[2].astype(bool)))
 
+    def cube_vjp(self, pvec: Tensor, xin: Tensor, xp: Tensor, force: Tensor,
+                 valid: Tensor, ct: Tensor, dt: float
+                 ) -> Tuple[Tensor, Tensor, Tensor]:
+        """The box cube's K2 body, ``cube_adjoint.cuh``'s ``cube_loss_vjp``,
+        in float64: ``dp`` per sample ``(B, 15)``, ``dxin`` and ``dxp``
+        ``(13, B)``."""
+        return _cube_vjp(self._lib, pvec, xin, xp, force, valid, ct, dt)
+
     def vjp(self, model, pvec: Tensor, xin: Tensor, xp: Tensor,
             force: Tensor, valid: Tensor, ct: Tensor, dt: float
             ) -> Tuple[Tensor, Tensor, Tensor]:
-        """K2's body in float64: ``dp`` per sample ``(B, P)``, ``dxin`` and
-        ``dxp`` shaped as the inputs."""
+        """K2's body (``model_adjoint.cuh``'s reverse-mode sweep) in
+        float64: ``dp`` per sample ``(B, P)``, ``dxin`` and ``dxp`` shaped
+        as the inputs."""
         name, desc = self._desc(model)
         n = xin.shape[1]
         ins = [self._array(t, np.float64) for t in (pvec, xin, xp, force)]
@@ -628,16 +703,20 @@ class HostModelTerms:
         """The operations one body (``kind`` ``cold``, ``warm`` or
         ``vjp``; ``fin`` the previous or the saved impulse) does over the
         batch in ``xin``'s dtype (float32 or float64), on ``threads``
-        threads: ``{"needed": ..., "executed": ...}``."""
+        threads: ``{"needed": ..., "executed": ..., "recomputed": ...}``
+        (``recomputed``: the needed operations of the forward terms that
+        K2's sweep computes a second time, in ``executed``, not in
+        ``needed``)."""
         name, desc = self._desc(model)
         dtype = _NP[xin.dtype]
         ins = [self._array(t, dtype) for t in (pvec, xin, xp, fin)]
         ins += [self._array(valid, np.uint8), self._array(ct, dtype)]
-        counts = np.zeros(2, dtype=np.int64)
+        counts = np.zeros(3, dtype=np.int64)
         getattr(self._lib, f"model_count_{name}_{_SUFFIX[xin.dtype]}")(
             _KINDS[kind], ctypes.addressof(desc), *[_ptr(a) for a in ins],
             xin.shape[1], dt, eps, ipm, newton, threads, counts.ctypes.data)
-        return {"needed": int(counts[0]), "executed": int(counts[1])}
+        return {"needed": int(counts[0]), "executed": int(counts[1]),
+                "recomputed": int(counts[2])}
 
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}

@@ -19,8 +19,9 @@ models whose geometries are planes, boxes, polygons and spheres):
   ``cube_terms.cuh``, K2 a hand-written reverse-mode sweep,
   ``cube_adjoint.cuh``);
 * the model-generic ones (:func:`generic_cover`; ``csrc/model_loss_*.cu``
-  on ``model_terms.cuh``, K2 forward mode over the input directions), one
-  build per size of ``soa_kernels.MODEL_SIZES``: one free body with a
+  on ``model_terms.cuh``, K2 a hand-written reverse-mode sweep over the
+  kinematic tree, ``model_adjoint.cuh``), one build per size of
+  ``soa_kernels.MODEL_SIZES``: one free body with a
   4-witness pair (the polygon cube), and a free base with a revolute or
   prismatic joint and two 4-witness pairs (the elbow, box or polygon).
   They read the model from a descriptor (:func:`model_descriptor`).

@@ -1,22 +1,26 @@
-"""The model-generic loss kernels' per-sample bodies
-(``dair_pll_tpu_torch/csrc/model_terms.cuh``: K1's ``model_loss_cold``,
-K3's ``model_loss_warm``, K2's forward-mode ``model_loss_vjp``), compiled
-for the host with ``g++`` by ``ops/host_adjoint.py`` through a stand-in
+"""The model-generic loss kernels' per-sample bodies (K1's
+``model_loss_cold`` and K3's ``model_loss_warm`` in
+``dair_pll_tpu_torch/csrc/model_terms.cuh``, K2's reverse-mode
+``model_loss_vjp`` in ``csrc/model_adjoint.cuh``), compiled for the host
+with ``g++`` by ``ops/host_adjoint.py`` through a stand-in
 ``cuda_runtime.h``, against their plain versions in float64 on the five
 parity models of ``torch_parity.KERNEL_MODELS`` (the elbow in boxes and in
 polygons, the polygon cube, ``pris2``, the actuated ``paddle``) at
 perturbed parameters: the cold and warm loss within rtol 1e-12 (impulses
 atol 1e-10: torch's CPU float64 square root is one ulp off on some
 inputs, and a solve that has not converged carries that to some 1e-12;
-equal valid masks), and K2's gradient, each sample's and the
-batch's, within rtol 1e-10 (atol 1e-14) of torch autograd
-(``plain_loss_bwd``), invalid samples included. On the box cube, at the
-polygon cube's size, the generic forward equals ``cube_terms.cuh``'s bit
-for bit. Last, the counting build (``Counted`` in float32 and float64),
-which gives the generic kernels' rows their bounds in ``chip_smoke.py``:
-its counts add up over samples and threads, and an invalid sample's
-gradient counts nothing. The test computes nothing with JAX and skips
-without ``g++``.
+equal valid masks), and K2's gradient, each sample's and the batch's,
+within rtol 1e-10 (atol 1e-14) of torch autograd (``plain_loss_bwd``): at
+the solved impulses, at random ones, and on edge cases (failed solves, a
+witness at phi exactly 0, penetrating witnesses, contacts at rest, tied
+support values). On the box cube, at the polygon cube's size, the generic
+forward equals ``cube_terms.cuh``'s bit for bit and the generic gradient
+``cube_adjoint.cuh``'s within 1e-12. Last, the counting build (``Counted``
+in float32 and float64), which gives the generic kernels' rows their
+bounds in ``chip_smoke.py``: its counts add up over samples and threads,
+an invalid sample's gradient counts nothing, and K2's sweep counts fewer
+operations than torch autograd's, the forward terms it recomputes counted
+apart. The test computes nothing with JAX and skips without ``g++``.
 """
 import functools
 
@@ -91,6 +95,41 @@ def _assert_close(got, want, rtol, atol, what):
         f"{what}: max abs error {err.max().item():.3e}")
 
 
+def _random_impulses(force, valid, seed):
+    """Random impulses (normal rows nonnegative) of ``force``'s shape,
+    every sample valid but the two the parity inputs fail."""
+    rng = np.random.default_rng(seed)
+    f = torch.tensor(rng.uniform(-1.0, 1.0, tuple(force.shape)))
+    f[0] = f[0].abs()
+    v = torch.ones_like(valid)
+    v[[2, 11]] = False
+    return f, v
+
+
+def _assert_gradients(host, model, pvec, xin, xp, force, valid, ct,
+                      samples=slice(None)):
+    """K2's host sweep against ``plain_loss_bwd``: the batch's gradients
+    and the derived-scalar gradient of each of ``samples`` (the plain
+    version on a derived vector repeated per sample, whose gradient is per
+    sample); exact zeros for failed solves and the configuration rows of
+    ``xin``. Returns the sweep's ``(dp, dxin, dxp)``."""
+    dp, dxin, dxp = host.vjp(model, pvec, xin, xp, force, valid, ct, DT)
+    want = lk.plain_loss_bwd(model, pvec, xin, xp, force, valid, ct, DT,
+                             LOSS_EPS)
+    for what, got, ref in zip(("dp", "dxin", "dxp"),
+                              (dp.sum(dim=0), dxin, dxp), want):
+        _assert_close(got, ref, GRAD_RTOL, GRAD_ATOL, what)
+    per_sample = pvec[:, None].expand(-1, xin.shape[1]).contiguous()
+    ref = lk.plain_loss_bwd(model, per_sample, xin, xp, force, valid, ct,
+                            DT, LOSS_EPS)[0].T
+    _assert_close(dp[samples], ref[samples], GRAD_RTOL, GRAD_ATOL,
+                  "dp per sample")
+    assert not dp[~valid].any() and not dxin[:, ~valid].any()
+    assert not dxp[:, ~valid].any() and not dxin[:model.n_q].any()
+    assert dp[valid].abs().amax() > 0 and dxp[:, valid].abs().amax() > 0
+    return dp, dxin, dxp
+
+
 @pytest.mark.parametrize("kind", ["cold", "warm"])
 @pytest.mark.parametrize("name", sorted(KERNEL_MODELS))
 def test_loss_matches_plain_version(host, urdf_dir, name, kind):
@@ -114,26 +153,68 @@ def test_loss_matches_plain_version(host, urdf_dir, name, kind):
 
 @pytest.mark.parametrize("name", sorted(KERNEL_MODELS))
 def test_gradient_matches_plain_backward(host, urdf_dir, name):
-    """K2's forward-mode body: each sample's derived-scalar gradient, the
-    batch's, and the state gradients against torch autograd; a failed
-    solve's sample, and the configuration rows of ``xin``, get exactly
-    0."""
+    """K2's reverse-mode body at the cold solve's impulses: four samples'
+    derived-scalar gradients, the batch's, and the state gradients against
+    torch autograd; a failed solve's sample, and the configuration rows of
+    ``xin``, get exactly 0. (Sample 12 of ``paddle`` holds an entry, 7.7e-4
+    in a row up to 36, that cancels: the sweep, and the forward-mode K2
+    before it, sit 1.0e-13 from autograd's rounding of it.)"""
+    _assert_gradients(host, *_inputs(name, urdf_dir), samples=[0, 5, 9, 15])
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_MODELS))
+def test_gradient_at_random_impulses(host, urdf_dir, name):
+    """As above at random impulses: every contact's rows carry a
+    cotangent, whatever the solve made of it."""
     model, pvec, xin, xp, force, valid, ct = _inputs(name, urdf_dir)
-    dp, dxin, dxp = host.vjp(model, pvec, xin, xp, force, valid, ct, DT)
-    want = lk.plain_loss_bwd(model, pvec, xin, xp, force, valid, ct, DT,
-                             LOSS_EPS)
-    for what, got, ref in zip(("dp", "dxin", "dxp"),
-                              (dp.sum(dim=0), dxin, dxp), want):
-        _assert_close(got, ref, GRAD_RTOL, GRAD_ATOL, what)
-    for b in (0, 5, 9, 15):
-        cols = slice(b, b + 1)
-        ref = lk.plain_loss_bwd(model, pvec, xin[:, cols], xp[:, cols],
-                                force[..., cols], valid[cols], ct[cols], DT,
-                                LOSS_EPS)[0]
-        _assert_close(dp[b], ref, GRAD_RTOL, GRAD_ATOL, f"dp[{b}]")
-    assert not dp[~valid].any() and not dxin[:, ~valid].any()
-    assert not dxp[:, ~valid].any() and not dxin[:model.n_q].any()
-    assert dp[valid].abs().amax() > 0 and dxp[:, valid].abs().amax() > 0
+    force, valid = _random_impulses(force, valid, 3)
+    _assert_gradients(host, model, pvec, xin, xp, force, valid, ct)
+
+
+@functools.lru_cache(maxsize=None)
+def _edge_inputs(name: str, urdf_dir: str):
+    """Transitions at the sweep's branches, at random impulses. The base
+    stands upright at the origin, so that each of its witnesses has phi =
+    (vertex height) + (base height) exactly: sample 0 rests (zero next
+    velocity, every contact's sliding rate 0) just above the ground, 1
+    touches it with its lowest witness at phi exactly 0, 2 and 3 penetrate
+    it; 4 is a recipe sample, 5 a failed solve. A box's bottom corners tie
+    in the sort; a polygon's derived vertices are set so that five of the
+    base's eight tie in height, across the sort's cut at four witnesses."""
+    model, pvec, xin, xp, _, _, ct = _inputs(name, urdf_dir)
+    xin, xp, ct = xin[:, :6].clone(), xp[:, :6].clone(), ct[:6]
+    pvec = pvec.clone()
+    base = model.geometries[model.collision_candidates[0][1]]
+    if base.geom_type == "polygon":
+        start = lk._shape_indices(model)[model.collision_candidates[0][1]]
+        z = pvec[start + 2:start + 3 * len(base.vertices_init):3]  # a view
+        order = torch.argsort(z)
+        z[order[:5]] = z[order[:4]].mean()
+    xp[:4, :4] = torch.tensor([1.0, 0.0, 0.0, 0.0])[:, None]
+    xp[4:7, :4] = 0.0
+    xp[model.n_q:, 0] = 0.0
+    phi = lk._parts(model, pvec, xin, xp, DT)[2]
+    lowest = phi[:base.n_query, :4].amin(dim=0)
+    xp[6, :4] = -lowest + torch.tensor([1e-3, 0.0, -3e-3, -1e-2])
+    force = torch.tensor(np.random.default_rng(5).uniform(
+        0.0, 1.0, (3, model.n_contacts, 6)))
+    force[1:] -= 0.5
+    valid = torch.tensor([True] * 5 + [False])
+    return model, pvec, xin, xp, force, valid, ct
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_MODELS))
+def test_gradient_at_edge_cases(host, urdf_dir, name):
+    """K2's reverse-mode body on ``_edge_inputs``: the branches of |phi| at
+    0, of clamp_min(-phi, 0) on penetration, of the safe sliding norm at
+    rest, and of the sort's tie order, against torch autograd."""
+    model, pvec, xin, xp, force, valid, ct = _edge_inputs(name, urdf_dir)
+    M, Jc, phi, qc, dv = lk._parts(model, pvec, xin, xp, DT)
+    assert bool((phi[:, 1] == 0).any()) and bool((phi[:, 2:4] < 0).any())
+    sliding = [sum(Jc[i][v][:, 0] * xp[model.n_q + v, 0]
+                   for v in range(model.n_v)) for i in (1, 2)]
+    assert float((sliding[0] ** 2 + sliding[1] ** 2).max()) < 1e-24
+    _assert_gradients(host, model, pvec, xin, xp, force, valid, ct)
 
 
 @pytest.mark.parametrize("kind", ["cold", "warm"])
@@ -164,12 +245,42 @@ def test_generic_forward_equals_cube_header_on_the_box_cube(host, kind):
     assert cube[1].abs().max() > 0
 
 
+def test_generic_gradient_equals_cube_adjoint_on_the_box_cube(host):
+    """The box cube at the generic size ``(1, 7, 6, 1, 4)``: the generic
+    reverse-mode sweep gives the box cube's K2 (``cube_adjoint.cuh``'s
+    ``cube_loss_vjp``) within 1e-12 (1 + |cube|), at solved impulses with
+    two failed samples: the evidence for routing the box cube to the
+    generic kernels."""
+    model = build_multibody_model({"cube": assets.get_asset("cube")})
+    rng = np.random.default_rng(8)
+    x, x_plus, _ = kernel_transitions("cube_polygon", model, rng)
+    params = MultibodyLearnableSystem(model, DT, device="cpu") \
+        .initial_params(torch.float64)
+    pvec = lk.pack_derived(model, derive_scalar_params(model,
+                                                       params)).detach()
+    xin, xp = torch.tensor(x).T.contiguous(), torch.tensor(x_plus).T \
+        .contiguous()
+    _, force, valid = host.cube_loss(pvec, xin, xp, DT, LOSS_EPS,
+                                     *COLD_BUDGET)
+    valid[[1, 6]] = False
+    ct = torch.tensor(rng.uniform(0.5, 2.0, xin.shape[1]))
+    generic = host.vjp(model, pvec, xin, xp, force, valid, ct, DT)
+    cube = host.cube_vjp(pvec, xin, xp, force, valid, ct, DT)
+    for got, want in zip(generic, cube):
+        assert bool(((got - want).abs() <= 1e-12 * (1 + want.abs())).all())
+    assert cube[0].abs().max() > 0 and cube[2].abs().max() > 0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_operation_counts_add_up(host, urdf_dir, dtype):
     """The counted bodies on the elbow, in ``dtype``'s arithmetic: each
     kind counts work, structural operations are a share of what runs,
-    counts add up over threads and (for K2) over samples, and a failed
-    sample's gradient counts nothing."""
+    counts add up over threads and (for K2) over samples, a failed
+    sample's gradient counts nothing, and K2's reverse-mode sweep needs
+    fewer operations than torch autograd's (``plain_loss_bwd``). The
+    forward terms the sweep computes a second time are counted apart
+    (``recomputed``): none in the loss bodies, in K2 fewer than the cold
+    loss's own forward needs, and not in K2's ``needed``."""
     model, pvec, xin, xp, force, valid, ct = _inputs("elbow", urdf_dir)
     args = [t.to(dtype) for t in (pvec, xin, xp)]
     f = force.to(dtype)
@@ -178,6 +289,9 @@ def test_operation_counts_add_up(host, urdf_dir, dtype):
                            LOSS_EPS, *(WARM_BUDGET if kind == "warm" else
                                        COLD_BUDGET))
         assert 0 < whole["needed"] < whole["executed"], kind
+        assert (whole["recomputed"] > 0) == (kind == "vjp"), kind
+        if kind == "cold":
+            cold = whole
         threaded = host.count(kind, model, *args, fin, valid, ct.to(dtype),
                               DT, LOSS_EPS, *COLD_BUDGET, threads=3) \
             if kind != "warm" else whole
@@ -188,5 +302,12 @@ def test_operation_counts_add_up(host, urdf_dir, dtype):
                              LOSS_EPS, *COLD_BUDGET)
                   for b in range(xin.shape[1])]
     assert sum(c["needed"] for c in per_sample) == whole["needed"]
-    assert all(c["needed"] == c["executed"] == 0
+    assert sum(c["executed"] for c in per_sample) == whole["executed"]
+    assert sum(c["recomputed"] for c in per_sample) == whole["recomputed"]
+    assert all(c["needed"] == c["executed"] == c["recomputed"] == 0
                for c, ok in zip(per_sample, valid) if not ok)
+    assert whole["recomputed"] < cold["needed"]
+    assert whole["needed"] + whole["recomputed"] <= whole["executed"]
+    autograd = host_adjoint.count_torch_operations(lambda: lk.plain_loss_bwd(
+        model, *args, f, valid, ct.to(dtype), DT, LOSS_EPS))
+    assert whole["needed"] < autograd
