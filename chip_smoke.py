@@ -114,18 +114,20 @@ slower (PERF.md).
    plain versions on 8,192 transitions of the elbow's, the polygon
    elbow's and the polygon cube's own rollouts (phase 9's rules); their
    times at 2,097,152 elbow transitions (the cube's recipe carried to the
-   elbow's 15 states; K2 also in float64), bounds from the operations
+   elbow's 15 states; also in float64), K1's and K3's (the terms on one
+   thread a sample, the solve on 4 lanes a sample) also at each (ipm,
+   newton) budget of SOLVE_BUDGETS, split into the terms, an IPM
+   iteration and a Newton iteration, bounds from the operations
    they need on the first COUNT_B samples, scaled (K1's and K3's own
    code's, ``ops/host_adjoint.py``'s counting build of
    ``csrc/model_terms.cuh``; K2's the smaller of its own reverse-mode
    sweep's, ``csrc/model_adjoint.cuh``, without the forward terms it
    computes a second time, and torch autograd's) and ptxas's
-   lines for K2 at both sizes and types,
+   lines for K1, K3 and K2 at both sizes and types,
    then against their plain versions over chunks of a 65,536 slice (the
    plain versions over the whole batch would take minutes a kernel); the
    elbow's training round (as phase 10, traced); the polygon cube's
-   training round at 262,144 with its kernels' times (K2 also in
-   float64).
+   training round at 262,144 with its kernels' times (also in float64).
 
 It prints, in this order: one JSON line per phase, the kernel table as
 one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
@@ -255,6 +257,15 @@ COUNT_B = 8192
 #: The polygon cube (the generic kernels' one-body size): its training
 #: batch.
 POLYGON_TRAIN_B = 262144
+#: (ipm, newton) budgets at which the generic K1 and K3 are timed at the
+#: elbow's training batch: the terms and assembly alone, then IPM and
+#: Newton iterations (COLD_BUDGET and WARM_BUDGET among them).
+SOLVE_BUDGETS = ((0, 0), (4, 0), (10, 0), (4, 10), (10, 10))
+#: The generic K1's and K3's design at each size (``kFwdLanes`` of
+#: ``csrc/model_terms.cuh``).
+FWD_DESIGN = {"b2_q8_v7_k8": "terms on one thread a sample, then the solve "
+                             "on 4 lanes a sample (two contacts a lane)",
+              "b1_q7_v6_k4": "one thread a sample"}
 #: H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
@@ -367,8 +378,9 @@ def build_kernels() -> None:
 
 def ptxas_lines(source: str, kernel: str = "") -> list:
     """ptxas's register and spill lines for the kernels of one source file
-    (``apgd_cone_solve.cu``), or for the entry functions of it whose names
-    contain ``kernel``."""
+    (``apgd_cone_solve.cu``), or for the entry functions of it whose
+    (mangled) names contain ``kernel`` (``model_loss_fwd_kernelIf``: K1's
+    float32 instantiation)."""
     from dair_pll_tpu_torch.ops import soa_kernels
     section = soa_kernels.build_log().partition(f"== {source}")[2]
     lines, keep = [], not kernel
@@ -2433,8 +2445,28 @@ def generic_loss_timing(system, pvec, xin_t, xp_t, small, reps: int,
             lambda: lk.fused_loss_bwd(model, p_d, xin_d, xp_d, force_d,
                                       cold[2], ct_d, DT, LOSS_EPS),
             reps=max(1, reps // 2), warmup=1)
+        result["K1"]["ms_float64"] = cuda_ms(
+            lambda: lk.fused_loss_fwd(model, p_d, xin_d, xp_d, DT, LOSS_EPS,
+                                      *COLD_BUDGET),
+            reps=max(1, reps // 2), warmup=1)
+        result["K3"]["ms_float64"] = cuda_ms(
+            lambda: lk.fused_loss_fwd_warm(model, p_d, xin_d, xp_d, force_d,
+                                           DT, LOSS_EPS, *WARM_BUDGET),
+            reps=max(1, reps // 2), warmup=1)
         c64 = host_counts(model, p_d, xin_d, xp_d, force_d, cold[2], ct_d,
                           force_d)
+        # In: pvec, xin, xp (K3 also fprev); out: loss, force, valid.
+        outs64 = nbytes(force_d, cold[2]) + n * 8
+        for name, n_bytes in (
+                ("K1", nbytes(p_d, xin_d, xp_d) + outs64),
+                ("K3", nbytes(p_d, xin_d, xp_d, force_d) + outs64)):
+            entry = result[name]
+            b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            o_ms = c64[name]["needed"] / PEAK_OPS_PER_S["float64"] * 1e3
+            entry["operations_float64"] = c64[name]["needed"]
+            entry["bound_ms_float64"] = max(b_ms, o_ms)
+            entry["bound_by_float64"] = "bytes" if b_ms >= o_ms else \
+                "operations"
         bytes64_ms = nbytes(p_d, xin_d, xp_d, force_d, cold[2], ct_d, p_d,
                             xin_d, xp_d) / HBM_BYTES_PER_S * 1e3
         ops64_ms = c64["K2"]["needed"] / PEAK_OPS_PER_S["float64"] * 1e3
@@ -2448,11 +2480,36 @@ def generic_loss_timing(system, pvec, xin_t, xp_t, small, reps: int,
     return result
 
 
+def budget_timing(model, pvec, xin, xp, fprev, reps: int) -> dict:
+    """The generic K1 and K3 on one batch at each (ipm, newton) budget of
+    SOLVE_BUDGETS (K3 warm-started from ``fprev``), in ms, and each one's
+    time split into the terms and assembly (the (0, 0) budget), an IPM
+    iteration (((10, 0) - (0, 0)) / 10) and a Newton iteration (((10, 10)
+    - (10, 0)) / 10)."""
+    from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
+    times = {}
+    for ipm, newton in SOLVE_BUDGETS:
+        times[f"{ipm},{newton}"] = {
+            "K1": cuda_ms(lambda i=ipm, n=newton: lk.fused_loss_fwd(
+                model, pvec, xin, xp, DT, LOSS_EPS, i, n), reps, warmup=1),
+            "K3": cuda_ms(lambda i=ipm, n=newton: lk.fused_loss_fwd_warm(
+                model, pvec, xin, xp, fprev, DT, LOSS_EPS, i, n), reps,
+                warmup=1)}
+    split = {}
+    for name in ("K1", "K3"):
+        t = {budget: times[budget][name] for budget in times}
+        split[name] = {"terms_ms": t["0,0"],
+                       "ipm_iteration_ms": (t["10,0"] - t["0,0"]) / 10,
+                       "newton_iteration_ms": (t["10,10"] - t["10,0"]) / 10}
+    return {"ms": times, "split": split}
+
+
 def phase_elbow_loss_timing(system, transitions, x_train, xp_train):
     """The generic K1, K3 and K2 at the elbow's training batch
-    (2,097,152, float32; K2 also in float64), the plain versions at 8,192,
-    bounds and ptxas's lines; then the three against their plain versions
-    over chunks of the batch's first ELBOW_SLICE transitions."""
+    (2,097,152, float32; also in float64), the plain versions at 8,192,
+    bounds, K1's and K3's times at each budget of SOLVE_BUDGETS, and
+    ptxas's lines at both types; then the three against their plain
+    versions over chunks of the batch's first ELBOW_SLICE transitions."""
     import torch
     from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
     x64, xp64, pvec = transitions
@@ -2460,13 +2517,13 @@ def phase_elbow_loss_timing(system, transitions, x_train, xp_train):
     xin_t, xp_t = x_train.T.contiguous(), xp_train.T.contiguous()
     result = generic_loss_timing(system, pvec, xin_t, xp_t, small, reps=3,
                                  with_float64=True)
-    for name, source, kernel in (
-            ("K1", "model_loss_fwd_b2.cu", "model_loss_fwd_kernel"),
-            ("K3", "model_loss_fwd_b2.cu", "model_loss_fwd_warm_kernel"),
-            ("K2", "model_loss_bwd_b2_f32.cu", "model_loss_bwd_kernel")):
-        result[name]["ptxas"] = ptxas_lines(source, kernel)
-    result["K2"]["ptxas_float64"] = ptxas_lines("model_loss_bwd_b2_f64.cu",
-                                                "model_loss_bwd_kernel")
+    fprev = lk.fused_loss_fwd(system.model, pvec, xin_t, xp_t, DT, LOSS_EPS,
+                              *COLD_BUDGET)[1]
+    result["budgets"] = budget_timing(system.model, pvec, xin_t, xp_t,
+                                      fprev, reps=3)
+    del fprev
+    for name, lines in loss_ptxas("b2").items():
+        result[name].update(lines)
     emit({"phase": "elbow_loss_kernel_timing", "B": xin_t.shape[1],
           "dtype": "float32", **result})
     sliced = phase_loss_full_batch(
@@ -2476,6 +2533,31 @@ def phase_elbow_loss_timing(system, transitions, x_train, xp_train):
     del small
     torch.cuda.empty_cache()
     return result, sliced
+
+
+def loss_ptxas(size: str) -> dict:
+    """ptxas's register and spill lines of the generic K1, K3 and K2 at one
+    size (``b1`` or ``b2``) in float32 and float64: ``{"K1": {"ptxas":
+    [...], "ptxas_float64": [...]}, ...}``; K1's and K3's lines are their
+    lanes' kernel's, then the terms kernel's they launch first (or, at
+    one thread a sample, their one kernel's)."""
+    out = {}
+    for name, kernels in (
+            ("K1", ("model_loss_fwd_kernel", "model_loss_fwd_lanes_kernel",
+                    "model_loss_terms_kernel")),
+            ("K3", ("model_loss_fwd_warm_kernel",
+                    "model_loss_fwd_warm_lanes_kernel",
+                    "model_loss_terms_kernel"))):
+        out[name] = {
+            key: [line for kernel in kernels
+                  for line in ptxas_lines(f"model_loss_fwd_{size}.cu",
+                                          kernel + mangled)]
+            for key, mangled in (("ptxas", "If"), ("ptxas_float64", "Id"))}
+    out["K2"] = {key: ptxas_lines(f"model_loss_bwd_{size}_{suffix}.cu",
+                                  "model_loss_bwd_kernel")
+                 for key, suffix in (("ptxas", "f32"),
+                                     ("ptxas_float64", "f64"))}
+    return out
 
 
 def phase_generic_train(system, x, x_plus, phase: str, size: str):
@@ -2513,13 +2595,8 @@ def phase_polygon_train(system):
     timing = generic_loss_timing(system, pvec, x.T.contiguous(),
                                  x_plus.T.contiguous(), small, reps=5,
                                  with_float64=True)
-    for name, kernel in (("K1", "model_loss_fwd_kernel"),
-                         ("K3", "model_loss_fwd_warm_kernel")):
-        timing[name]["ptxas"] = ptxas_lines("model_loss_fwd_b1.cu", kernel)
-    timing["K2"]["ptxas"] = ptxas_lines("model_loss_bwd_b1_f32.cu",
-                                        "model_loss_bwd_kernel")
-    timing["K2"]["ptxas_float64"] = ptxas_lines("model_loss_bwd_b1_f64.cu",
-                                                "model_loss_bwd_kernel")
+    for name, lines in loss_ptxas("b1").items():
+        timing[name].update(lines)
     emit({"phase": "polygon_cube_kernel_timing", "B": POLYGON_TRAIN_B,
           "dtype": "float32", **timing})
     return launches, timing
@@ -2757,8 +2834,8 @@ def main() -> int:
                 "ms": times[name]["ms"],
                 **({"ms_float64": times[name]["ms_float64"]}
                    if "ms_float64" in times[name] else {}),
-                **({"design": "reverse-mode adjoint, one sweep per sample"}
-                   if name == "K2" else {}),
+                "design": ("reverse-mode adjoint, one sweep per sample"
+                           if name == "K2" else FWD_DESIGN[size]),
                 "plain_ms": times[name]["plain_ms"],
                 "bound_ms": times[name]["bound_ms"],
                 "bound_by": times[name]["bound_by"],

@@ -1,8 +1,19 @@
-// Device functions of the hybrid cone solve (NT interior point + SAP-Newton)
-// for one sample per CUDA thread, shared by the warm and cold hybrid solve
-// kernels (warm_hybrid_solve.cu, cold_hybrid_solve.cu) and the ContactNets
-// loss kernels (contactnets_loss.cu). Each mirrors its plain PyTorch counterpart in
+// Device functions of the hybrid cone solve (NT interior point + SAP-Newton),
+// shared by the warm and cold hybrid solve kernels (warm_hybrid_solve.cu,
+// cold_hybrid_solve.cu) and the ContactNets loss kernels (contactnets_loss.cu,
+// model_loss.cuh). Each mirrors its plain PyTorch counterpart in
 // dair_pll_tpu_torch/ops/soa_solver.py in the same operation order.
+//
+// A sample's K contacts are spread over a group of L lanes (the group type G,
+// last template parameter of each function; Solo, one thread a sample, by
+// default): lane l holds contacts l*KL .. l*KL + KL - 1 (KL = K / L) of every
+// cone field and of the contact Jacobian, and every lane holds the
+// quantities of the whole sample (M, the Schur and Newton matrices and their
+// factors, w). Work on one contact runs on its lane; a sum (or minimum) over
+// the contacts is exchanged through the group's slots and folded in contact
+// order c = 0, 1, ..., K-1 exactly as one thread folds it, so every lane
+// holds the same value and the rounding is the plain version's. At L = 1 the
+// exchanges are the folds themselves: the arithmetic of one thread a sample.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -51,7 +62,154 @@ template <typename T> __device__ __forceinline__ T nan_to_num(T x) {
 }
 
 // ---------------------------------------------------------------------------
-// Per-sample state. Cone fields are [3][K]; the contact Jacobian [3][NV][K].
+// The lanes of one sample. A group type has kLanes and lane(); with more than
+// one lane also slots() (the group's scratch, kLaneSlots values) and sync()
+// (a barrier of the group's lanes): WarpLanes below on the card, a thread per
+// lane in the host build (ops/host_adjoint.py).
+struct Solo {
+  static constexpr int kLanes = 1;
+  __device__ static constexpr int lane() { return 0; }
+};
+
+// Slots a group of a sample with NV velocities and K contacts needs: rows of
+// K terms (one slot of padding a row) and a result a row, for up to
+// NV (NV + 1) / 2 rows (the lower triangle of an NV x NV matrix).
+template <int NV, int K>
+constexpr int kLaneSlots = (NV * (NV + 1) / 2) * (K + 2);
+
+#ifdef __CUDACC__
+// L consecutive lanes of a warp; slots in shared memory.
+template <typename T, int L> struct WarpLanes {
+  static_assert(L > 1 && 32 % L == 0, "a group is part of one warp");
+  static constexpr int kLanes = L;
+  T* slots_;
+  unsigned mask_;
+  int lane_;
+  __device__ WarpLanes(T* slots) : slots_(slots) {
+    const int in_warp = threadIdx.x % 32;
+    lane_ = in_warp % L;
+    mask_ = ((1u << L) - 1u) << (in_warp - lane_);
+  }
+  __device__ int lane() const { return lane_; }
+  __device__ T* slots() const { return slots_; }
+  __device__ void sync() const { __syncwarp(mask_); }
+};
+#endif
+
+// out[n] = the sum over the K contacts of term(n, c) (c the lane's own
+// contacts' index), folded in contact order. On one thread each term is
+// added as it is computed. Across lanes: each lane writes its terms, lane l
+// folds rows l, l + L, ... (every lane folds every row when there are at
+// most two), every lane reads the sums.
+template <typename T, int N, int KL, typename G, typename F>
+__device__ __forceinline__ void sum_rows(const G& g, const F& term,
+                                         T (&out)[N]) {
+  if constexpr (G::kLanes == 1) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      T acc = term(n, 0);
+#pragma unroll
+      for (int c = 1; c < KL; ++c) acc = acc + term(n, c);
+      out[n] = acc;
+    }
+  } else {
+    constexpr int K = KL * G::kLanes, W = K + 1;
+    T* s = g.slots();
+    g.sync();
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int c = 0; c < KL; ++c) s[n * W + g.lane() * KL + c] = term(n, c);
+    g.sync();
+    if constexpr (N <= 2) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        T acc = s[n * W];
+#pragma unroll
+        for (int c = 1; c < K; ++c) acc = acc + s[n * W + c];
+        out[n] = acc;
+      }
+    } else {
+      for (int n = g.lane(); n < N; n += G::kLanes) {
+        T acc = s[n * W];
+#pragma unroll
+        for (int c = 1; c < K; ++c) acc = acc + s[n * W + c];
+        s[N * W + n] = acc;
+      }
+      g.sync();
+#pragma unroll
+      for (int n = 0; n < N; ++n) out[n] = s[N * W + n];
+    }
+  }
+}
+
+// all[n][c] = t[n][c] of every contact c, on every lane (L > 1).
+template <typename T, int N, int KL, typename G>
+__device__ __forceinline__ void gather(const G& g, const T (&t)[N][KL],
+                                       T (&all)[N][KL * G::kLanes]) {
+  constexpr int K = KL * G::kLanes;
+  T* s = g.slots();
+  g.sync();
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int c = 0; c < KL; ++c) s[n * K + g.lane() * KL + c] = t[n][c];
+  g.sync();
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int c = 0; c < K; ++c) all[n][c] = s[n * K + c];
+}
+
+// out[n] = the NaN-propagating minimum over the K contacts of term(n, c),
+// folded in contact order.
+template <typename T, int N, int KL, typename G, typename F>
+__device__ __forceinline__ void min_rows(const G& g, const F& term,
+                                         T (&out)[N]) {
+  if constexpr (G::kLanes == 1) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      T acc = term(n, 0);
+#pragma unroll
+      for (int c = 1; c < KL; ++c) acc = pminimum(acc, term(n, c));
+      out[n] = acc;
+    }
+  } else {
+    constexpr int K = KL * G::kLanes;
+    T mine[N][KL], all[N][K];
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int c = 0; c < KL; ++c) mine[n][c] = term(n, c);
+    gather<T, N, KL, G>(g, mine, all);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      T acc = all[n][0];
+#pragma unroll
+      for (int c = 1; c < K; ++c) acc = pminimum(acc, all[n][c]);
+      out[n] = acc;
+    }
+  }
+}
+
+// Whether `ok` holds on every lane of the group.
+template <typename T, typename G>
+__device__ __forceinline__ bool all_lanes(const G& g, bool ok) {
+  if constexpr (G::kLanes == 1) {
+    return ok;
+  } else {
+    T rows[1][1] = {{ok ? T(1) : T(0)}}, all[1][G::kLanes];
+    gather<T, 1, 1, G>(g, rows, all);
+    bool every = true;
+#pragma unroll
+    for (int l = 0; l < G::kLanes; ++l) every = every && all[0][l] != T(0);
+    return every;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Per-sample state. Cone fields are [3][K]; the contact Jacobian [3][NV][K]
+// (on a lane of a group, its own KL contacts' columns).
 template <typename T, int NV, int K> struct Problem {
   T M[NV][NV];
   T J[3][NV][K];
@@ -163,64 +321,43 @@ __device__ __forceinline__ void j_dot(const T (&J)[3][NV][K], const T (&w)[NV],
 }
 
 // J^T u summed over cones and components.
-template <typename T, int NV, int K>
+template <typename T, int NV, int K, typename G = Solo>
 __device__ __forceinline__ void jt_dot(const T (&J)[3][NV][K],
-                                       const T (&u)[3][K], T (&out)[NV]) {
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    T acc = T(0);
-#pragma unroll
-    for (int c = 0; c < K; ++c) {
-      const T term = J[0][v][c] * u[0][c] + J[1][v][c] * u[1][c] +
-                     J[2][v][c] * u[2][c];
-      acc = c == 0 ? term : acc + term;
-    }
-    out[v] = acc;
-  }
+                                       const T (&u)[3][K], T (&out)[NV],
+                                       const G& g = G()) {
+  sum_rows<T, NV, K, G>(
+      g,
+      [&](int v, int c) {
+        return J[0][v][c] * u[0][c] + J[1][v][c] * u[1][c] +
+               J[2][v][c] * u[2][c];
+      },
+      out);
 }
 
-template <typename T, int K>
-__device__ __forceinline__ T field_sqnorm(const T (&u)[3][K]) {
-  T acc = T(0);
-#pragma unroll
-  for (int c = 0; c < K; ++c) {
-    const T term = u[0][c] * u[0][c] + u[1][c] * u[1][c] + u[2][c] * u[2][c];
-    acc = c == 0 ? term : acc + term;
-  }
-  return acc;
+template <typename T, int K, typename G = Solo>
+__device__ __forceinline__ T field_sqnorm(const T (&u)[3][K],
+                                          const G& g = G()) {
+  T out[1];
+  sum_rows<T, 1, K, G>(
+      g,
+      [&](int, int c) {
+        return u[0][c] * u[0][c] + u[1][c] * u[1][c] + u[2][c] * u[2][c];
+      },
+      out);
+  return out[0];
 }
 
-template <typename T, int K>
-__device__ __forceinline__ bool field_isfinite(const T (&u)[3][K]) {
-  bool ok = true;
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int c = 0; c < K; ++c) ok = ok && isfinite(u[i][c]);
-  return ok;
-}
-
-template <typename T, int K>
-__device__ __forceinline__ T gap(const T (&x)[3][K], const T (&z)[3][K]) {
-  T acc = T(0);
-#pragma unroll
-  for (int c = 0; c < K; ++c) {
-    const T term = x[0][c] * z[0][c] + x[1][c] * z[1][c] + x[2][c] * z[2][c];
-    acc = c == 0 ? term : acc + term;
-  }
-  return acc / (T(2) * T(K));
-}
-
-template <typename T, int K>
-__device__ __forceinline__ T violation(const T (&u)[3][K]) {
-  T acc = T(0);
-#pragma unroll
-  for (int c = 0; c < K; ++c) {
-    const T term = clamp_min(
-        sqrt(u[1][c] * u[1][c] + u[2][c] * u[2][c]) - u[0][c], T(0));
-    acc = c == 0 ? term : acc + term;
-  }
-  return acc;
+template <typename T, int K, typename G = Solo>
+__device__ __forceinline__ T gap(const T (&x)[3][K], const T (&z)[3][K],
+                                 const G& g = G()) {
+  T out[1];
+  sum_rows<T, 1, K, G>(
+      g,
+      [&](int, int c) {
+        return x[0][c] * z[0][c] + x[1][c] * z[1][c] + x[2][c] * z[2][c];
+      },
+      out);
+  return out[0] / (T(2) * T(K * G::kLanes));
 }
 
 // ---------------------------------------------------------------------------
@@ -345,18 +482,23 @@ __device__ __forceinline__ T step_to_boundary_one(T u0, T u1, T u2, T du0,
   return pminimum(alpha_det, alpha_scalar);
 }
 
-// Min over cones, capped at 1.
-template <typename T, int K>
-__device__ __forceinline__ T step_to_boundary(const T (&u)[3][K],
-                                              const T (&du)[3][K]) {
-  T alpha = T(0);
-#pragma unroll
-  for (int c = 0; c < K; ++c) {
-    const T a = step_to_boundary_one(u[0][c], u[1][c], u[2][c], du[0][c],
-                                     du[1][c], du[2][c]);
-    alpha = c == 0 ? a : pminimum(alpha, a);
-  }
-  return clamp_max(alpha, T(1));
+// Min over cones, capped at 1, of the steps along du and along dv, and the
+// smaller of the two (one exchange).
+template <typename T, int K, typename G = Solo>
+__device__ __forceinline__ T step_to_boundary2(const T (&u)[3][K],
+                                               const T (&du)[3][K],
+                                               const T (&dv)[3][K],
+                                               const G& g = G()) {
+  T alpha[2];
+  min_rows<T, 2, K, G>(
+      g,
+      [&](int n, int c) {
+        const T(&d)[3][K] = n == 0 ? du : dv;
+        return step_to_boundary_one(u[0][c], u[1][c], u[2][c], d[0][c],
+                                    d[1][c], d[2][c]);
+      },
+      alpha);
+  return pminimum(clamp_max(alpha[0], T(1)), clamp_max(alpha[1], T(1)));
 }
 
 // NT scaling of one cone: v (det-1 Jordan square root), eta, 1/eta.
@@ -461,12 +603,22 @@ __device__ __forceinline__ void cone_matvec(const T (&A)[3][3][K],
                   A[i][2][c] * u[2][c];
 }
 
-// Symmetric M + scale * sum_c J^T G J, with G[i][j][c] per cone.
-template <typename T, int NV, int K>
+// Row v1 of lower-triangle entry n (entries (v1, v2 <= v1) in row order).
+__device__ constexpr int tri_row(int n) {
+  int r = 0;
+  while ((r + 1) * (r + 2) / 2 <= n) ++r;
+  return r;
+}
+
+// Symmetric M + scale * sum_c J^T G J, with G[i][j][c] per cone; the
+// lower triangle's entries are folded over the contacts in one exchange.
+template <typename T, int NV, int K, typename Grp = Solo>
 __device__ __forceinline__ void assemble_jtgj(const T (&M)[NV][NV],
                                               const T (&J)[3][NV][K],
                                               const T (&G)[3][3][K],
-                                              const T* scale, T (&S)[NV][NV]) {
+                                              const T* scale, T (&S)[NV][NV],
+                                              const Grp& g = Grp()) {
+  constexpr int R = NV * (NV + 1) / 2;
   T GJ[3][NV][K];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
@@ -476,17 +628,20 @@ __device__ __forceinline__ void assemble_jtgj(const T (&M)[NV][NV],
       for (int c = 0; c < K; ++c)
         GJ[i][v][c] = G[i][0][c] * J[0][v][c] + G[i][1][c] * J[1][v][c] +
                       G[i][2][c] * J[2][v][c];
+  T sums[R];
+  sum_rows<T, R, K, Grp>(
+      g,
+      [&](int n, int c) {
+        const int v1 = tri_row(n), v2 = n - v1 * (v1 + 1) / 2;
+        return J[0][v1][c] * GJ[0][v2][c] + J[1][v1][c] * GJ[1][v2][c] +
+               J[2][v1][c] * GJ[2][v2][c];
+      },
+      sums);
 #pragma unroll
   for (int v1 = 0; v1 < NV; ++v1)
 #pragma unroll
     for (int v2 = 0; v2 <= v1; ++v2) {
-      T acc = T(0);
-#pragma unroll
-      for (int c = 0; c < K; ++c) {
-        const T term = J[0][v1][c] * GJ[0][v2][c] +
-                       J[1][v1][c] * GJ[1][v2][c] + J[2][v1][c] * GJ[2][v2][c];
-        acc = c == 0 ? term : acc + term;
-      }
+      T acc = sums[v1 * (v1 + 1) / 2 + v2];
       if (scale != nullptr) acc = *scale * acc;
       S[v1][v2] = M[v1][v2] + acc;
       if (v2 < v1) S[v2][v1] = M[v2][v1] + acc;
@@ -495,16 +650,16 @@ __device__ __forceinline__ void assemble_jtgj(const T (&M)[NV][NV],
 
 // ---------------------------------------------------------------------------
 // Interior point (cf. soa_solver.solve_ipm_mj).
-template <typename T, int NV, int K>
+template <typename T, int NV, int K, typename G = Solo>
 __device__ void solve_ipm(const Problem<T, NV, K>& P, int iterations,
-                          T (&x_out)[3][K]) {
+                          T (&x_out)[3][K], const G& g = G()) {
   Ldlt<T, NV> F_M;
   ldlt<T, NV>(P.M, F_M);
   const T eps = P.eps;
 
   auto q_dot = [&](const T (&x)[3][K], T (&out)[3][K]) {
     T jtx[NV], h[NV], jw[3][K];
-    jt_dot<T, NV, K>(P.J, x, jtx);
+    jt_dot<T, NV, K, G>(P.J, x, jtx, g);
     ldlt_solve<T, NV>(F_M, jtx, h);
     j_dot<T, NV, K>(P.J, h, jw);
 #pragma unroll
@@ -512,14 +667,29 @@ __device__ void solve_ipm(const Problem<T, NV, K>& P, int iterations,
 #pragma unroll
       for (int c = 0; c < K; ++c) out[i][c] = jw[i][c] + eps * x[i][c];
   };
+  // gap + |r| + 1e6 (violation(x) + violation(z)): the four sums over
+  // contacts in one exchange.
   auto merit = [&](const T (&x)[3][K], const T (&z)[3][K],
                    const T (&r)[3][K]) {
-    return gap<T, K>(x, z) + sqrt(field_sqnorm<T, K>(r)) +
-           T(1e6) * (violation<T, K>(x) + violation<T, K>(z));
+    T sums[4];
+    sum_rows<T, 4, K, G>(
+        g,
+        [&](int n, int c) -> T {
+          if (n == 0)
+            return x[0][c] * z[0][c] + x[1][c] * z[1][c] + x[2][c] * z[2][c];
+          if (n == 1)
+            return r[0][c] * r[0][c] + r[1][c] * r[1][c] + r[2][c] * r[2][c];
+          const T(&u)[3][K] = n == 2 ? x : z;
+          return clamp_min(
+              sqrt(u[1][c] * u[1][c] + u[2][c] * u[2][c]) - u[0][c], T(0));
+        },
+        sums);
+    const T mu = sums[0] / (T(2) * T(K * G::kLanes));
+    return mu + sqrt(sums[1]) + T(1e6) * (sums[2] + sums[3]);
   };
 
-  const T scale =
-      clamp_min(sqrt(field_sqnorm<T, K>(P.q) / T(3 * K)), T(1));
+  const T scale = clamp_min(
+      sqrt(field_sqnorm<T, K, G>(P.q, g) / T(3 * K * G::kLanes)), T(1));
   const T sqrt_scale = sqrt(scale);
   T x[3][K], z[3][K], x_best[3][K];
 #pragma unroll
@@ -549,7 +719,7 @@ __device__ void solve_ipm(const Problem<T, NV, K>& P, int iterations,
 #pragma unroll
         for (int c = 0; c < K; ++c) r[i][c] = qx[i][c] + P.q[i][c] - z[i][c];
     }
-    const T mu = gap<T, K>(x, z);
+    const T mu = gap<T, K, G>(x, z, g);
     const T m = merit(x, z, r);
     const bool better = isfinite(m) && (m < merit_best);
     if (better) {
@@ -568,7 +738,7 @@ __device__ void solve_ipm(const Problem<T, NV, K>& P, int iterations,
     Ldlt<T, NV> F_S;
     {
       T S[NV][NV];
-      assemble_jtgj<T, NV, K>(P.M, P.J, A_inv, nullptr, S);
+      assemble_jtgj<T, NV, K, G>(P.M, P.J, A_inv, nullptr, S, g);
       ldlt<T, NV>(S, F_S);
     }
 
@@ -582,7 +752,7 @@ __device__ void solve_ipm(const Problem<T, NV, K>& P, int iterations,
 #pragma unroll
         for (int c = 0; c < K; ++c) rhs[i][c] = wd[i][c] - r[i][c];
       cone_matvec<T, K>(A_inv, rhs, u);
-      jt_dot<T, NV, K>(P.J, u, jtu);
+      jt_dot<T, NV, K, G>(P.J, u, jtu, g);
       ldlt_solve<T, NV>(F_S, jtu, h);
       j_dot<T, NV, K>(P.J, h, jh);
       cone_matvec<T, K>(A_inv, jh, ajh);
@@ -609,8 +779,8 @@ __device__ void solve_ipm(const Problem<T, NV, K>& P, int iterations,
                   -ll[2][c], d[0][c], d[1][c], d[2][c]);
     }
     kkt_solve(d, dx, wdx_aff, wizd_aff);
-    const T alpha_aff = pminimum(step_to_boundary<T, K>(lam, wdx_aff),
-                                 step_to_boundary<T, K>(lam, wizd_aff));
+    const T alpha_aff =
+        step_to_boundary2<T, K, G>(lam, wdx_aff, wizd_aff, g);
     T mu_aff;
     {
       T la_x[3][K], la_z[3][K];
@@ -621,7 +791,7 @@ __device__ void solve_ipm(const Problem<T, NV, K>& P, int iterations,
           la_x[i][c] = lam[i][c] + alpha_aff * wdx_aff[i][c];
           la_z[i][c] = lam[i][c] + alpha_aff * wizd_aff[i][c];
         }
-      mu_aff = gap<T, K>(la_x, la_z);
+      mu_aff = gap<T, K, G>(la_x, la_z, g);
     }
     const T ratio = mu_aff / clamp_min(mu, T(1e-30));
     T sigma = ratio * ratio * ratio;
@@ -646,10 +816,15 @@ __device__ void solve_ipm(const Problem<T, NV, K>& P, int iterations,
     T dz[3][K];
     scaling.apply(wizd, dz);
 
-    const T alpha = T(0.99) * pminimum(step_to_boundary<T, K>(lam, wdx),
-                                       step_to_boundary<T, K>(lam, wizd));
+    const T alpha = T(0.99) * step_to_boundary2<T, K, G>(lam, wdx, wizd, g);
     const bool converged = mu <= freeze;
-    const bool step_ok = field_isfinite<T, K>(dx) && field_isfinite<T, K>(dz);
+    bool finite = true;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int c = 0; c < K; ++c)
+        finite = finite && isfinite(dx[i][c]) && isfinite(dz[i][c]);
+    const bool step_ok = all_lanes<T, G>(g, finite);
     if (step_ok && !converged) {
 #pragma unroll
       for (int i = 0; i < 3; ++i)
@@ -692,44 +867,49 @@ __device__ __forceinline__ void sap_argument(const Problem<T, NV, K>& P,
     for (int c = 0; c < K; ++c) z[i][c] = -(jw[i][c] + P.q[i][c]) * P.inv_eps;
 }
 
-template <typename T, int NV, int K>
-__device__ T primal_cost(const Problem<T, NV, K>& P, const T (&w)[NV]) {
+template <typename T, int NV, int K, typename G = Solo>
+__device__ T primal_cost(const Problem<T, NV, K>& P, const T (&w)[NV],
+                         const G& g = G()) {
   T jw[3][K];
   j_dot<T, NV, K>(P.J, w, jw);
-  T sq = T(0);
-#pragma unroll
-  for (int c = 0; c < K; ++c) {
-    T g0, g1, g2;
-    project(-(jw[0][c] + P.q[0][c]) / P.eps, -(jw[1][c] + P.q[1][c]) / P.eps,
-            -(jw[2][c] + P.q[2][c]) / P.eps, g0, g1, g2);
-    const T term = g0 * g0 + g1 * g1 + g2 * g2;
-    sq = c == 0 ? term : sq + term;
-  }
+  T sq[1];
+  sum_rows<T, 1, K, G>(
+      g,
+      [&](int, int c) {
+        T g0, g1, g2;
+        project(-(jw[0][c] + P.q[0][c]) / P.eps,
+                -(jw[1][c] + P.q[1][c]) / P.eps,
+                -(jw[2][c] + P.q[2][c]) / P.eps, g0, g1, g2);
+        return g0 * g0 + g1 * g1 + g2 * g2;
+      },
+      sq);
   T Mw[NV];
   matvec<T, NV>(P.M, w, Mw);
   const T quad = T(0.5) * dot<T, NV>(w, Mw);
-  return quad + P.half_eps * sq;
+  return quad + P.half_eps * sq[0];
 }
 
-template <typename T, int K>
+template <typename T, int K, typename G = Solo>
 __device__ __forceinline__ T g_prime_at(T alpha, T a0, T a1, T eps,
                                         const T (&z0)[3][K],
-                                        const T (&dz)[3][K]) {
-  T acc = T(0);
-#pragma unroll
-  for (int c = 0; c < K; ++c) {
-    T g0, g1, g2;
-    project(z0[0][c] + alpha * dz[0][c], z0[1][c] + alpha * dz[1][c],
-            z0[2][c] + alpha * dz[2][c], g0, g1, g2);
-    const T term = dz[0][c] * g0 + dz[1][c] * g1 + dz[2][c] * g2;
-    acc = c == 0 ? term : acc + term;
-  }
-  return a0 + a1 * alpha + eps * acc;
+                                        const T (&dz)[3][K],
+                                        const G& g = G()) {
+  T acc[1];
+  sum_rows<T, 1, K, G>(
+      g,
+      [&](int, int c) {
+        T g0, g1, g2;
+        project(z0[0][c] + alpha * dz[0][c], z0[1][c] + alpha * dz[1][c],
+                z0[2][c] + alpha * dz[2][c], g0, g1, g2);
+        return dz[0][c] * g0 + dz[1][c] * g1 + dz[2][c] * g2;
+      },
+      acc);
+  return a0 + a1 * alpha + eps * acc[0];
 }
 
-template <typename T, int NV, int K>
+template <typename T, int NV, int K, typename G = Solo>
 __device__ void line_search(const Problem<T, NV, K>& P, T (&w)[NV],
-                            const T (&dw)[NV]) {
+                            const T (&dw)[NV], const G& g = G()) {
   T z0[3][K], dz[3][K];
   sap_argument<T, NV, K>(P, w, z0);
   {
@@ -754,12 +934,11 @@ __device__ void line_search(const Problem<T, NV, K>& P, T (&w)[NV],
   const T big = T(2);
   T lo = -big, hi = big;
   auto consider = [&](T c) {
-    const T g = g_prime_at<T, K>(c, a0, a1, P.eps, z0, dz);
-    lo = pmaximum(lo, g <= T(0) ? c : -big);
-    hi = pminimum(hi, g > T(0) ? c : big);
-    return g;
+    const T gp = g_prime_at<T, K, G>(c, a0, a1, P.eps, z0, dz, g);
+    lo = pmaximum(lo, gp <= T(0) ? c : -big);
+    hi = pminimum(hi, gp > T(0) ? c : big);
+    return gp;
   };
-  consider(T(0));
   T roots[2][K];
 #pragma unroll
   for (int c = 0; c < K; ++c) {
@@ -785,11 +964,50 @@ __device__ void line_search(const Problem<T, NV, K>& P, T (&w)[NV],
     roots[0][c] = v1 ? r1 : T(1);
     roots[1][c] = v2 ? r2 : T(1);
   }
+  bool take_full;
+  if constexpr (G::kLanes == 1) {
+    consider(T(0));
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int c = 0; c < K; ++c) consider(roots[j][c]);
-  const bool take_full = consider(T(1)) <= T(0);
+      for (int c = 0; c < K; ++c) consider(roots[j][c]);
+    take_full = consider(T(1)) <= T(0);
+  } else {
+    // The candidates 0, every contact's roots in contact order, then 1.
+    // Each one's g' is independent of the others', so their sums over the
+    // contacts are one exchange; the bracket then takes them in order.
+    constexpr int KT = K * G::kLanes, NC = 2 * KT + 2;
+    T cand[NC];
+    {
+      T all_roots[2][KT];
+      gather<T, 2, K, G>(g, roots, all_roots);
+      cand[0] = T(0);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < KT; ++c) cand[1 + j * KT + c] = all_roots[j][c];
+      cand[NC - 1] = T(1);
+    }
+    T sums[NC];
+    sum_rows<T, NC, K, G>(
+        g,
+        [&](int n, int c) {
+          T g0, g1, g2;
+          project(z0[0][c] + cand[n] * dz[0][c],
+                  z0[1][c] + cand[n] * dz[1][c],
+                  z0[2][c] + cand[n] * dz[2][c], g0, g1, g2);
+          return dz[0][c] * g0 + dz[1][c] * g1 + dz[2][c] * g2;
+        },
+        sums);
+    T gp = T(0);
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      gp = a0 + a1 * cand[n] + P.eps * sums[n];
+      lo = pmaximum(lo, gp <= T(0) ? cand[n] : -big);
+      hi = pminimum(hi, gp > T(0) ? cand[n] : big);
+    }
+    take_full = gp <= T(0);
+  }
   lo = clamp_min(lo, T(0));
   hi = hi > T(1) ? T(1) : hi;
   hi = pmaximum(hi, lo);
@@ -797,7 +1015,7 @@ __device__ void line_search(const Problem<T, NV, K>& P, T (&w)[NV],
   T alpha = T(0.5) * (lo + hi);
 #pragma unroll 1
   for (int step = 0; step < 6; ++step) {
-    T sg = T(0), sd = T(0);
+    T terms[2][K], sums[2];
 #pragma unroll
     for (int c = 0; c < K; ++c) {
       T g0, g1, g2, d0, d1, d2;
@@ -805,13 +1023,13 @@ __device__ void line_search(const Problem<T, NV, K>& P, T (&w)[NV],
           z0[0][c] + alpha * dz[0][c], z0[1][c] + alpha * dz[1][c],
           z0[2][c] + alpha * dz[2][c], dz[0][c], dz[1][c], dz[2][c], g0, g1,
           g2, d0, d1, d2);
-      const T tg = dz[0][c] * g0 + dz[1][c] * g1 + dz[2][c] * g2;
-      const T td = dz[0][c] * d0 + dz[1][c] * d1 + dz[2][c] * d2;
-      sg = c == 0 ? tg : sg + tg;
-      sd = c == 0 ? td : sd + td;
+      terms[0][c] = dz[0][c] * g0 + dz[1][c] * g1 + dz[2][c] * g2;
+      terms[1][c] = dz[0][c] * d0 + dz[1][c] * d1 + dz[2][c] * d2;
     }
-    const T gp_a = a0 + a1 * alpha + P.eps * sg;
-    const T gpp_a = clamp_min(a1 + P.eps * sd, T(1e-30));
+    sum_rows<T, 2, K, G>(
+        g, [&](int n, int c) { return terms[n][c]; }, sums);
+    const T gp_a = a0 + a1 * alpha + P.eps * sums[0];
+    const T gpp_a = clamp_min(a1 + P.eps * sums[1], T(1e-30));
     lo = gp_a <= T(0) ? alpha : lo;
     hi = gp_a > T(0) ? alpha : hi;
     const T newton = alpha - gp_a / gpp_a;
@@ -823,20 +1041,20 @@ __device__ void line_search(const Problem<T, NV, K>& P, T (&w)[NV],
   for (int i = 0; i < NV; ++i) w[i] = w[i] + alpha * dw[i];
 }
 
-template <typename T, int NV, int K>
+template <typename T, int NV, int K, typename G = Solo>
 __device__ void sap_newton(const Problem<T, NV, K>& P, int iterations,
-                           T (&w)[NV], T (&gamma)[3][K]) {
+                           T (&w)[NV], T (&gamma)[3][K], const G& g = G()) {
 #pragma unroll 1
   for (int it = 0; it < iterations; ++it) {
-    T z[3][K], g[3][K], D[3][3][K];
+    T z[3][K], gc[3][K], D[3][3][K];
     sap_argument<T, NV, K>(P, w, z);
 #pragma unroll
     for (int c = 0; c < K; ++c) {
-      T gc[3], Dc[3][3];
-      project_and_jacobian_matrix(z[0][c], z[1][c], z[2][c], gc, Dc);
+      T pc[3], Dc[3][3];
+      project_and_jacobian_matrix(z[0][c], z[1][c], z[2][c], pc, Dc);
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
-        g[i][c] = gc[i];
+        gc[i][c] = pc[i];
 #pragma unroll
         for (int j = 0; j < 3; ++j) D[i][j][c] = Dc[i][j];
       }
@@ -845,14 +1063,14 @@ __device__ void sap_newton(const Problem<T, NV, K>& P, int iterations,
     {
       T Mw[NV], jtg[NV];
       matvec<T, NV>(P.M, w, Mw);
-      jt_dot<T, NV, K>(P.J, g, jtg);
+      jt_dot<T, NV, K, G>(P.J, gc, jtg, g);
 #pragma unroll
       for (int i = 0; i < NV; ++i) grad[i] = Mw[i] - jtg[i];
     }
     T dw[NV];
     {
       T H[NV][NV];
-      assemble_jtgj<T, NV, K>(P.M, P.J, D, &P.inv_eps, H);
+      assemble_jtgj<T, NV, K, G>(P.M, P.J, D, &P.inv_eps, H, g);
 #pragma unroll
       for (int i = 0; i < NV; ++i) H[i][i] = H[i][i] + T(1e-10);
       Ldlt<T, NV> F_H;
@@ -861,7 +1079,7 @@ __device__ void sap_newton(const Problem<T, NV, K>& P, int iterations,
 #pragma unroll
       for (int i = 0; i < NV; ++i) dw[i] = -dw[i];
     }
-    line_search<T, NV, K>(P, w, dw);
+    line_search<T, NV, K, G>(P, w, dw, g);
   }
   T z[3][K];
   sap_argument<T, NV, K>(P, w, z);
@@ -876,13 +1094,19 @@ __device__ void sap_newton(const Problem<T, NV, K>& P, int iterations,
 
 // Failure mask: a non-finite or |gamma| > 1e3 impulse is zeroed; returns
 // whether the sample is valid.
-template <typename T, int K>
-__device__ __forceinline__ bool mask_failures(T (&gamma)[3][K]) {
-  bool valid = field_isfinite<T, K>(gamma);
+template <typename T, int K, typename G = Solo>
+__device__ __forceinline__ bool mask_failures(T (&gamma)[3][K],
+                                              const G& g = G()) {
+  bool ok = true;
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
-    for (int c = 0; c < K; ++c) valid = valid && (fabs(gamma[i][c]) <= T(1e3));
+    for (int c = 0; c < K; ++c) ok = ok && isfinite(gamma[i][c]);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int c = 0; c < K; ++c) ok = ok && (fabs(gamma[i][c]) <= T(1e3));
+  const bool valid = all_lanes<T, G>(g, ok);
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -892,46 +1116,49 @@ __device__ __forceinline__ bool mask_failures(T (&gamma)[3][K]) {
 }
 
 // w = M^-1 J^T u.
-template <typename T, int NV, int K>
+template <typename T, int NV, int K, typename G = Solo>
 __device__ __forceinline__ void minv_jt(const Problem<T, NV, K>& P,
-                                        const T (&u)[3][K], T (&w)[NV]) {
+                                        const T (&u)[3][K], T (&w)[NV],
+                                        const G& g = G()) {
   T jtu[NV];
-  jt_dot<T, NV, K>(P.J, u, jtu);
+  jt_dot<T, NV, K, G>(P.J, u, jtu, g);
   Ldlt<T, NV> F_M;
   ldlt<T, NV>(P.M, F_M);
   ldlt_solve<T, NV>(F_M, jtu, w);
 }
 
 // Cold hybrid solve: IPM, then SAP-Newton from the IPM iterate.
-template <typename T, int NV, int K>
+template <typename T, int NV, int K, typename G = Solo>
 __device__ bool cold_hybrid_solve(const Problem<T, NV, K>& P,
                                   int ipm_iterations, int newton_iterations,
-                                  T (&gamma)[3][K]) {
+                                  T (&gamma)[3][K], const G& g = G()) {
   T x_ipm[3][K];
-  solve_ipm<T, NV, K>(P, ipm_iterations, x_ipm);
+  solve_ipm<T, NV, K, G>(P, ipm_iterations, x_ipm, g);
   T w[NV];
-  minv_jt<T, NV, K>(P, x_ipm, w);
-  sap_newton<T, NV, K>(P, newton_iterations, w, gamma);
-  return mask_failures<T, K>(gamma);
+  minv_jt<T, NV, K, G>(P, x_ipm, w, g);
+  sap_newton<T, NV, K, G>(P, newton_iterations, w, gamma, g);
+  return mask_failures<T, K, G>(gamma, g);
 }
 
 // Warm-started hybrid solve: a short IPM, then SAP-Newton from the better
 // (by primal cost) of the carried primal w and the IPM iterate. On return
 // w holds the final primal, zeroed (and NaN-free) where the sample failed.
-template <typename T, int NV, int K>
+template <typename T, int NV, int K, typename G = Solo>
 __device__ bool warm_hybrid_solve(const Problem<T, NV, K>& P,
                                   int ipm_iterations, int newton_iterations,
-                                  T (&w)[NV], T (&gamma)[3][K]) {
+                                  T (&w)[NV], T (&gamma)[3][K],
+                                  const G& g = G()) {
   T x_ipm[3][K];
-  solve_ipm<T, NV, K>(P, ipm_iterations, x_ipm);
+  solve_ipm<T, NV, K, G>(P, ipm_iterations, x_ipm, g);
   T w_ipm[NV];
-  minv_jt<T, NV, K>(P, x_ipm, w_ipm);
-  const bool carry_better = primal_cost<T, NV, K>(P, w) <
-                            primal_cost<T, NV, K>(P, w_ipm);
+  minv_jt<T, NV, K, G>(P, x_ipm, w_ipm, g);
+  const T cost_carry = primal_cost<T, NV, K, G>(P, w, g);
+  const T cost_ipm = primal_cost<T, NV, K, G>(P, w_ipm, g);
+  const bool carry_better = cost_carry < cost_ipm;
 #pragma unroll
   for (int i = 0; i < NV; ++i) w[i] = carry_better ? w[i] : w_ipm[i];
-  sap_newton<T, NV, K>(P, newton_iterations, w, gamma);
-  const bool valid = mask_failures<T, K>(gamma);
+  sap_newton<T, NV, K, G>(P, newton_iterations, w, gamma, g);
+  const bool valid = mask_failures<T, K, G>(gamma, g);
 #pragma unroll
   for (int i = 0; i < NV; ++i) w[i] = valid ? nan_to_num(w[i]) : T(0);
   return valid;

@@ -1,11 +1,13 @@
-// ContactNets loss kernels of any model of the fused loss kernels' class,
-// one CUDA thread per sample, on the generic terms of model_terms.cuh:
+// ContactNets loss kernels of any model of the fused loss kernels' class, on
+// the generic terms of model_terms.cuh:
 //
-//   K1 model_loss_fwd_kernel       replaces `_fwd_kernel` of
+//   K1 model_loss_terms_kernel + model_loss_fwd_lanes_kernel (at one
+//      thread a sample, model_loss_fwd_kernel) replaces `_fwd_kernel` of
 //      dair_pll_tpu/ops/soa_loss_pallas.py: terms at the observed next
 //      state, the detached cold hybrid solve, the loss.
-//   K3 model_loss_fwd_warm_kernel  replaces `_fwd_kernel_warm`: as K1, with
-//      the solve warm-started from the impulse of a previous visit.
+//   K3 model_loss_terms_kernel + model_loss_fwd_warm_lanes_kernel
+//      (model_loss_fwd_warm_kernel) replaces `_fwd_kernel_warm`: as K1,
+//      with the solve warm-started from the impulse of a previous visit.
 //   K2 model_loss_bwd_kernel (+ model_reduce_partials_kernel) replaces
 //      `_bwd_kernel`: the gradient of sum(ct * loss) at the saved impulse
 //      with respect to the derived scalars (summed over the batch) and the
@@ -31,11 +33,20 @@
 // bytes at 3.35 TB/s; their solve's ~10^5 operations or more per sample
 // bound them by operations. K2 reads 54 values and writes 30 a sample
 // (0.14 ms of bytes); its sweep's some 10^4 operations a sample bound it by
-// operations too. One thread carries a whole sample with a few hundred
-// live values (the (7, 8) solve's M, J and cone state; K2's frames and
-// their cotangents), past the 255-register cap: all three spill to local
-// memory. Several threads per sample and shared-memory staging are later
-// work.
+// operations too.
+//
+// One thread carrying a whole (7, 8) sample holds a few hundred live values
+// (M, J, the cone state), past the 255-register cap, and spills. So at the
+// elbow's size K1 and K3 run in two kernels (kFwdLanes of model_terms.cuh
+// sets the lanes a sample at each size): one thread a sample computes the
+// terms and writes them to a scratch pack in device memory (some 1 KB a
+// sample in float32; the bytes are a few percent of the kernels' time);
+// then a group of L lanes a sample each loads its contacts' columns of J
+// and q with M whole, and runs the solve of hybrid_solve.cuh on them,
+// exchanging the sums over contacts through its group's slots in shared
+// memory, folded in contact order, so the results are one thread's bit
+// for bit. The terms stay on one thread: on every lane they cost L times
+// their issue slots. K2 keeps one thread a sample.
 #pragma once
 
 #include "model_adjoint.cuh"
@@ -70,19 +81,25 @@ __device__ __forceinline__ void load_model_states(
     x[Z::NX + i] = i < desc.n_u ? xin[(Z::NX + i) * B + b] : S(0);
 }
 
-template <typename S, typename Z>
+// The impulse of the lane's contacts; the loss and valid from lane 0.
+template <typename S, typename Z, int L>
 __device__ __forceinline__ void store_model_solution(
-    S loss, const S (&f)[3][Z::K], bool valid, long long B, long long b,
-    S* __restrict__ l, S* __restrict__ force, unsigned char* __restrict__ v) {
-  l[b] = loss;
+    S loss, const S (&f)[3][Z::K / L], bool valid, long long B, long long b,
+    int lane, S* __restrict__ l, S* __restrict__ force,
+    unsigned char* __restrict__ v) {
+  constexpr int KL = Z::K / L;
+  if (lane == 0) {
+    l[b] = loss;
+    v[b] = valid ? 1 : 0;
+  }
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
-    for (int c = 0; c < Z::K; ++c) force[(i * Z::K + c) * B + b] = f[i][c];
-  v[b] = valid ? 1 : 0;
+    for (int c = 0; c < KL; ++c)
+      force[(i * Z::K + lane * KL + c) * B + b] = f[i][c];
 }
 
-// K1.
+// K1 and K3 at L = 1: one thread a sample, terms, solve and loss.
 template <typename S, typename Z>
 __global__ void __launch_bounds__(kModelThreads) model_loss_fwd_kernel(
     const __grid_constant__ ModelDesc<Z> desc, const S* __restrict__ pvec,
@@ -99,10 +116,9 @@ __global__ void __launch_bounds__(kModelThreads) model_loss_fwd_kernel(
   bool ok;
   const S l = model_loss_cold<S, Z>(desc, shared_p, x, x_plus, S(dt), eps,
                                     ipm_iterations, newton_iterations, f, ok);
-  store_model_solution<S, Z>(l, f, ok, B, b, loss, force, valid);
+  store_model_solution<S, Z, 1>(l, f, ok, B, b, 0, loss, force, valid);
 }
 
-// K3.
 template <typename S, typename Z>
 __global__ void __launch_bounds__(kModelThreads) model_loss_fwd_warm_kernel(
     const __grid_constant__ ModelDesc<Z> desc, const S* __restrict__ pvec,
@@ -125,7 +141,84 @@ __global__ void __launch_bounds__(kModelThreads) model_loss_fwd_warm_kernel(
   const S l = model_loss_warm<S, Z>(desc, shared_p, x, x_plus, f_prev, S(dt),
                                     eps, ipm_iterations, newton_iterations, f,
                                     ok);
-  store_model_solution<S, Z>(l, f, ok, B, b, loss, force, valid);
+  store_model_solution<S, Z, 1>(l, f, ok, B, b, 0, loss, force, valid);
+}
+
+// K1 and K3 at L > 1, first kernel: one thread a sample computes the terms
+// and writes the sample's pack (kPackValues of model_terms.cuh, batch-minor).
+template <typename S, typename Z>
+__global__ void __launch_bounds__(kModelThreads) model_loss_terms_kernel(
+    const __grid_constant__ ModelDesc<Z> desc, const S* __restrict__ pvec,
+    const S* __restrict__ xin, const S* __restrict__ xp,
+    S* __restrict__ pack, long long B, double dt) {
+  __shared__ S shared_p[Z::PMAX];
+  stage_params<S, Z>(desc, pvec, shared_p);
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  S x[Z::NX + Z::NU], x_plus[Z::NX];
+  load_model_states<S, Z>(desc, xin, xp, B, b, x, x_plus);
+  ModelParts<S, Z> lp;
+  model_parts_at<S, Z>(desc, shared_p, x, x_plus, S(dt), lp);
+  pack_problem<S, Z>(lp, pack + b, B);
+}
+
+// Second kernel: thread t runs lane t % L of sample t / L, its slots in
+// shared memory. A group past the batch solves its last sample again and
+// writes nothing, so that every lane of a warp meets each exchange.
+template <typename S, typename Z, int L>
+__device__ __forceinline__ WarpLanes<S, L> solve_lanes() {
+  __shared__ S slots[kModelThreads / L][kLaneSlots<Z::NV, Z::K>];
+  return WarpLanes<S, L>(&slots[threadIdx.x / L][0]);
+}
+
+// K1's solve and loss on L lanes a sample.
+template <typename S, typename Z, int L>
+__global__ void __launch_bounds__(kModelThreads) model_loss_fwd_lanes_kernel(
+    const S* __restrict__ pack, S* __restrict__ loss, S* __restrict__ force,
+    unsigned char* __restrict__ valid, long long B, double eps,
+    int ipm_iterations, int newton_iterations) {
+  using G = WarpLanes<S, L>;
+  const long long b = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / L;
+  const G g = solve_lanes<S, Z, L>();
+  LaneParts<S, Z, G> parts;
+  unpack_problem<S, Z, G>(pack + (b < B ? b : B - 1), B, eps, g, parts);
+  S f[3][Z::K / L];
+  bool ok;
+  const S l = lane_loss_cold<S, Z, G>(parts, eps, ipm_iterations,
+                                      newton_iterations, f, ok, g);
+  if (b < B)
+    store_model_solution<S, Z, L>(l, f, ok, B, b, g.lane(), loss, force,
+                                  valid);
+}
+
+// K3's solve and loss on L lanes a sample, from the previous impulses.
+template <typename S, typename Z, int L>
+__global__ void __launch_bounds__(kModelThreads)
+model_loss_fwd_warm_lanes_kernel(const S* __restrict__ pack,
+                                 const S* __restrict__ fprev,
+                                 S* __restrict__ loss, S* __restrict__ force,
+                                 unsigned char* __restrict__ valid,
+                                 long long B, double eps, int ipm_iterations,
+                                 int newton_iterations) {
+  using G = WarpLanes<S, L>;
+  constexpr int KL = Z::K / L;
+  const long long b = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / L;
+  const long long at = b < B ? b : B - 1;
+  const G g = solve_lanes<S, Z, L>();
+  LaneParts<S, Z, G> parts;
+  unpack_problem<S, Z, G>(pack + at, B, eps, g, parts);
+  S f_prev[3][KL], f[3][KL];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int c = 0; c < KL; ++c)
+      f_prev[i][c] = fprev[(i * Z::K + g.lane() * KL + c) * B + at];
+  bool ok;
+  const S l = lane_loss_warm<S, Z, G>(parts, f_prev, eps, ipm_iterations,
+                                      newton_iterations, f, ok, g);
+  if (b < B)
+    store_model_solution<S, Z, L>(l, f, ok, B, b, g.lane(), loss, force,
+                                  valid);
 }
 
 // K2, first pass: each thread's sample (model_loss_vjp, one reverse-mode
@@ -209,34 +302,51 @@ inline long long model_blocks(long long B, int threads) {
   return (B + threads - 1) / threads;
 }
 
-template <typename S, typename Z>
+// K1 (fprev null) or K3: at L = 1 one kernel; else the terms kernel into
+// `pack` (kPackValues<Z> x B values, n_pack the caller's count of them),
+// then the lanes' kernel.
+template <typename S, typename Z, int L>
 int launch_model_fwd(const void* desc, const void* pvec, const void* xin,
-                     const void* xp, void* loss, void* force, void* valid,
+                     const void* xp, const void* fprev, void* loss,
+                     void* force, void* valid, void* pack, long long n_pack,
                      long long B, double dt, double eps, int ipm_iterations,
                      int newton_iterations, void* stream) {
-  model_loss_fwd_kernel<S, Z>
-      <<<(unsigned)model_blocks(B, kModelThreads), kModelThreads, 0,
-         (cudaStream_t)stream>>>(
-          *(const ModelDesc<Z>*)desc, (const S*)pvec, (const S*)xin,
-          (const S*)xp, (S*)loss, (S*)force, (unsigned char*)valid, B, dt,
-          eps, ipm_iterations, newton_iterations);
-  return (int)cudaGetLastError();
-}
-
-template <typename S, typename Z>
-int launch_model_fwd_warm(const void* desc, const void* pvec,
-                          const void* xin, const void* xp, const void* fprev,
-                          void* loss, void* force, void* valid, long long B,
-                          double dt, double eps, int ipm_iterations,
-                          int newton_iterations, void* stream) {
-  model_loss_fwd_warm_kernel<S, Z>
-      <<<(unsigned)model_blocks(B, kModelThreads), kModelThreads, 0,
-         (cudaStream_t)stream>>>(
-          *(const ModelDesc<Z>*)desc, (const S*)pvec, (const S*)xin,
-          (const S*)xp, (const S*)fprev, (S*)loss, (S*)force,
-          (unsigned char*)valid, B, dt, eps, ipm_iterations,
+  const ModelDesc<Z>& d = *(const ModelDesc<Z>*)desc;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if constexpr (L == 1) {
+    const unsigned blocks = (unsigned)model_blocks(B, kModelThreads);
+    if (fprev == nullptr)
+      model_loss_fwd_kernel<S, Z><<<blocks, kModelThreads, 0, st>>>(
+          d, (const S*)pvec, (const S*)xin, (const S*)xp, (S*)loss,
+          (S*)force, (unsigned char*)valid, B, dt, eps, ipm_iterations,
           newton_iterations);
-  return (int)cudaGetLastError();
+    else
+      model_loss_fwd_warm_kernel<S, Z><<<blocks, kModelThreads, 0, st>>>(
+          d, (const S*)pvec, (const S*)xin, (const S*)xp, (const S*)fprev,
+          (S*)loss, (S*)force, (unsigned char*)valid, B, dt, eps,
+          ipm_iterations, newton_iterations);
+    return (int)cudaGetLastError();
+  } else {
+    if (n_pack != (long long)kPackValues<Z> * B)
+      return (int)cudaErrorInvalidValue;
+    model_loss_terms_kernel<S, Z>
+        <<<(unsigned)model_blocks(B, kModelThreads), kModelThreads, 0, st>>>(
+            d, (const S*)pvec, (const S*)xin, (const S*)xp, (S*)pack, B, dt);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    const unsigned blocks = (unsigned)model_blocks(B * L, kModelThreads);
+    if (fprev == nullptr)
+      model_loss_fwd_lanes_kernel<S, Z, L><<<blocks, kModelThreads, 0, st>>>(
+          (const S*)pack, (S*)loss, (S*)force, (unsigned char*)valid, B, eps,
+          ipm_iterations, newton_iterations);
+    else
+      model_loss_fwd_warm_lanes_kernel<S, Z, L>
+          <<<blocks, kModelThreads, 0, st>>>(
+              (const S*)pack, (const S*)fprev, (S*)loss, (S*)force,
+              (unsigned char*)valid, B, eps, ipm_iterations,
+              newton_iterations);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename S, typename Z>
@@ -265,28 +375,36 @@ int launch_model_bwd(const void* desc, const void* pvec, const void* xin,
 // Plain C entry points of one ModelSize (bound with ctypes). Tensors are
 // contiguous and batch-minor: pvec (P,), xin (n_x + n_u, B), xp (n_x, B),
 // fprev and force (3, k, B), loss and ct (B,), valid (B,) as bytes; desc
-// points to the host's ModelDesc; the backward's scratch `partial` holds
-// model_loss_bwd_scratch(B, P) values. Each returns cudaGetLastError()
+// points to the host's ModelDesc; the forward's scratch `pack` holds
+// n_pack = kPackValues<Z> * B values (unused at L = 1), the backward's
+// `partial` model_loss_bwd_scratch(B, P). Each returns cudaGetLastError()
 // after its launches.
-#define DEFINE_MODEL_FWD_ENTRIES(Z, NAME, S, SUFFIX)                          \
+#define DEFINE_MODEL_FWD_ENTRY(Z, NAME, S, SUFFIX, L)                         \
   extern "C" int contactnets_loss_fwd_##NAME##_##SUFFIX(                     \
       const void* desc, const void* pvec, const void* xin, const void* xp,   \
-      void* loss, void* force, void* valid, long long B, double dt,          \
-      double eps, int ipm_iterations, int newton_iterations, void* stream) { \
-    return launch_model_fwd<S, Z>(desc, pvec, xin, xp, loss, force, valid,   \
-                                  B, dt, eps, ipm_iterations,                \
-                                  newton_iterations, stream);                \
+      void* loss, void* force, void* valid, void* pack, long long n_pack,    \
+      long long B, double dt, double eps, int ipm_iterations,                \
+      int newton_iterations, void* stream) {                                 \
+    return launch_model_fwd<S, Z, L>(desc, pvec, xin, xp, nullptr, loss,     \
+                                     force, valid, pack, n_pack, B, dt, eps, \
+                                     ipm_iterations, newton_iterations,      \
+                                     stream);                                \
   }                                                                          \
   extern "C" int contactnets_loss_fwd_warm_##NAME##_##SUFFIX(                \
       const void* desc, const void* pvec, const void* xin, const void* xp,   \
-      const void* fprev, void* loss, void* force, void* valid, long long B,  \
-      double dt, double eps, int ipm_iterations, int newton_iterations,      \
-      void* stream) {                                                        \
-    return launch_model_fwd_warm<S, Z>(desc, pvec, xin, xp, fprev, loss,     \
-                                       force, valid, B, dt, eps,             \
-                                       ipm_iterations, newton_iterations,    \
-                                       stream);                              \
+      const void* fprev, void* loss, void* force, void* valid, void* pack,   \
+      long long n_pack, long long B, double dt, double eps,                  \
+      int ipm_iterations, int newton_iterations, void* stream) {             \
+    return launch_model_fwd<S, Z, L>(desc, pvec, xin, xp, fprev, loss,       \
+                                     force, valid, pack, n_pack, B, dt, eps, \
+                                     ipm_iterations, newton_iterations,      \
+                                     stream);                                \
   }
+
+// K1 and K3 of one ModelSize on L lanes a sample, float32 and float64.
+#define DEFINE_MODEL_FWD_ENTRIES(Z, NAME, L)                                  \
+  DEFINE_MODEL_FWD_ENTRY(Z, NAME, float, f32, L)                             \
+  DEFINE_MODEL_FWD_ENTRY(Z, NAME, double, f64, L)
 
 #define DEFINE_MODEL_BWD_ENTRIES(Z, NAME, S, SUFFIX)                          \
   extern "C" int contactnets_loss_bwd_##NAME##_##SUFFIX(                     \

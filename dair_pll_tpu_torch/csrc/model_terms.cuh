@@ -815,49 +815,47 @@ __device__ void model_loss_parts(const ModelDesc<Z>& desc, const T* p,
 
 // soa_loss_assemble: the loss at a given (detached) impulse,
 // 0.5 f'(D + eps I) f + f'q + 0.5 dv'M dv + sum max(-phi, 0)^2, with f'D f
-// computed as (J'f)' M^-1 (J'f); 0 for a failed solve.
-template <typename T, typename Z>
-__device__ T model_loss_assemble(const ModelParts<T, Z>& lp,
-                                 const base_t<T> (&f)[3][Z::K], bool valid,
-                                 base_t<T> eps) {
+// computed as (J'f)' M^-1 (J'f); 0 for a failed solve. J, qc, phi and f are
+// the lane's contacts (all K at L = 1); the sums over contacts are one
+// exchange of NV + 3 rows.
+template <typename T, int NV, int K, typename G = Solo>
+__device__ T model_loss_assemble(const T (&M)[NV][NV], const T (&dv)[NV],
+                                 const T (&J)[3][NV][K], const T (&qc)[3][K],
+                                 const T (&phi)[K], const T (&f)[3][K],
+                                 bool valid, T eps, const G& g = G()) {
   using B = base_t<T>;
-  constexpr int NV = Z::NV, K = Z::K;
+  // Rows: (J'f)_j, then |f|^2, f'q and max(-phi, 0)^2 per contact.
+  T sums[NV + 3];
+  sum_rows<T, NV + 3, K, G>(
+      g,
+      [&](int n, int c) -> T {
+        if (n < NV)
+          return J[0][n][c] * f[0][c] + J[1][n][c] * f[1][c] +
+                 J[2][n][c] * f[2][c];
+        if (n == NV)
+          return f[0][c] * f[0][c] + f[1][c] * f[1][c] + f[2][c] * f[2][c];
+        if (n == NV + 1)
+          return f[0][c] * qc[0][c] + f[1][c] * qc[1][c] +
+                 f[2][c] * qc[2][c];
+        const T neg = -phi[c];
+        const T pen = neg < B(0) ? T(B(0)) : neg;  // clamp_min(-phi, 0)
+        return pen * pen;
+      },
+      sums);
   T jtf[NV], minv_jtf[NV];
 #pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    T acc = T(B(0));
-#pragma unroll
-    for (int c = 0; c < K; ++c) {
-      const T term = lp.J[0][j][c] * f[0][c] + lp.J[1][j][c] * f[1][c] +
-                     lp.J[2][j][c] * f[2][c];
-      acc = c == 0 ? term : acc + term;
-    }
-    jtf[j] = acc;
-  }
+  for (int j = 0; j < NV; ++j) jtf[j] = sums[j];
   {
     Ldlt<T, NV> F_M;
-    ldlt<T, NV>(lp.M, F_M);
+    ldlt<T, NV>(M, F_M);
     ldlt_solve<T, NV>(F_M, jtf, minv_jtf);
   }
-  B f_sq = B(0);
-  T f_dot_q = T(B(0)), penetration = T(B(0));
-#pragma unroll
-  for (int c = 0; c < K; ++c) {
-    const B sq = f[0][c] * f[0][c] + f[1][c] * f[1][c] + f[2][c] * f[2][c];
-    const T fq = f[0][c] * lp.qc[0][c] + f[1][c] * lp.qc[1][c] +
-                 f[2][c] * lp.qc[2][c];
-    const T neg = -lp.phi[c];
-    const T pen = neg < B(0) ? T(B(0)) : neg;  // clamp_min(-phi, 0)
-    f_sq = c == 0 ? sq : f_sq + sq;
-    f_dot_q = c == 0 ? fq : f_dot_q + fq;
-    penetration = c == 0 ? pen * pen : penetration + pen * pen;
-  }
-  const T quad = dotn<T, NV>(jtf, minv_jtf) + eps * f_sq;
+  const T quad = dotn<T, NV>(jtf, minv_jtf) + eps * sums[NV];
   T M_dv[NV];
 #pragma unroll
-  for (int i = 0; i < NV; ++i) M_dv[i] = dotn<T, NV>(lp.M[i], lp.dv);
-  const T constant = B(0.5) * dotn<T, NV>(lp.dv, M_dv) + penetration;
-  const T loss = B(0.5) * quad + f_dot_q + constant;
+  for (int i = 0; i < NV; ++i) M_dv[i] = dotn<T, NV>(M[i], dv);
+  const T constant = B(0.5) * dotn<T, NV>(dv, M_dv) + sums[NV + 2];
+  const T loss = B(0.5) * quad + sums[NV + 1] + constant;
   return valid ? loss : T(B(0));
 }
 
@@ -887,47 +885,152 @@ __device__ __forceinline__ void model_parts_at(const ModelDesc<Z>& desc,
   model_loss_parts<S, Z>(desc, p, v, u, vp, F, dt, lp);
 }
 
+// Lanes a sample in the card's K1 and K3 at a size: two contacts a lane
+// (the elbow's k = 8 on 4 lanes); one thread a sample at k = 4, where the
+// lanes' repeated whole-sample work costs more than the one thread's
+// spills (PERF.md §6).
+template <typename Z> constexpr int kFwdLanes = Z::K > 4 ? Z::K / 2 : 1;
+
+// What the solve and the assembly of a sample need, on one lane of its
+// group: the problem with the lane's contacts' columns (M whole), dv, and
+// the lane's contacts' phi.
+template <typename S, typename Z, typename G>
+struct LaneParts {
+  static constexpr int KL = Z::K / G::kLanes;
+  static_assert(KL * G::kLanes == Z::K, "whole contacts a lane");
+  Problem<S, Z::NV, KL> P;
+  S dv[Z::NV];
+  S phi[KL];
+};
+
+// The terms of one sample as one thread hands them to the solve, on its
+// own lanes or on one thread: M, J, qc, phi and dv, value v of the sample
+// at pack[v * stride].
+template <typename Z>
+constexpr int kPackValues =
+    Z::NV * Z::NV + 3 * Z::NV * Z::K + 4 * Z::K + Z::NV;
+
 template <typename S, typename Z>
-__device__ __forceinline__ void model_problem(const ModelParts<S, Z>& lp,
-                                              double eps,
-                                              Problem<S, Z::NV, Z::K>& P) {
+__device__ __forceinline__ void pack_problem(const ModelParts<S, Z>& lp,
+                                             S* pack, long long stride) {
+  constexpr int NV = Z::NV, K = Z::K, J0 = NV * NV, Q0 = J0 + 3 * NV * K,
+                PHI0 = Q0 + 3 * K, DV0 = PHI0 + K;
 #pragma unroll
-  for (int i = 0; i < Z::NV; ++i)
+  for (int i = 0; i < NV; ++i) {
+    pack[(DV0 + i) * stride] = lp.dv[i];
 #pragma unroll
-    for (int j = 0; j < Z::NV; ++j) P.M[i][j] = lp.M[i][j];
+    for (int j = 0; j < NV; ++j) pack[(i * NV + j) * stride] = lp.M[i][j];
+  }
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
+  for (int c = 0; c < K; ++c) {
+    pack[(PHI0 + c) * stride] = lp.phi[c];
 #pragma unroll
-    for (int c = 0; c < Z::K; ++c) {
-      P.q[i][c] = lp.qc[i][c];
+    for (int i = 0; i < 3; ++i) {
+      pack[(Q0 + i * K + c) * stride] = lp.qc[i][c];
 #pragma unroll
-      for (int j = 0; j < Z::NV; ++j) P.J[i][j][c] = lp.J[i][j][c];
+      for (int j = 0; j < NV; ++j)
+        pack[(J0 + (i * NV + j) * K + c) * stride] = lp.J[i][j][c];
     }
-  P.eps = S(eps);
-  P.inv_eps = S(1.0 / eps);
-  P.half_eps = S(0.5 * eps);
+  }
 }
 
-// K1's body: terms, the cold hybrid solve, the loss. Writes the impulse;
-// returns the loss and sets valid. The actuation rows of xin past n_u are
-// never read by the terms (no body's u_index reaches them).
+// A lane's parts from its sample's pack: contacts lane * KL ... .
+template <typename S, typename Z, typename G>
+__device__ __forceinline__ void unpack_problem(const S* pack,
+                                               long long stride, double eps,
+                                               const G& g,
+                                               LaneParts<S, Z, G>& out) {
+  constexpr int NV = Z::NV, K = Z::K, J0 = NV * NV, Q0 = J0 + 3 * NV * K,
+                PHI0 = Q0 + 3 * K, DV0 = PHI0 + K;
+  constexpr int KL = LaneParts<S, Z, G>::KL;
+  const int c0 = g.lane() * KL;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    out.dv[i] = pack[(DV0 + i) * stride];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) out.P.M[i][j] = pack[(i * NV + j) * stride];
+  }
+#pragma unroll
+  for (int c = 0; c < KL; ++c) {
+    out.phi[c] = pack[(PHI0 + c0 + c) * stride];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      out.P.q[i][c] = pack[(Q0 + i * K + c0 + c) * stride];
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+        out.P.J[i][j][c] = pack[(J0 + (i * NV + j) * K + c0 + c) * stride];
+    }
+  }
+  out.P.eps = S(eps);
+  out.P.inv_eps = S(1.0 / eps);
+  out.P.half_eps = S(0.5 * eps);
+}
+
+// The cold hybrid solve and the loss on a sample's lanes. Writes the
+// impulse of the lane's contacts; returns the loss and sets valid (both
+// alike on every lane).
+template <typename S, typename Z, typename G>
+__device__ S lane_loss_cold(const LaneParts<S, Z, G>& lane, double eps,
+                            int ipm_iterations, int newton_iterations,
+                            S (&force)[3][Z::K / G::kLanes], bool& valid,
+                            const G& g) {
+  constexpr int KL = Z::K / G::kLanes;
+  valid = cold_hybrid_solve<S, Z::NV, KL, G>(lane.P, ipm_iterations,
+                                             newton_iterations, force, g);
+  return model_loss_assemble<S, Z::NV, KL, G>(lane.P.M, lane.dv, lane.P.J,
+                                              lane.P.q, lane.phi, force,
+                                              valid, S(eps), g);
+}
+
+// As lane_loss_cold, with the warm solve from w = M^-1 J^T f_prev at the
+// current parameters (f_prev: the lane's contacts').
+template <typename S, typename Z, typename G>
+__device__ S lane_loss_warm(const LaneParts<S, Z, G>& lane,
+                            const S (&f_prev)[3][Z::K / G::kLanes],
+                            double eps, int ipm_iterations,
+                            int newton_iterations,
+                            S (&force)[3][Z::K / G::kLanes], bool& valid,
+                            const G& g) {
+  constexpr int KL = Z::K / G::kLanes;
+  S w[Z::NV];
+  minv_jt<S, Z::NV, KL, G>(lane.P, f_prev, w, g);
+  valid = warm_hybrid_solve<S, Z::NV, KL, G>(lane.P, ipm_iterations,
+                                             newton_iterations, w, force, g);
+  return model_loss_assemble<S, Z::NV, KL, G>(lane.P.M, lane.dv, lane.P.J,
+                                              lane.P.q, lane.phi, force,
+                                              valid, S(eps), g);
+}
+
+// The terms of one sample, handed to its solve on the same thread.
+template <typename S, typename Z>
+__device__ __forceinline__ void model_parts_one(
+    const ModelDesc<Z>& desc, const S* p, const S (&xin)[Z::NX + Z::NU],
+    const S (&xp)[Z::NX], S dt, double eps, LaneParts<S, Z, Solo>& out) {
+  S pack[kPackValues<Z>];
+  {
+    ModelParts<S, Z> lp;
+    model_parts_at<S, Z>(desc, p, xin, xp, dt, lp);
+    pack_problem<S, Z>(lp, pack, 1);
+  }
+  unpack_problem<S, Z, Solo>(pack, 1, eps, Solo(), out);
+}
+
+// K1's body on one thread: terms, the cold hybrid solve, the loss. Writes
+// the impulse; returns the loss and sets valid. The actuation rows of xin
+// past n_u are never read by the terms (no body's u_index reaches them).
 template <typename S, typename Z>
 __device__ S model_loss_cold(const ModelDesc<Z>& desc, const S* p,
                              const S (&xin)[Z::NX + Z::NU],
                              const S (&xp)[Z::NX], S dt, double eps,
                              int ipm_iterations, int newton_iterations,
                              S (&force)[3][Z::K], bool& valid) {
-  ModelParts<S, Z> lp;
-  model_parts_at<S, Z>(desc, p, xin, xp, dt, lp);
-  Problem<S, Z::NV, Z::K> P;
-  model_problem<S, Z>(lp, eps, P);
-  valid = cold_hybrid_solve<S, Z::NV, Z::K>(P, ipm_iterations,
-                                            newton_iterations, force);
-  return model_loss_assemble<S, Z>(lp, force, valid, S(eps));
+  LaneParts<S, Z, Solo> lane;
+  model_parts_one<S, Z>(desc, p, xin, xp, dt, eps, lane);
+  return lane_loss_cold<S, Z, Solo>(lane, eps, ipm_iterations,
+                                    newton_iterations, force, valid, Solo());
 }
 
-// K3's body: as K1, with the warm solve from w = M^-1 J^T f_prev at the
-// current parameters.
+// K3's body on one thread: as K1, warm-started from f_prev.
 template <typename S, typename Z>
 __device__ S model_loss_warm(const ModelDesc<Z>& desc, const S* p,
                              const S (&xin)[Z::NX + Z::NU],
@@ -935,15 +1038,10 @@ __device__ S model_loss_warm(const ModelDesc<Z>& desc, const S* p,
                              const S (&f_prev)[3][Z::K], S dt, double eps,
                              int ipm_iterations, int newton_iterations,
                              S (&force)[3][Z::K], bool& valid) {
-  ModelParts<S, Z> lp;
-  model_parts_at<S, Z>(desc, p, xin, xp, dt, lp);
-  Problem<S, Z::NV, Z::K> P;
-  model_problem<S, Z>(lp, eps, P);
-  S w[Z::NV];
-  minv_jt<S, Z::NV, Z::K>(P, f_prev, w);
-  valid = warm_hybrid_solve<S, Z::NV, Z::K>(P, ipm_iterations,
-                                            newton_iterations, w, force);
-  return model_loss_assemble<S, Z>(lp, force, valid, S(eps));
+  LaneParts<S, Z, Solo> lane;
+  model_parts_one<S, Z>(desc, p, xin, xp, dt, eps, lane);
+  return lane_loss_warm<S, Z, Solo>(lane, f_prev, eps, ipm_iterations,
+                                    newton_iterations, force, valid, Solo());
 }
 
 }  // namespace

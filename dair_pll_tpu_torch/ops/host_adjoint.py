@@ -394,11 +394,14 @@ class HostAdjoint:
 #: ``model_loss_cold`` and K3's ``model_loss_warm`` of
 #: ``csrc/model_terms.cuh``, K2's reverse-mode ``model_loss_vjp`` of
 #: ``csrc/model_adjoint.cuh``) at every generic size, in float64 and
-#: counted in float32 and float64; and the box cube's
-#: ``cube_loss_cold``/``_warm`` (``cube_terms.cuh``) and ``cube_loss_vjp``
-#: (``cube_adjoint.cuh``) in float64, to hold the generic code against the
-#: cube's.
-MODEL_BATCH = r"""#include <limits>
+#: counted in float32 and float64; K1's and K3's bodies also as the card
+#: runs them, on L = k lanes a sample (``HostLanes``: a thread a lane, a
+#: barrier for the warp's ``__syncwarp``, the slots a shared array); and the
+#: box cube's ``cube_loss_cold``/``_warm`` (``cube_terms.cuh``) and
+#: ``cube_loss_vjp`` (``cube_adjoint.cuh``) in float64, to hold the generic
+#: code against the cube's.
+MODEL_BATCH = r"""#include <atomic>
+#include <limits>
 #include <thread>
 #include <vector>
 
@@ -437,6 +440,99 @@ template <typename B> struct Scalar<Counted<B>> {
 };
 
 enum Kind { kCold = 0, kWarm = 1, kVjp = 2 };
+
+// A barrier of n threads (sense by generation; waiters yield).
+class SpinBarrier {
+ public:
+  explicit SpinBarrier(int n) : n_(n) {}
+  void wait() {
+    const int gen = gen_.load(std::memory_order_acquire);
+    if (arrived_.fetch_add(1, std::memory_order_acq_rel) + 1 == n_) {
+      arrived_.store(0, std::memory_order_relaxed);
+      gen_.store(gen + 1, std::memory_order_release);
+    } else {
+      while (gen_.load(std::memory_order_acquire) == gen)
+        std::this_thread::yield();
+    }
+  }
+
+ private:
+  const int n_;
+  std::atomic<int> arrived_{0}, gen_{0};
+};
+
+// The lanes of one sample as hybrid_solve.cuh's group (WarpLanes on the
+// card): lane l on a thread of its own, sync() a barrier of the L threads.
+template <typename T, int L> struct HostLanes {
+  static constexpr int kLanes = L;
+  T* slots_;
+  SpinBarrier* barrier_;
+  int lane_;
+  int lane() const { return lane_; }
+  T* slots() const { return slots_; }
+  void sync() const { barrier_->wait(); }
+};
+
+// K1's (fin null) or K3's body in float64 over n batch-minor samples as
+// the card's kernels run it at L lanes a sample: the terms of each sample
+// on one thread into the pack, then each lane its contacts' part of the
+// solve and the loss, reading and writing its contacts' impulses (lane 0
+// the loss and valid).
+template <typename Z, int L>
+static void run_lanes(const ModelDesc<Z>& desc, const double* pvec,
+                      const double* xin, const double* xp, const double* fin,
+                      long long n, double dt, double eps, int ipm, int newton,
+                      double* loss, double* force, unsigned char* valid) {
+  constexpr int KL = Z::K / L, K = Z::K, NX = Z::NX, NU = Z::NU;
+  double p[Z::PMAX];
+  for (int i = 0; i < desc.n_params; ++i) p[i] = pvec[i];
+  std::vector<double> pack(kPackValues<Z> * n);
+  for (long long b = 0; b < n; ++b) {
+    double x[NX + NU], x_plus[NX];
+    for (int i = 0; i < NX; ++i) {
+      x[i] = xin[i * n + b];
+      x_plus[i] = xp[i * n + b];
+    }
+    for (int i = 0; i < NU; ++i)
+      x[NX + i] = i < desc.n_u ? xin[(NX + i) * n + b] : 0.0;
+    ModelParts<double, Z> lp;
+    model_parts_at<double, Z>(desc, p, x, x_plus, dt, lp);
+    pack_problem<double, Z>(lp, pack.data() + b, n);
+  }
+  std::vector<double> slots(kLaneSlots<Z::NV, K>);
+  SpinBarrier barrier(L);
+  std::vector<std::thread> pool;
+  for (int lane = 0; lane < L; ++lane)
+    pool.emplace_back([&, lane] {
+      using G = HostLanes<double, L>;
+      const G g{slots.data(), &barrier, lane};
+      for (long long b = 0; b < n; ++b) {
+        LaneParts<double, Z, G> parts;
+        unpack_problem<double, Z, G>(pack.data() + b, n, eps, g, parts);
+        double f_in[3][KL], f[3][KL];
+        bool ok;
+        double l;
+        if (fin == nullptr) {
+          l = lane_loss_cold<double, Z, G>(parts, eps, ipm, newton, f, ok,
+                                           g);
+        } else {
+          for (int i = 0; i < 3; ++i)
+            for (int c = 0; c < KL; ++c)
+              f_in[i][c] = fin[(i * K + lane * KL + c) * n + b];
+          l = lane_loss_warm<double, Z, G>(parts, f_in, eps, ipm, newton, f,
+                                           ok, g);
+        }
+        if (lane == 0) {
+          loss[b] = l;
+          valid[b] = ok ? 1 : 0;
+        }
+        for (int i = 0; i < 3; ++i)
+          for (int c = 0; c < KL; ++c)
+            force[(i * K + lane * KL + c) * n + b] = f[i][c];
+      }
+    });
+  for (std::thread& t : pool) t.join();
+}
 
 // One kind of body over the samples [lo, hi) of n batch-minor ones: the
 // cold or warm loss (fin: the previous impulse) writing loss, force and
@@ -530,6 +626,26 @@ static void count(int kind, const ModelDesc<Z>& desc, const B* pvec,
                            fin, valid_in, ct, n, 0, n, dt, eps, ipm, newton, \
                            loss, force, valid, dp, dxin, dxp);               \
   }                                                                          \
+  extern "C" int model_fwd_lanes_##NAME() { return kFwdLanes<Z>; }          \
+  extern "C" int model_lanes_host_##NAME(                                    \
+      int lanes, const void* desc, const double* pvec, const double* xin,    \
+      const double* xp, const double* fin, long long n, double dt,           \
+      double eps, int ipm, int newton, double* loss, double* force,           \
+      unsigned char* valid) {                                                \
+    const ModelDesc<Z>& d = *(const ModelDesc<Z>*)desc;                      \
+    if (lanes == Z::K) {                                                     \
+      run_lanes<Z, Z::K>(d, pvec, xin, xp, fin, n, dt, eps, ipm, newton,     \
+                         loss, force, valid);                                \
+      return 0;                                                              \
+    }                                                                        \
+    if constexpr (kFwdLanes<Z> > 1 && kFwdLanes<Z> < Z::K)                   \
+      if (lanes == kFwdLanes<Z>) {                                           \
+        run_lanes<Z, kFwdLanes<Z>>(d, pvec, xin, xp, fin, n, dt, eps, ipm,   \
+                                   newton, loss, force, valid);              \
+        return 0;                                                            \
+      }                                                                      \
+    return 1;                                                                \
+  }                                                                          \
   extern "C" void model_count_##NAME##_f32(                                  \
       int kind, const void* desc, const float* pvec, const float* xin,       \
       const float* xp, const float* fin, const unsigned char* valid_in,      \
@@ -586,6 +702,7 @@ extern "C" void cube_host_f64(const double* pvec, const double* xin,
 
 _KINDS = {"cold": 0, "warm": 1, "vjp": 2}
 _HOST_ARGS = [_I, _P] + [_P] * 6 + [_LL, _D, _D, _I, _I] + [_P] * 6
+_LANES_ARGS = [_I] + [_P] * 5 + [_LL, _D, _D, _I, _I] + [_P] * 3
 _COUNT_ARGS = [_I, _P] + [_P] * 6 + [_LL, _D, _D, _I, _I, _I, _P]
 
 
@@ -613,6 +730,9 @@ class HostModelTerms:
                                 _model_batch_source(), "-O1", flags)
         for name in soa_kernels.MODEL_SIZES:
             getattr(self._lib, f"model_host_{name}").argtypes = _HOST_ARGS
+            getattr(self._lib, f"model_lanes_host_{name}").argtypes = \
+                _LANES_ARGS
+            getattr(self._lib, f"model_fwd_lanes_{name}").argtypes = []
             for s in ("f32", "f64"):
                 getattr(self._lib, f"model_count_{name}_{s}").argtypes = \
                     _COUNT_ARGS
@@ -640,21 +760,36 @@ class HostModelTerms:
             return None
         return np.ascontiguousarray(t.detach().cpu().numpy(), dtype=dtype)
 
+    def fwd_lanes(self, model) -> int:
+        """Lanes a sample of the card's K1 and K3 at the model's size
+        (``kFwdLanes`` of ``csrc/model_terms.cuh``)."""
+        return getattr(self._lib, f"model_fwd_lanes_{self._desc(model)[0]}")()
+
     def loss(self, model, pvec: Tensor, xin: Tensor, xp: Tensor, dt: float,
              eps: float, ipm: int, newton: int,
-             fprev: Optional[Tensor] = None) -> Tuple[Tensor, Tensor,
-                                                      Tensor]:
+             fprev: Optional[Tensor] = None,
+             lanes: int = 1) -> Tuple[Tensor, Tensor, Tensor]:
         """K1's body (``fprev`` None) or K3's in float64 over a
-        batch-minor batch: ``(loss (B,), force (3, k, B), valid (B,))``."""
+        batch-minor batch: ``(loss (B,), force (3, k, B), valid (B,))``;
+        one thread a sample, or on ``lanes`` lanes a sample as the card's
+        kernels run them (k, or ``fwd_lanes(model)``)."""
         name, desc = self._desc(model)
         n = xin.shape[1]
         ins = [self._array(t, np.float64) for t in (pvec, xin, xp, fprev)]
         outs = [np.zeros(n), np.zeros((3, model.n_contacts, n)),
                 np.zeros(n, dtype=np.uint8)]
-        getattr(self._lib, f"model_host_{name}")(
-            _KINDS["cold" if fprev is None else "warm"],
-            ctypes.addressof(desc), *[_ptr(a) for a in ins], None, None, n,
-            dt, eps, ipm, newton, *[_ptr(a) for a in outs], None, None, None)
+        if lanes > 1:
+            if getattr(self._lib, f"model_lanes_host_{name}")(
+                    lanes, ctypes.addressof(desc), *[_ptr(a) for a in ins],
+                    n, dt, eps, ipm, newton, *[_ptr(a) for a in outs]):
+                raise ValueError(f"no host build of {lanes} lanes a sample "
+                                 f"at size {name}")
+        else:
+            getattr(self._lib, f"model_host_{name}")(
+                _KINDS["cold" if fprev is None else "warm"],
+                ctypes.addressof(desc), *[_ptr(a) for a in ins], None, None,
+                n, dt, eps, ipm, newton, *[_ptr(a) for a in outs], None,
+                None, None)
         return (torch.from_numpy(outs[0]), torch.from_numpy(outs[1]),
                 torch.from_numpy(outs[2].astype(bool)))
 

@@ -66,6 +66,11 @@ _P, _I, _LL, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _FWD, _FWD_WARM, _BWD = ([_P] * 6 + [_LL, _D, _D, _I, _I, _P],
                          [_P] * 7 + [_LL, _D, _D, _I, _I, _P],
                          [_P] * 10 + [_LL, _D, _D, _P])
+#: The model-generic forward entries: the descriptor's address first, and
+#: after ``valid`` the scratch ``pack`` and its count of values.
+_MODEL_FWD, _MODEL_FWD_WARM = (
+    [_P] * 8 + [_LL, _LL, _D, _D, _I, _I, _P],
+    [_P] * 9 + [_LL, _LL, _D, _D, _I, _I, _P])
 #: ``ctypes`` signatures of the library's entry points: argument types and
 #: return type. Pointers and the stream are ``c_void_p``; the model-generic
 #: loss entries take the model descriptor's address first.
@@ -74,11 +79,15 @@ SIGNATURES = {
        for name in _ENTRY.values()},
     **{name: ([_P] * 5 + [_LL, _D, _I, _I, _P], _I)
        for name in _COLD_ENTRY.values()},
-    **{f"contactnets_loss_{kind}_{model}_{s}": (
-        args if model == "cube" else [_P] + args, _I)
+    **{f"contactnets_loss_{kind}_cube_{s}": (args, _I)
        for kind, args in (("fwd", _FWD), ("fwd_warm", _FWD_WARM),
                           ("bwd", _BWD))
-       for model in ("cube", *MODEL_SIZES) for s in _SUFFIX.values()},
+       for s in _SUFFIX.values()},
+    **{f"contactnets_loss_{kind}_{model}_{s}": (args, _I)
+       for kind, args in (("fwd", _MODEL_FWD),
+                          ("fwd_warm", _MODEL_FWD_WARM),
+                          ("bwd", [_P] + _BWD))
+       for model in MODEL_SIZES for s in _SUFFIX.values()},
     "contactnets_loss_bwd_scratch": ([_LL], _LL),
     "model_loss_bwd_scratch": ([_LL, _I], _LL),
     **{f"apgd_cone_solve_{s}": ([_P] * 3 + [_LL, _I, _I, _P], _I)

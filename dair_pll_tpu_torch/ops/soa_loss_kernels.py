@@ -376,6 +376,22 @@ def _entry(model: MultibodyModel, kind: str, instance: str,
     return fn, (ctypes.addressof(model_descriptor(model)),)
 
 
+def _fwd_scratch(model: MultibodyModel, instance: str, like: Tensor,
+                 B: int):
+    """The scratch a forward entry takes after ``valid``: none for the
+    cube's; for a generic size its ``pack``, the terms each sample's thread
+    hands the sample's lanes (``kPackValues`` of ``csrc/model_terms.cuh``
+    a sample: M, J, qc, phi, dv), and the pack's count of values, which
+    the entry checks. Returns the tensor (kept until the launch is
+    enqueued) and the arguments."""
+    if instance == "cube":
+        return None, ()
+    n_v, k = model.n_v, model.n_contacts
+    n = (n_v * n_v + 3 * n_v * k + 4 * k + n_v) * B
+    pack = torch.empty((n,), dtype=like.dtype, device=like.device)
+    return pack, (pack.data_ptr(), n)
+
+
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
@@ -404,9 +420,10 @@ def fused_loss_fwd(model: MultibodyModel, pvec: Tensor, xin: Tensor,
         return loss, force, valid
     fn, lead = _entry(model, "fwd", instance, pvec.dtype)
     with torch.cuda.device(pvec.device):
+        _pack, scratch = _fwd_scratch(model, instance, pvec, B)
         err = fn(*lead, pvec.data_ptr(), xin.data_ptr(), xp.data_ptr(),
-                 loss.data_ptr(), force.data_ptr(), valid.data_ptr(), B,
-                 float(dt), float(eps), int(ipm_iterations),
+                 loss.data_ptr(), force.data_ptr(), valid.data_ptr(),
+                 *scratch, B, float(dt), float(eps), int(ipm_iterations),
                  int(newton_iterations),
                  torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "ContactNets loss forward (K1)")
@@ -431,9 +448,10 @@ def fused_loss_fwd_warm(model: MultibodyModel, pvec: Tensor, xin: Tensor,
         return loss, force, valid
     fn, lead = _entry(model, "fwd_warm", instance, pvec.dtype)
     with torch.cuda.device(pvec.device):
+        _pack, scratch = _fwd_scratch(model, instance, pvec, B)
         err = fn(*lead, pvec.data_ptr(), xin.data_ptr(), xp.data_ptr(),
                  fprev.data_ptr(), loss.data_ptr(), force.data_ptr(),
-                 valid.data_ptr(), B, float(dt), float(eps),
+                 valid.data_ptr(), *scratch, B, float(dt), float(eps),
                  int(ipm_iterations), int(newton_iterations),
                  torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "ContactNets loss warm forward (K3)")

@@ -1,0 +1,252 @@
+"""The generic forward loss kernels K1 and K3 of one checkout on one card.
+
+For the checkout at ``--tree`` (this one by default):
+
+- ptxas's registers and stack of K1, K3 and K2 at both generic sizes, in
+  float32 and float64 (``chip_smoke.loss_ptxas``);
+- with ``--check``, K1, K3 and K2 against their plain versions on 8,192
+  transitions of the elbow's, the polygon elbow's and the polygon cube's
+  own rollouts (``chip_smoke.compare_loss_kernels``, whose float64 bars
+  raise);
+- K1's and K3's times on the elbow's 2,097,152 training transitions
+  (``chip_smoke.elbow_train_transitions``, initial parameters) at every
+  (ipm, newton) budget of ``chip_smoke.SOLVE_BUDGETS`` in float32 and at
+  the training budgets in float64, and on the polygon cube's 262,144
+  (``chip_smoke.train_transitions``) at the training budgets in both
+  types;
+- with ``--solves``, the hybrid solve kernels that share the solve's
+  source, K5 and K4 at (n_v, k) = (6, 4) and (7, 8), timed in both types
+  on the QPs of the box cube's and the elbow's fused rollouts
+  (``chip_smoke.rollout_qps``): K5 on 8,192, K4 on 65,536.
+
+The data, checks and timing are this checkout's ``chip_smoke.py``; the
+package, and so the kernels' sources, are the ``--tree``'s, built under its
+``build/kernels``. ``--variant NAME`` measures instead a copy of the
+tree's package under ``build/lane_probe/NAME/`` with the source edits of
+``VARIANTS[NAME]``, designs the shipped kernels were measured against. To
+compare two checkouts on one card, unpack the other into a directory
+``.gitignore`` lists and run both in turns in one call:
+
+    python3 scripts/probe_loss_lanes.py --tree committed_tree/parent \\
+        --label parent --check
+    python3 scripts/probe_loss_lanes.py --label change --check
+
+Needs one CUDA card and ``nvcc``. Prints one JSON line and appends it to
+``chiprun_out/probe_loss_lanes.jsonl``.
+"""
+import argparse
+import importlib.util
+import json
+import os
+import shutil
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+#: QPs K4 is timed on with ``--solves`` (K5 on ``chip_smoke.B``).
+SOLVE_K4_B = 65536
+#: Other designs of the generic K1/K3, as edits (file under ``csrc/``, old
+#: text, new text) of the shipped sources.
+VARIANTS = {
+    # One lane a contact at the elbow's size (8 lanes a sample).
+    "lanes8": [("model_terms.cuh",
+                "constexpr int kFwdLanes = Z::K > 4 ? Z::K / 2 : 1;",
+                "constexpr int kFwdLanes = Z::K > 4 ? Z::K : 1;")],
+    # Two contacts a lane at the polygon cube's size too.
+    "polygon_lanes2": [("model_terms.cuh",
+                        "constexpr int kFwdLanes = Z::K > 4 ? Z::K / 2 : 1;",
+                        "constexpr int kFwdLanes = Z::K / 2;")],
+    # The lanes' kernels held to 6 blocks a multiprocessor (168 registers,
+    # 12 warps against 8 at 255).
+    "min_blocks6": [
+        ("model_loss.cuh",
+         "__launch_bounds__(kModelThreads) model_loss_fwd_lanes_kernel(",
+         "__launch_bounds__(kModelThreads, 6) model_loss_fwd_lanes_kernel("),
+        ("model_loss.cuh",
+         "__launch_bounds__(kModelThreads)\nmodel_loss_fwd_warm_lanes_kernel(",
+         "__launch_bounds__(kModelThreads, 6)\n"
+         "model_loss_fwd_warm_lanes_kernel(")],
+    # Sums of more than two rows (the Schur and Newton matrices' 28
+    # entries among them) folded in place on every lane from warp
+    # shuffles, in place of shared memory with one lane a row.
+    "rows_by_shuffle": [
+        ("hybrid_solve.cuh",
+         "  __device__ void sync() const { __syncwarp(mask_); }\n};",
+         "  __device__ void sync() const { __syncwarp(mask_); }\n"
+         "  __device__ T shfl(T v, int lane) const {\n"
+         "    return __shfl_sync(mask_, v, threadIdx.x % 32 - lane_ + lane);\n"
+         "  }\n};"),
+        ("hybrid_solve.cuh",
+         "  } else {\n    constexpr int K = KL * G::kLanes, W = K + 1;",
+         "  } else if constexpr (N > 2) {\n"
+         "#pragma unroll\n"
+         "    for (int n = 0; n < N; ++n) {\n"
+         "      T acc = g.shfl(t[n][0], 0);\n"
+         "#pragma unroll\n"
+         "      for (int c = 1; c < KL * G::kLanes; ++c)\n"
+         "        acc = acc + g.shfl(t[n][c % KL], c / KL);\n"
+         "      out[n] = acc;\n"
+         "    }\n"
+         "  } else {\n    constexpr int K = KL * G::kLanes, W = K + 1;")],
+}
+
+
+def variant_tree(tree: str, name: str) -> str:
+    """A copy of ``tree``'s package under ``build/lane_probe/<name>/`` with
+    the edits of ``VARIANTS[name]``; returns the copy's root."""
+    root = os.path.join(ROOT, "build", "lane_probe", name)
+    package = os.path.join(root, "dair_pll_tpu_torch")
+    shutil.rmtree(package, ignore_errors=True)
+    shutil.copytree(os.path.join(tree, "dair_pll_tpu_torch"), package,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for source, old, new in VARIANTS[name]:
+        path = os.path.join(package, "csrc", source)
+        with open(path) as handle:
+            text = handle.read()
+        if text.count(old) != 1:
+            raise RuntimeError(f"variant {name}: {source} does not hold "
+                               f"{old!r} once")
+        with open(path, "w") as handle:
+            handle.write(text.replace(old, new))
+    return root
+
+
+def solve_times(cs, elbow) -> dict:
+    """K5 and K4 at (6, 4) (the box cube) and (7, 8) (the elbow) on the
+    QPs of their fused rollouts at the initial parameters, in ms, float32
+    and float64: K5 on 8,192 QPs at the rollout's budget, K4 on 65,536 at
+    the cold loss's."""
+    import numpy as np
+    import torch
+    from dair_pll_tpu_torch import assets
+    from dair_pll_tpu_torch.multibody.learnable_system import (
+        MultibodyLearnableSystem)
+    from dair_pll_tpu_torch.ops import soa_kernels
+    cube = MultibodyLearnableSystem.from_urdfs(
+        {"cube": assets.get_asset("cube")}, cs.DT)
+    out = {}
+    for shape, system, states in (
+            ("nv6_k4", cube, lambda n: torch.tensor(
+                assets.cube_states_near_ground(np.random.default_rng(0), n),
+                dtype=torch.float64, device=cube.device)),
+            ("nv7_k8", elbow, lambda n: cs.states_near_ground(elbow, n, 4))):
+        params = system.initial_params(torch.float64)
+        for name, n, kernel, args in (
+                ("K5", cs.B, soa_kernels.solve_warm_hybrid_soa_cuda_packed,
+                 lambda q: (*q, cs.EPS, *cs.BUDGET)),
+                ("K4", SOLVE_K4_B,
+                 soa_kernels.solve_contact_impulse_soa_cuda_packed,
+                 lambda q: (*q[:3], cs.LOSS_EPS, *cs.COLD_BUDGET))):
+            q64 = cs.rollout_qps(system, params, states(n))
+            for dtype in (torch.float32, torch.float64):
+                q = tuple(t.to(dtype) for t in q64)
+                with torch.no_grad():
+                    out[f"{name}_{shape}_{str(dtype).split('.')[1]}"] = \
+                        cs.cuda_ms(lambda: kernel(*args(q)), 5)
+            del q64, q
+            torch.cuda.empty_cache()
+    return out
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--tree", default=ROOT,
+                        help="checkout whose package and kernels to measure")
+    parser.add_argument("--label", default="change")
+    parser.add_argument("--check", action="store_true",
+                        help="hold the kernels against their plain versions")
+    parser.add_argument("--solves", action="store_true",
+                        help="time K5 and K4 at both shapes too")
+    parser.add_argument("--variant", choices=sorted(VARIANTS),
+                        help="measure the tree with this design's edits")
+    args = parser.parse_args()
+    tree = os.path.abspath(args.tree)
+    if args.variant:
+        tree = variant_tree(tree, args.variant)
+    sys.path.insert(0, tree)
+    import torch
+    if not torch.cuda.is_available():
+        print("probe_loss_lanes: no CUDA device is available",
+              file=sys.stderr)
+        return 2
+    import dair_pll_tpu_torch
+    found = os.path.dirname(os.path.dirname(
+        os.path.abspath(dair_pll_tpu_torch.__file__)))
+    if found != tree:
+        raise RuntimeError(f"the package came from {found}, not {tree}")
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from dair_pll_tpu_torch import assets
+    from dair_pll_tpu_torch.multibody.learnable_system import (
+        MultibodyLearnableSystem)
+    from dair_pll_tpu_torch.ops import soa_kernels
+    from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
+
+    out = {"label": args.label, "tree": tree, "variant": args.variant,
+           "nvidia_smi": cs.phase_device()}
+    t0 = time.perf_counter()
+    soa_kernels.load_library()
+    out["build_seconds"] = time.perf_counter() - t0
+    out["ptxas"] = {size: cs.loss_ptxas(size) for size in ("b1", "b2")}
+
+    systems = {"elbow": cs.elbow_system(),
+               "elbow_polygon": cs.elbow_system(
+                   "elbow_mesh", mesh_representation="polygon"),
+               "cube_polygon": MultibodyLearnableSystem.from_urdfs(
+                   {"cube": assets.get_asset("cube_mesh")}, cs.DT,
+                   mesh_representation="polygon")}
+    if args.check:
+        out["vs_plain"] = {}
+        for i, (name, system) in enumerate(systems.items()):
+            x0 = cs.states_near_ground(system, cs.B, 6 + i)
+            out["vs_plain"][name] = cs.compare_loss_kernels(
+                system, *cs.model_transitions(system, x0))[0]
+
+    def training_budgets(model, pvec, xin, xp, fprev, dtype) -> dict:
+        args = [t.to(dtype) for t in (pvec, xin, xp, fprev)]
+        return {
+            "K1": cs.cuda_ms(lambda: lk.fused_loss_fwd(
+                model, *args[:3], cs.DT, cs.LOSS_EPS, *cs.COLD_BUDGET), 3,
+                warmup=1),
+            "K3": cs.cuda_ms(lambda: lk.fused_loss_fwd_warm(
+                model, *args, cs.DT, cs.LOSS_EPS, *cs.WARM_BUDGET), 3,
+                warmup=1)}
+
+    for name, n, transitions in (
+            ("elbow", cs.ELBOW_TRAIN_B, cs.elbow_train_transitions),
+            ("cube_polygon", cs.POLYGON_TRAIN_B, cs.train_transitions)):
+        system = systems[name]
+        x, x_plus = transitions(n, system.device)
+        xin, xp = x.T.contiguous(), x_plus.T.contiguous()
+        del x, x_plus
+        pvec = cs.derived_vector(system, system.initial_params(torch.float32))
+        fprev = lk.fused_loss_fwd(system.model, pvec, xin, xp, cs.DT,
+                                  cs.LOSS_EPS, *cs.COLD_BUDGET)[1]
+        timing = {"B": n}
+        if name == "elbow":
+            timing["budgets"] = cs.budget_timing(system.model, pvec, xin, xp,
+                                                 fprev, reps=3)
+        for dtype in (torch.float32, torch.float64):
+            timing[str(dtype).split(".")[1]] = training_budgets(
+                system.model, pvec, xin, xp, fprev, dtype)
+        out[f"timing_{name}"] = timing
+        del xin, xp, fprev
+        torch.cuda.empty_cache()
+
+    if args.solves:
+        out["solves"] = solve_times(cs, systems["elbow"])
+
+    line = json.dumps(out)
+    print(line, flush=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "probe_loss_lanes.jsonl"),
+              "a") as sink:
+        sink.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

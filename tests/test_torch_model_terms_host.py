@@ -13,16 +13,26 @@ equal valid masks), and K2's gradient, each sample's and the batch's,
 within rtol 1e-10 (atol 1e-14) of torch autograd (``plain_loss_bwd``): at
 the solved impulses, at random ones, and on edge cases (failed solves, a
 witness at phi exactly 0, penetrating witnesses, contacts at rest, tied
-support values). On the box cube, at the polygon cube's size, the generic
-forward equals ``cube_terms.cuh``'s bit for bit and the generic gradient
-``cube_adjoint.cuh``'s within 1e-12. Last, the counting build (``Counted``
+support values). K1's and K3's bodies also as the card runs them, on k
+lanes a sample (``HostModelTerms.loss(..., lanes=True)``: a thread a lane,
+the lanes' sums over contacts exchanged through shared slots at a
+barrier): equal bit for bit to the one-thread bodies, and to the plain
+versions once those take their float64 square roots, sines and cosines
+from the C library as the host build does (torch's vectorised CPU
+functions round some 1% of square roots and 0.2% of sines differently;
+on the card both sides use CUDA's). On the box cube, at the polygon cube's
+size, the generic forward equals ``cube_terms.cuh``'s bit for bit and the
+generic gradient ``cube_adjoint.cuh``'s within 1e-12. Last, the counting
+build (``Counted``
 in float32 and float64), which gives the generic kernels' rows their
 bounds in ``chip_smoke.py``: its counts add up over samples and threads,
 an invalid sample's gradient counts nothing, and K2's sweep counts fewer
 operations than torch autograd's, the forward terms it recomputes counted
 apart. The test computes nothing with JAX and skips without ``g++``.
 """
+import contextlib
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -89,6 +99,75 @@ def _inputs(name: str, urdf_dir: str):
     return model, pvec, xin, xp, force, valid, ct
 
 
+def _library(fn, x):
+    return torch.tensor([fn(v) for v in x.detach().flatten().tolist()],
+                        dtype=x.dtype).reshape(x.shape)
+
+
+class _LibrarySin(torch.autograd.Function):
+    """``sin`` from the C library, with torch's forward-mode rule (the
+    plain terms take the kinematics' rates with ``torch.func.jvp``)."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return _library(math.sin, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(inputs[0])
+
+    @staticmethod
+    def jvp(ctx, t):
+        return t * _library(math.cos, ctx.saved_tensors[0])
+
+
+class _LibraryCos(torch.autograd.Function):
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return _library(math.cos, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(inputs[0])
+
+    @staticmethod
+    def jvp(ctx, t):
+        return t * -_library(math.sin, ctx.saved_tensors[0])
+
+
+@contextlib.contextmanager
+def _library_math():
+    """Float64 ``sqrt``, ``rsqrt`` (as 1 / sqrt), ``sin`` and ``cos`` from
+    the C library, as the host build computes them, in place of torch's
+    (``torch.*`` and the tensor methods) while the block runs."""
+    library = {
+        "sqrt": lambda x: torch.from_numpy(np.sqrt(x.detach().numpy())),
+        "rsqrt": lambda x: torch.from_numpy(1.0 / np.sqrt(
+            x.detach().numpy())),
+        "sin": _LibrarySin.apply,
+        "cos": _LibraryCos.apply}
+    saved = [(owner, name, getattr(owner, name))
+             for owner in (torch, torch.Tensor) for name in library]
+
+    def routed(name, torch_fn):
+        def fn(x, *args, **kwargs):
+            if x.dtype == torch.float64 and not args and not kwargs:
+                return library[name](x)
+            return torch_fn(x, *args, **kwargs)
+        return fn
+
+    for owner, name, torch_fn in saved:
+        setattr(owner, name, routed(name, torch_fn))
+    try:
+        yield
+    finally:
+        for owner, name, torch_fn in saved:
+            setattr(owner, name, torch_fn)
+
+
 def _assert_close(got, want, rtol, atol, what):
     err = (got - want).abs()
     assert bool((err <= atol + rtol * want.abs()).all()), (
@@ -149,6 +228,70 @@ def test_loss_matches_plain_version(host, urdf_dir, name, kind):
     _assert_close(got[1], want[1], 0.0, FORCE_ATOL, "impulse")
     assert torch.equal(got[2], want[2]) and bool(want[2].all())
     assert want[1][0].amax(dim=0).gt(1e-6).float().mean() > 0.5
+
+
+_LANE_INPUTS = {"parity": lambda name, urdf_dir: _inputs(name, urdf_dir),
+                "edge": lambda name, urdf_dir: _edge_inputs(name, urdf_dir)}
+
+
+def _lane_case(host, urdf_dir, name, inputs, kind):
+    """``(model, pvec, xin, xp, budget, fprev)`` of one lane case: the
+    parity or edge inputs, cold, or warm from their impulses."""
+    model, pvec, xin, xp, force, _, _ = _LANE_INPUTS[inputs](name, urdf_dir)
+    if kind == "cold":
+        return model, pvec, xin, xp, COLD_BUDGET, None
+    return model, pvec, xin, xp, WARM_BUDGET, force
+
+
+@pytest.mark.parametrize("inputs", sorted(_LANE_INPUTS))
+@pytest.mark.parametrize("kind", ["cold", "warm"])
+@pytest.mark.parametrize("name", sorted(KERNEL_MODELS))
+def test_lane_bodies_match_plain_bit_for_bit(host, urdf_dir, name, kind,
+                                             inputs):
+    """K1's and K3's bodies on k lanes a sample, as the card's kernels run
+    them, against ``plain_loss_fwd`` and ``plain_loss_fwd_warm`` with the
+    C library's float64 square roots, sines and cosines: the loss, the
+    impulses and the valid mask bit for bit, on the parity inputs and on
+    the edge cases (phi exactly 0, penetration, rest, ties across the
+    sort's cut; warm from random impulses)."""
+    model, pvec, xin, xp, budget, fprev = _lane_case(host, urdf_dir, name,
+                                                     inputs, kind)
+    got = host.loss(model, pvec, xin, xp, DT, LOSS_EPS, *budget,
+                    fprev=fprev, lanes=model.n_contacts)
+    with _library_math():
+        if fprev is None:
+            want = lk.plain_loss_fwd(model, pvec, xin, xp, DT, LOSS_EPS,
+                                     *budget)
+        else:
+            want = lk.plain_loss_fwd_warm(model, pvec, xin, xp, fprev, DT,
+                                          LOSS_EPS, *budget)
+    for what, a, b in zip(("loss", "impulse", "valid"), got, want):
+        assert torch.equal(a, b), (
+            f"{what}: max abs difference "
+            f"{(a.double() - b.double()).abs().max().item():.3e}")
+    assert want[1].abs().max() > 0
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_MODELS))
+def test_lane_bodies_equal_one_thread_bodies(host, urdf_dir, name):
+    """The same bodies on one thread a sample (L = 1), on k lanes (L = k)
+    and on the card's lanes at the model's size (``fwd_lanes``) give the
+    same bits on the same inputs: cold and warm, parity and edge
+    inputs."""
+    model = _inputs(name, urdf_dir)[0]
+    counts = sorted({model.n_contacts, host.fwd_lanes(model)} - {1})
+    assert counts and all(model.n_contacts % n == 0 for n in counts)
+    for inputs in sorted(_LANE_INPUTS):
+        for kind in ("cold", "warm"):
+            model, pvec, xin, xp, budget, fprev = _lane_case(
+                host, urdf_dir, name, inputs, kind)
+            one = host.loss(model, pvec, xin, xp, DT, LOSS_EPS, *budget,
+                            fprev=fprev)
+            for lanes in counts:
+                got = host.loss(model, pvec, xin, xp, DT, LOSS_EPS, *budget,
+                                fprev=fprev, lanes=lanes)
+                for a, b in zip(one, got):
+                    assert torch.equal(a, b), (name, inputs, kind, lanes)
 
 
 @pytest.mark.parametrize("name", sorted(KERNEL_MODELS))
