@@ -82,9 +82,12 @@ slower (PERF.md).
    version's. Then their times at the training shape (float32, 2,097,152
    samples; K2, one reverse-mode adjoint sweep per sample, also in
    float64, with ptxas's register and spill lines for its kernel), the
-   plain versions' at 8,192, and their bounds (K2's from the operations
-   its own sweep needs on this batch, counted on the host with ``g++``'s
-   build of the same code). Then the
+   plain versions' at 8,192, and their bounds from the operations their
+   own code needs on this batch, counted on the host with ``g++``'s build
+   of the same code (K1's and K3's on the first COUNT_B samples, scaled);
+   K1 and K3 also in float64 and at each budget of SOLVE_BUDGETS, with the
+   split into the terms, an IPM and a Newton iteration, and ptxas's lines
+   of the three in both types. Then the
    three kernels at the training shape against their plain versions run
    over chunks of the batch, K2 with the mean's cotangent 1/B.
 10. Training: ``bench.py``'s workload on the card, float32, 2,097,152 cube
@@ -100,8 +103,11 @@ slower (PERF.md).
    the elbow's (n_v, k) = (7, 8) against their plain versions (K5 on
    8,192 QPs of the elbow's float64 rollout near the ground at (14, 6),
    K4 on 8,192 of the ICNN elbow's cold loss QPs at (10, 10)), float64
-   within TOL64 (1 + |plain|) with equal masks, float32 by the K5 rule,
-   with K5's times and bound at 8,192 and ptxas's lines; the elbow's
+   within TOL64 (1 + |plain|) with equal masks (K5, on 4 lanes a QP, bit
+   for bit), float32 by the K5 rule, with K5's times at 8,192 and its
+   bound in both types from the operations its own body needs on these
+   QPs (counted on the host), the share of QPs with contact, and ptxas's
+   lines for both in both types; the elbow's
    rollout of 8,192 trajectories x 120 steps in float32 with K5's
    launches (float32 trajectories that leave the finite numbers, at most
    ELBOW_DIVERGED_SHARE, are rerun in float64 and must stay finite) and
@@ -135,6 +141,7 @@ one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -266,6 +273,11 @@ SOLVE_BUDGETS = ((0, 0), (4, 0), (10, 0), (4, 10), (10, 10))
 FWD_DESIGN = {"b2_q8_v7_k8": "terms on one thread a sample, then the solve "
                              "on 4 lanes a sample (two contacts a lane)",
               "b1_q7_v6_k4": "one thread a sample"}
+#: The box cube's K1 and K3 (``csrc/contactnets_loss.cu``).
+CUBE_FWD_DESIGN = "one thread a sample"
+#: K5's design at the elbow's (n_v, k) = (7, 8) (``kWarmLanes`` of
+#: ``csrc/hybrid_solve.cuh``).
+K5_DESIGN = "4 lanes a QP (two contacts a lane), 64-thread blocks"
 #: H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
@@ -383,8 +395,14 @@ def ptxas_lines(source: str, kernel: str = "") -> list:
     float32 instantiation)."""
     from dair_pll_tpu_torch.ops import soa_kernels
     section = soa_kernels.build_log().partition(f"== {source}")[2]
+    return ptxas_of(section.partition("\n== ")[0], kernel)
+
+
+def ptxas_of(log: str, kernel: str = "") -> list:
+    """ptxas's register and spill lines in one ``nvcc`` log, of every
+    entry function or of those whose names contain ``kernel``."""
     lines, keep = [], not kernel
-    for line in section.partition("\n== ")[0].splitlines():
+    for line in log.splitlines():
         if kernel and "Compiling entry function" in line:
             keep = kernel in line
         if keep and ("registers" in line or "spill" in line):
@@ -774,11 +792,16 @@ def compare_loss_kernels(system, x64, xp64):
 
 def phase_loss_timing(system, transitions, x_train, xp_train):
     """K1, K3 and K2 at the training shape (float32), the plain versions
-    at 8,192, and each kernel's bound: K1's and K3's operations counted on
-    their plain versions, K2's on its own sweep over this batch (built for
-    the host, ``ops/host_adjoint.py``), with the batch's valid share. K2
-    also in float64, with its bound at the float64 peak, and ptxas's lines
-    for K2's kernel."""
+    at 8,192, and each kernel's bound from the operations its own code
+    needs: K1's and K3's (``cube_terms.cuh`` with ``hybrid_solve.cuh``)
+    counted on the first COUNT_B samples of this batch and scaled, K2's
+    (its sweep, ``cube_adjoint.cuh``) over the whole batch, both by the
+    host builds of ``ops/host_adjoint.py``, beside the plain versions'
+    counts. K1, K3 and K2 also in float64, with their bounds at the
+    float64 peak; K1's and K3's times at each (ipm, newton) budget of
+    SOLVE_BUDGETS with the split into the terms, an IPM and a Newton
+    iteration (``budget_timing``); ptxas's lines for the three kernels in
+    both types."""
     import torch
     from dair_pll_tpu_torch.ops import host_adjoint
     from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
@@ -828,6 +851,47 @@ def phase_loss_timing(system, transitions, x_train, xp_train):
             "bytes_ms": bytes_ms, "operations_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    # K1's and K3's operations: what their own bodies need on this batch's
+    # first COUNT_B samples (K3 warm-started from K1's impulses, as timed),
+    # counted by the same code on the host and scaled; the plain versions'
+    # counts stay beside them.
+    host_terms = host_model_terms()
+    cols = slice(0, min(COUNT_B, n_train))
+    scale = n_train / (cols.stop - cols.start)
+    t0 = time.perf_counter()
+    for name, kind, budget in (("K1", "cold", COLD_BUDGET),
+                               ("K3", "warm", WARM_BUDGET)):
+        entry = result[name]
+        for dtype in ("float32", "float64"):
+            args = [t.to(getattr(torch, dtype)) for t in (
+                pvec, xin_t[:, cols], xp_t[:, cols], cold[1][..., cols])]
+            c = host_terms.cube_count(kind, *args[:3],
+                                      args[3] if kind == "warm" else None,
+                                      DT, LOSS_EPS, *budget,
+                                      threads=os.cpu_count() or 1)
+            ops = c["needed"] * scale
+            ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
+            if dtype == "float32":
+                entry.update({
+                    "operations_plain": entry["operations"],
+                    "operations_plain_per_sample":
+                        entry["operations_per_sample"],
+                    "operations": ops, "operations_per_sample": ops / n_train,
+                    "operations_executed": c["executed"] * scale,
+                    "count_B": cols.stop, "operations_ms": ops_ms,
+                    "bound_ms": max(entry["bytes_ms"], ops_ms),
+                    "bound_by": ("bytes" if entry["bytes_ms"] >= ops_ms
+                                 else "operations")})
+            else:
+                # Every value in 8 bytes but the valid mask's byte a sample.
+                bytes_ms = (2 * entry["bytes"] - n_train) / \
+                    HBM_BYTES_PER_S * 1e3
+                entry.update({
+                    "operations_float64": ops,
+                    "bound_ms_float64": max(bytes_ms, ops_ms),
+                    "bound_by_float64": ("bytes" if bytes_ms >= ops_ms
+                                         else "operations")})
+    result["K3"]["count_seconds"] = time.perf_counter() - t0
     # K2's operations are not its plain version's (torch autograd's dense
     # algebra over the structural zeros and ones of Jw = [R | 0] and Jv =
     # [0 | I]): they are what its sweep needs on this run's data, counted by
@@ -872,9 +936,21 @@ def phase_loss_timing(system, transitions, x_train, xp_train):
     k2["bound_ms_float64"] = max(bytes64_ms, ops64_ms)
     k2["bound_by_float64"] = ("bytes" if bytes64_ms >= ops64_ms
                               else "operations")
-    k2["ptxas"] = ptxas_lines("contactnets_loss.cu",
-                              "contactnets_loss_bwd_kernel")
+    for name, fn in (("K1", lambda: lk.fused_loss_fwd(
+            model, p_d, xin_d, xp_d, DT, LOSS_EPS, *COLD_BUDGET)),
+                     ("K3", lambda: lk.fused_loss_fwd_warm(
+                         model, p_d, xin_d, xp_d, force_d, DT, LOSS_EPS,
+                         *WARM_BUDGET))):
+        result[name]["ms_float64"] = cuda_ms(fn, reps=5)
     del p_d, xin_d, xp_d, force_d, ct_d
+    result["budgets"] = budget_timing(model, pvec, xin_t, xp_t, cold[1],
+                                      reps=3)
+    for name, kernel in (("K1", "contactnets_loss_fwd_kernel"),
+                         ("K3", "contactnets_loss_fwd_warm_kernel"),
+                         ("K2", "contactnets_loss_bwd_kernel")):
+        for key, mangled in (("ptxas", "If"), ("ptxas_float64", "Id")):
+            result[name][key] = ptxas_lines("contactnets_loss.cu",
+                                            kernel + mangled)
     emit({"phase": "loss_kernel_timing", "B": n_train, "dtype": "float32",
           **result})
     return result
@@ -2058,10 +2134,14 @@ def elbow_train_transitions(n: int, device):
             torch.tensor(x_plus, device=device))
 
 
-def solve_timing(kernel, plain, qps32, args, n_result) -> dict:
+def solve_timing(kernel, plain, qps32, args, n_result, count=None) -> dict:
     """A solve kernel's times on float32 QPs (and the same cast to
     float64), its plain version's, and its bound: the bytes it moves and
-    the operations its plain version counts."""
+    the operations its plain version counts, or, with ``count`` (QPs ->
+    ``{"needed": ...}``, the kernel's own body counted on the host), the
+    operations its own code needs on these QPs in each type (the plain
+    version's count then beside them as ``operations_plain``), with a
+    float64 bound of its own."""
     import torch
     from dair_pll_tpu_torch.ops.host_adjoint import count_torch_operations
     qps64 = tuple(t.double() for t in qps32)
@@ -2071,16 +2151,32 @@ def solve_timing(kernel, plain, qps32, args, n_result) -> dict:
         result = kernel(*qps32, *args)
         plain_ms = cuda_ms(lambda: plain(*qps32, *args), reps=3, warmup=1)
         ops = count_torch_operations(lambda: plain(*qps32, *args))
+    n = qps32[0].shape[-1]
     n_bytes = sum(t.numel() * t.element_size()
                   for t in qps32 + tuple(result[:n_result]))
+    out = {"ms": ms, "ms_float64": ms64, "plain_ms": plain_ms,
+           "bytes": n_bytes}
+    if count is not None:
+        t0 = time.perf_counter()
+        own = {dtype: count(tuple(t.cpu() for t in qps))["needed"]
+               for dtype, qps in (("float32", qps32), ("float64", qps64))}
+        out.update({"operations_plain": ops,
+                     "operations_plain_per_sample": ops / n,
+                     "operations_float64": own["float64"],
+                     "count_seconds": time.perf_counter() - t0})
+        ops = own["float32"]
+        bytes64_ms = 2 * n_bytes / HBM_BYTES_PER_S * 1e3
+        ops64_ms = own["float64"] / PEAK_OPS_PER_S["float64"] * 1e3
+        out.update({"bound_ms_float64": max(bytes64_ms, ops64_ms),
+                    "bound_by_float64": ("bytes" if bytes64_ms >= ops64_ms
+                                         else "operations")})
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_OPS_PER_S["float32"] * 1e3
-    return {"ms": ms, "ms_float64": ms64, "plain_ms": plain_ms,
-            "bytes": n_bytes, "operations": ops,
-            "operations_per_sample": ops / qps32[0].shape[-1],
-            "bytes_ms": bytes_ms, "operations_ms": ops_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    out.update({"operations": ops, "operations_per_sample": ops / n,
+                "bytes_ms": bytes_ms, "operations_ms": ops_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+    return out
 
 
 def phase_elbow_kernel(system, icnn_system, x0_64, x0_icnn):
@@ -2089,9 +2185,12 @@ def phase_elbow_kernel(system, icnn_system, x0_64, x0_icnn):
     near the ground at the rollout budget (14, 6), eps 1e-4; K4 on the
     ICNN elbow's cold loss QPs of its own rollout, (10, 10), eps 1e-3.
     Float64 within TOL64 (1 + |plain|) with equal valid masks, float32 by
-    the K5 rule. K5's times at 8,192 in both types and its bound (K4's
-    are taken at its main path's shape, ``phase_elbow_icnn_loss``);
-    ptxas's lines."""
+    the K5 rule; K5 (on lanes, K5_DESIGN) float64 also bit for bit. The
+    share of QPs with any impulse. K5's times at 8,192 in both types and
+    its bound in each type from the operations its own body
+    (``warm_solve_packed``) needs on these QPs, counted by the host build
+    (K4's are taken at its main path's shape, ``phase_elbow_icnn_loss``);
+    ptxas's lines of both in float32 and float64."""
     import torch
     from dair_pll_tpu_torch.ops import soa_kernels
     warm = soa_kernels.solve_warm_hybrid_soa_cuda_packed
@@ -2118,6 +2217,10 @@ def phase_elbow_kernel(system, icnn_system, x0_64, x0_icnn):
                                   p64[i]) for i in range(n_out))
         if not torch.equal(k64[-1], p64[-1]):
             raise AssertionError(f"float64 {name} (7, 8) valid masks differ")
+        if name == "K5" and not all(torch.equal(k64[i], p64[i])
+                                    for i in range(n_out)):
+            raise AssertionError("float64 K5 (7, 8) on lanes is not the "
+                                 "plain version's bit for bit")
         tail, _ = float32_tails(k32, p32, p64)
         err32 = max((k32[i] - p32[i]).abs().max().item()
                     for i in range(n_out))
@@ -2126,11 +2229,21 @@ def phase_elbow_kernel(system, icnn_system, x0_64, x0_icnn):
                          torch.equal(k64[i], p64[i]) for i in range(n_out)),
                      "float32_tails": tail,
                      "valid_share": k32[-1].float().mean().item(),
-                     "max_abs_impulse": p64[0].abs().max().item()}
+                     "max_abs_impulse": p64[0].abs().max().item(),
+                     "active_share": p64[0].abs().amax(dim=(0, 1)).gt(0)
+                     .float().mean().item()}
         if name == "K5":
-            out[name].update(solve_timing(kernel, plain, q32, args, 2))
-    out["K5"]["ptxas"] = ptxas_lines("warm_hybrid_solve.cu", "ILi7ELi8E")
-    out["K4"]["ptxas"] = ptxas_lines("cold_hybrid_solve.cu", "ILi7ELi8E")
+            out[name].update(solve_timing(
+                kernel, plain, q32, args, 2,
+                count=lambda q: host_model_terms().warm_solve_count(
+                    *q, *args, threads=os.cpu_count() or 1)))
+    for name, source, kernel in (
+            ("K5", "warm_hybrid_solve.cu", "warm_hybrid_solve_kernel"),
+            ("K4", "cold_hybrid_solve.cu", "cold_hybrid_solve_kernel")):
+        for key, mangled in (("ptxas", "IfLi7ELi8E"),
+                             ("ptxas_float64", "IdLi7ELi8E")):
+            out[name][key] = ptxas_lines(source, kernel + mangled)
+    out["K5"]["design"] = K5_DESIGN
     emit({"phase": "elbow_kernel_vs_plain", "B": B, **out})
     return out
 
@@ -2333,6 +2446,15 @@ def phase_elbow_loss_kernels(systems: dict, x0s: dict):
     return out, inputs
 
 
+@functools.lru_cache(maxsize=None)
+def host_model_terms():
+    """The host build of the loss kernels' forward bodies and their counts
+    (``host_adjoint.HostModelTerms``), once a run."""
+    from dair_pll_tpu_torch.ops import host_adjoint
+    return host_adjoint.HostModelTerms(os.path.join(HERE, "build",
+                                                    "host_model_terms"))
+
+
 def host_counts(model, pvec, xin, xp, force, valid, ct, fprev) -> dict:
     """Operations the generic K1, K3 and K2 need on the first COUNT_B
     samples of a batch, scaled to the batch: ``{"K1": ..., "K3": ...,
@@ -2347,8 +2469,7 @@ def host_counts(model, pvec, xin, xp, force, valid, ct, fprev) -> dict:
     second time's count (K2's only), in ``"executed"``."""
     from dair_pll_tpu_torch.ops import host_adjoint
     from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
-    host = host_adjoint.HostModelTerms(os.path.join(HERE, "build",
-                                                    "host_model_terms"))
+    host = host_model_terms()
     n = xin.shape[1]
     cols = slice(0, min(COUNT_B, n))
     sub = [t[..., cols] for t in (xin, xp, force, valid, ct, fprev)]
@@ -2481,7 +2602,8 @@ def generic_loss_timing(system, pvec, xin_t, xp_t, small, reps: int,
 
 
 def budget_timing(model, pvec, xin, xp, fprev, reps: int) -> dict:
-    """The generic K1 and K3 on one batch at each (ipm, newton) budget of
+    """K1 and K3 (the box cube's, or the generic ones) on one batch at
+    each (ipm, newton) budget of
     SOLVE_BUDGETS (K3 warm-started from ``fprev``), in ms, and each one's
     time split into the terms and assembly (the (0, 0) budget), an IPM
     iteration (((10, 0) - (0, 0)) / 10) and a Newton iteration (((10, 10)
@@ -2755,9 +2877,9 @@ def main() -> int:
             "max_abs_err": loss_errors[name]["max_abs_err"],
             "max_abs_err_float64": loss_errors[name]["max_abs_err_float64"],
             "ms": loss_times[name]["ms"],
-            **({"ms_float64": loss_times[name]["ms_float64"],
-                "design": "reverse-mode adjoint, one sweep per sample"}
-               if name == "K2" else {}),
+            "ms_float64": loss_times[name]["ms_float64"],
+            "design": ("reverse-mode adjoint, one sweep per sample"
+                       if name == "K2" else CUBE_FWD_DESIGN),
             "plain_ms": loss_times[name]["plain_ms"],
             "bound_ms": loss_times[name]["bound_ms"],
             "bound_by": loss_times[name]["bound_by"],
@@ -2809,9 +2931,14 @@ def main() -> int:
             "max_abs_err_float64": entry["max_abs_err_float64"],
             "ms": entry["ms"],
             "ms_float64": entry["ms_float64"],
+            **({"design": entry["design"]} if "design" in entry else {}),
             "plain_ms": entry["plain_ms"],
             "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"],
+            **({name: entry[name] for name in (
+                "bound_ms_float64", "operations_per_sample",
+                "operations_plain_per_sample")}
+               if "bound_ms_float64" in entry else {}),
             "library_ms": None,
         })
     for size, model_name, launches_of, times in (

@@ -27,8 +27,9 @@
 //
 // What bounds them on an H100 (cube, float32, B = 2,097,152): K1 and K3
 // read 26 and 38 values and write 14 per sample (K3: 436 MB, 0.13 ms at
-// 3.35 TB/s), and their solve's ~10^5 operations per sample (chip_smoke.py
-// counts them on the plain versions) bound them by operations. K2 reads 40
+// 3.35 TB/s), and the operations their own bodies need (some 6 x 10^4 and
+// 4 x 10^4 a sample: chip_smoke.py counts this code built for the host,
+// ops/host_adjoint.py) bound them by operations. K2 reads 40
 // values and writes 26 per sample (553 MB, 0.16 ms); its sweep needs some
 // 4,200 operations per sample (chip_smoke.py counts them on this code built
 // for the host, ops/host_adjoint.py), 0.13 ms at the float32 peak, so K2 is
@@ -43,7 +44,20 @@
 // that ptxas may give each thread all 255 registers: a minimum that fits
 // more blocks caps the registers and spills more, which cost more time on
 // an H100 than the occupancy won.
-// Several threads per sample and staging in shared memory are later work.
+// K3 was measured against other designs on an NVIDIA H100 80GB HBM3 at
+// 700 W (scripts/probe_cube_k3.py, PERF.md), all bit for bit equal
+// to it: it takes 10.0-10.2 ms at 2,097,152 (f64 30.8-31.8 ms): the terms
+// and assembly 0.71 ms, an IPM iteration 0.80 ms, a Newton iteration
+// 0.56 ms; 255 registers and 344 B of stack a thread (f64 2,232 B). Blocks
+// of 32 or 128 threads, or a minimum of 4 blocks, gave the same times
+// within their spread; a minimum of 6 blocks (168 registers, 832 B of
+// stack) 11.3 ms. The terms on a kernel of their own, written to a pack
+// the solve reads, took 13.0 ms with the solve on one thread (the terms
+// kernel 1.6 ms; the solve alone still holds 255 registers and spills 456
+// B: the solve, not the terms, sets the registers), 14.4 ms on 2 lanes a
+// sample and 23.4 ms on 4 (their Newton iterations 0.92 and 1.78 ms
+// against 0.56: at (6, 4) each lane repeats the 6 x 6 factors and solves
+// for too few contacts). So one thread a sample stays.
 
 #include "cube_adjoint.cuh"
 

@@ -218,12 +218,16 @@ template <typename T, int NV, int K> struct Problem {
 };
 
 // Reads sample b of a packed, batch-minor QP: M (NV*NV, B), Jc (3, NV, K,
-// B), qc (3, K, B), the layout of ops/soa_kernels.pack_qp.
-template <typename T, int NV, int K>
+// B), qc (3, K, B), the layout of ops/soa_kernels.pack_qp. On a lane of a
+// group, M whole and the lane's own contacts' columns of Jc and qc.
+template <typename T, int NV, int K, typename G = Solo>
 __device__ __forceinline__ void load_packed_problem(
     const T* __restrict__ M, const T* __restrict__ Jc,
     const T* __restrict__ qc, long long B, long long b, double eps,
-    Problem<T, NV, K>& P) {
+    Problem<T, NV, K / G::kLanes>& P, const G& g = G()) {
+  constexpr int KL = K / G::kLanes;
+  static_assert(KL * G::kLanes == K, "whole contacts a lane");
+  const int c0 = g.lane() * KL;
 #pragma unroll
   for (int i = 0; i < NV; ++i)
 #pragma unroll
@@ -233,12 +237,12 @@ __device__ __forceinline__ void load_packed_problem(
 #pragma unroll
     for (int v = 0; v < NV; ++v)
 #pragma unroll
-      for (int c = 0; c < K; ++c)
-        P.J[i][v][c] = Jc[((i * NV + v) * K + c) * B + b];
+      for (int c = 0; c < KL; ++c)
+        P.J[i][v][c] = Jc[((i * NV + v) * K + c0 + c) * B + b];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
-    for (int c = 0; c < K; ++c) P.q[i][c] = qc[(i * K + c) * B + b];
+    for (int c = 0; c < KL; ++c) P.q[i][c] = qc[(i * K + c0 + c) * B + b];
   P.eps = T(eps);
   P.inv_eps = T(1.0 / eps);
   P.half_eps = T(0.5 * eps);
@@ -1163,5 +1167,47 @@ __device__ bool warm_hybrid_solve(const Problem<T, NV, K>& P,
   for (int i = 0; i < NV; ++i) w[i] = valid ? nan_to_num(w[i]) : T(0);
   return valid;
 }
+
+// K5's body: the warm solve of sample b of a packed QP (w0 (NV, B) the
+// carried primal) on one thread or on the lanes of a group. Writes the
+// lane's contacts' impulses into force (3, K, B), and (lane 0) the final
+// primal into w_out (NV, B) and the valid byte, unless `store` is false (a
+// group past the batch, which solves its last sample again so that its
+// lanes meet every exchange).
+template <typename T, int NV, int K, typename G = Solo>
+__device__ __forceinline__ void warm_solve_packed(
+    const T* __restrict__ M, const T* __restrict__ Jc,
+    const T* __restrict__ qc, const T* __restrict__ w0,
+    T* __restrict__ force, T* __restrict__ w_out,
+    unsigned char* __restrict__ valid_out, long long B, long long b,
+    bool store, double eps, int ipm_iterations, int newton_iterations,
+    const G& g = G()) {
+  constexpr int KL = K / G::kLanes;
+  Problem<T, NV, KL> P;
+  load_packed_problem<T, NV, K, G>(M, Jc, qc, B, b, eps, P, g);
+  T w[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) w[i] = w0[i * B + b];
+  T gamma[3][KL];
+  const bool valid = warm_hybrid_solve<T, NV, KL, G>(
+      P, ipm_iterations, newton_iterations, w, gamma, g);
+  if (!store) return;
+  const int c0 = g.lane() * KL;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int c = 0; c < KL; ++c) force[(i * K + c0 + c) * B + b] = gamma[i][c];
+  if (g.lane() == 0) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) w_out[i * B + b] = w[i];
+    valid_out[b] = valid ? 1 : 0;
+  }
+}
+
+// Lanes a QP of K5 at a size: 4 at the elbow's k = 8 (two contacts a
+// lane; 2 and 8 lanes were slower on an H100 at the rollout's 8,192 QPs,
+// scripts/probe_loss_lanes.py --solves, PERF.md); one thread a QP at the
+// cube's k = 4.
+template <int NV, int K> constexpr int kWarmLanes = K > 4 ? 4 : 1;
 
 }  // namespace

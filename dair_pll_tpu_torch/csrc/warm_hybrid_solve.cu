@@ -1,15 +1,16 @@
-// Warm-started hybrid cone solve (NT interior point + SAP-Newton), one
-// CUDA thread per sample.
+// Warm-started hybrid cone solve (NT interior point + SAP-Newton): K5.
 //
 // Replaces the TPU kernel `_warm_kernel` of dair_pll_tpu/ops/soa_pallas.py
-// (called through `solve_warm_hybrid_soa_pallas`), the only kernel on the
-// fused rollout path. It computes what the plain PyTorch version
+// (called through `solve_warm_hybrid_soa_pallas`), the solve of the fused
+// rollouts and of the warm loss of models outside the fused loss kernels
+// (the ICNN cube and elbow). It computes what the plain PyTorch version
 // `dair_pll_tpu_torch.ops.soa_solver.solve_warm_hybrid_soa` computes, in the
 // same operation order: the IPM with merit-best iterate tracking and the
 // per-sample freeze on convergence, NT scaling and arrow solves, the Schur
 // complement M + J^T A^-1 J with its LDL^T, the start chosen by primal cost,
 // SAP-Newton with the crease-bracketed exact line search and its polish
-// steps, and the final failure mask.
+// steps, and the final failure mask. The body is hybrid_solve.cuh's
+// warm_solve_packed.
 //
 // What bounds it on an H100: at the rollout batch (8,192 samples, cube:
 // n_v = 6, k = 4) it reads 126 and writes 19 values per sample, 4.75 MB in
@@ -17,15 +18,28 @@
 // sample at the (14, 6) budget) is a few us at the f32 vector peak. Neither
 // is reached: one thread per sample fills fewer than 2 warps per SM, each
 // thread runs a long dependent chain, and its ~300 live scalars spill to
-// local memory, so the kernel is bound by latency. This first design keeps
-// the JAX public batch-minor layout, so that neighbouring threads read
-// neighbouring addresses, masks the ragged edge instead of padding, and
-// leaves shared-memory staging, several threads per sample and occupancy
-// work to later changes.
+// local memory, so the kernel is bound by latency. The kernel keeps the
+// JAX public batch-minor layout, so that neighbouring threads read
+// neighbouring addresses, and masks the ragged edge instead of padding.
 //
-// The elbow's instantiation, (n_v, k) = (7, 8), runs the same code on a
-// larger problem: one thread then carries M (49 values), J (168) and the
-// (3, 8) cone state, and spills far more than the cube's.
+// The elbow's instantiation, (n_v, k) = (7, 8), runs each QP on 4 lanes of
+// a warp (kWarmLanes), two contacts a lane: each lane loads M whole and its
+// contacts' columns of Jc and qc, and the lanes exchange every sum over
+// contacts through shared memory, folded in contact order, so the results
+// are one thread's bit for bit. One thread carrying the whole (7, 8) QP
+// (M, J's 168 values, the (3, 8) cone state) spilled 2,336 B a thread in
+// float32 and filled under 2 warps a multiprocessor at 8,192 QPs; on 4
+// lanes it holds 255 registers with 80 B of stack and fills 7.8 warps.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (scripts/probe_loss_lanes.py
+// --solves and its k5_* variants, PERF.md), in float32 (float64) on the
+// elbow's rollout QPs at (14, 6), 82% of them with contact: at 8,192 one
+// thread 0.98-1.01 ms (2.17-2.20), 2 lanes 0.49 (1.53-1.54), 4 lanes
+// 0.27-0.31 (0.55-0.57), 8 lanes (212 registers, no stack) 0.34-0.35
+// (0.56-0.58); at 65,536 4.78-4.82, 1.98, 1.73-1.78 and 2.22-2.27 ms.
+// Blocks of 32, 64 or 128 threads on 4 lanes lay within that spread. The
+// ICNN elbow's 65,536 warm loss QPs at initial parameters have no contact
+// (every impulse 0), so their times (4 lanes 1.26-1.35 ms) do not weigh
+// in the choice of lanes. Every design gave the same bits.
 //
 // Build: ops/soa_kernels.py compiles every source of this directory into one
 // library (no fast math: the solver relies on isfinite, NaN comparisons and
@@ -39,42 +53,51 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-template <typename T, int NV, int K>
-__global__ void warm_hybrid_solve_kernel(
+// Thread t is lane t % L of QP t / L (L = kWarmLanes: one thread a QP at the
+// cube's (6, 4), 4 lanes at the elbow's (7, 8)), in blocks of kBlock<L>
+// threads. On lanes, each group's slots (kLaneSlots values) sit in dynamic
+// shared memory, and a group past the batch solves the last QP again and
+// writes nothing, so that every lane of a warp meets each exchange.
+template <int L> constexpr int kBlock = L == 1 ? 32 : 64;
+
+// The shared memory of a block on lanes, within the 48 KB a launch gets
+// without raising the kernel's limit.
+template <typename T, int NV, int K, int L>
+constexpr size_t kSharedBytes =
+    L == 1 ? 0 : sizeof(T) * (kBlock<L> / L) * kLaneSlots<NV, K>;
+
+template <typename T, int NV, int K, int L>
+__global__ void __launch_bounds__(kBlock<L>) warm_hybrid_solve_kernel(
     const T* __restrict__ M, const T* __restrict__ Jc,
     const T* __restrict__ qc, const T* __restrict__ w0, T* __restrict__ force,
     T* __restrict__ w_out, unsigned char* __restrict__ valid_out, long long B,
     double eps, int ipm_iterations, int newton_iterations) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-
-  Problem<T, NV, K> P;
-  load_packed_problem<T, NV, K>(M, Jc, qc, B, b, eps, P);
-
-  T w[NV];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) w[i] = w0[i * B + b];
-  T gamma[3][K];
-  const bool valid = warm_hybrid_solve<T, NV, K>(P, ipm_iterations,
-                                                 newton_iterations, w, gamma);
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int c = 0; c < K; ++c) force[(i * K + c) * B + b] = gamma[i][c];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) w_out[i * B + b] = w[i];
-  valid_out[b] = valid ? 1 : 0;
+  const long long b = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / L;
+  if constexpr (L == 1) {
+    if (b >= B) return;
+    warm_solve_packed<T, NV, K>(M, Jc, qc, w0, force, w_out, valid_out, B, b,
+                                true, eps, ipm_iterations, newton_iterations);
+  } else {
+    using G = WarpLanes<T, L>;
+    extern __shared__ __align__(16) unsigned char lane_slots[];
+    const G g(reinterpret_cast<T*>(lane_slots) +
+              (threadIdx.x / L) * kLaneSlots<NV, K>);
+    warm_solve_packed<T, NV, K, G>(M, Jc, qc, w0, force, w_out, valid_out, B,
+                                   b < B ? b : B - 1, b < B, eps,
+                                   ipm_iterations, newton_iterations, g);
+  }
 }
-
-constexpr int kThreads = 32;
 
 template <typename T, int NV, int K>
 int launch(const void* M, const void* Jc, const void* qc, const void* w0,
            void* force, void* w, void* valid, long long B, double eps,
            int ipm_iterations, int newton_iterations, void* stream) {
-  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
-  warm_hybrid_solve_kernel<T, NV, K>
-      <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  constexpr int L = kWarmLanes<NV, K>;
+  constexpr size_t shared = kSharedBytes<T, NV, K, L>;
+  static_assert(shared <= 48 * 1024, "a block's slots fit in 48 KB");
+  const unsigned blocks = (unsigned)((B * L + kBlock<L> - 1) / kBlock<L>);
+  warm_hybrid_solve_kernel<T, NV, K, L>
+      <<<blocks, kBlock<L>, shared, (cudaStream_t)stream>>>(
           (const T*)M, (const T*)Jc, (const T*)qc, (const T*)w0, (T*)force,
           (T*)w, (unsigned char*)valid, B, eps, ipm_iterations,
           newton_iterations);

@@ -4,7 +4,10 @@ with ``g++``: the box cube's ``cube_loss_vjp`` (``csrc/cube_adjoint.cuh``,
 (``csrc/model_adjoint.cuh``, with the generic forward bodies,
 :class:`HostModelTerms`). Each gives the gradient in float64 (held against
 the plain version by the tests) and a count of the arithmetic the sweep
-needs (K2's bound in ``chip_smoke.py``).
+needs (K2's bound in ``chip_smoke.py``). :class:`HostModelTerms` also
+counts the forward bodies (the generic and the box cube's K1 and K3 bounds)
+and K5's body at the elbow's (7, 8) (its bound), and runs that body on
+lanes as the card does.
 
 A stand-in ``cuda_runtime.h`` turns the CUDA qualifiers into plain C++, so
 the device code compiles unchanged. The count runs the same code on
@@ -399,7 +402,10 @@ class HostAdjoint:
 #: barrier for the warp's ``__syncwarp``, the slots a shared array); and the
 #: box cube's ``cube_loss_cold``/``_warm`` (``cube_terms.cuh``) and
 #: ``cube_loss_vjp`` (``cube_adjoint.cuh``) in float64, to hold the generic
-#: code against the cube's.
+#: code against the cube's, and ``cube_loss_cold``/``_warm`` counted (the
+#: cube's K1 and K3 bounds); and K5's body at the elbow's (7, 8)
+#: (``hybrid_solve.cuh``'s ``warm_solve_packed``) on one thread or on the
+#: card's lanes a QP, in float32 and float64, and counted (its bound).
 MODEL_BATCH = r"""#include <atomic>
 #include <limits>
 #include <thread>
@@ -587,23 +593,18 @@ static void run(int kind, const ModelDesc<Z>& desc, const B* pvec,
   }
 }
 
-// The counts of one kind on Counted<B> over n samples, on `threads`
-// threads; counts = {needed, executed, recomputed}.
-template <typename B, typename Z>
-static void count(int kind, const ModelDesc<Z>& desc, const B* pvec,
-                  const B* xin, const B* xp, const B* fin,
-                  const unsigned char* valid_in, const B* ct, long long n,
-                  double dt, double eps, int ipm, int newton, int threads,
-                  long long* counts) {
+// Runs body(lo, hi) over the samples [lo, hi) of n split among `threads`
+// threads, each tallying on its own; counts = {needed, executed,
+// recomputed}, summed.
+template <typename F>
+static void tally_on_threads(long long n, int threads, long long* counts,
+                             const F& body) {
   std::vector<std::thread> pool;
   std::vector<Tally> tallies(threads);
   for (int t = 0; t < threads; ++t)
-    pool.emplace_back([=, &desc, &tallies] {
+    pool.emplace_back([=, &body, &tallies] {
       tally = Tally();
-      run<Counted<B>, B, Z>(kind, desc, pvec, xin, xp, fin, valid_in, ct, n,
-                            n * t / threads, n * (t + 1) / threads, dt, eps,
-                            ipm, newton, nullptr, nullptr, nullptr, nullptr,
-                            nullptr, nullptr);
+      body(n * t / threads, n * (t + 1) / threads);
       tallies[t] = tally;
     });
   counts[0] = counts[1] = counts[2] = 0;
@@ -613,6 +614,21 @@ static void count(int kind, const ModelDesc<Z>& desc, const B* pvec,
     counts[1] += tallies[t].executed;
     counts[2] += tallies[t].recomputed;
   }
+}
+
+// The counts of one kind on Counted<B> over n samples, on `threads`
+// threads; counts = {needed, executed, recomputed}.
+template <typename B, typename Z>
+static void count(int kind, const ModelDesc<Z>& desc, const B* pvec,
+                  const B* xin, const B* xp, const B* fin,
+                  const unsigned char* valid_in, const B* ct, long long n,
+                  double dt, double eps, int ipm, int newton, int threads,
+                  long long* counts) {
+  tally_on_threads(n, threads, counts, [&](long long lo, long long hi) {
+    run<Counted<B>, B, Z>(kind, desc, pvec, xin, xp, fin, valid_in, ct, n,
+                          lo, hi, dt, eps, ipm, newton, nullptr, nullptr,
+                          nullptr, nullptr, nullptr, nullptr);
+  });
 }
 
 #define HOST_ENTRIES(Z, NAME)                                                \
@@ -666,6 +682,140 @@ static void count(int kind, const ModelDesc<Z>& desc, const B* pvec,
 
 SIZE_ENTRIES
 
+// K5's body (hybrid_solve.cuh's warm_solve_packed) over n packed QPs of
+// (n_v, k) = (NV, K) in type T, as the card runs it: one thread a QP (L =
+// 1), or L lanes a QP, a thread a lane meeting at a barrier where the card
+// calls __syncwarp, over `groups` >= n groups, those past n solving the
+// last QP again and writing nothing.
+template <typename T, int NV, int K, int L>
+static void run_warm_solve(const T* M, const T* Jc, const T* qc,
+                           const T* w0, long long n, long long groups,
+                           double eps, int ipm, int newton, T* force, T* w,
+                           unsigned char* valid) {
+  if constexpr (L == 1) {
+    for (long long b = 0; b < n; ++b)
+      warm_solve_packed<T, NV, K>(M, Jc, qc, w0, force, w, valid, n, b, true,
+                                  eps, ipm, newton);
+  } else {
+    std::vector<T> slots(kLaneSlots<NV, K>);
+    SpinBarrier barrier(L);
+    std::vector<std::thread> pool;
+    for (int lane = 0; lane < L; ++lane)
+      pool.emplace_back([&, lane] {
+        using G = HostLanes<T, L>;
+        const G g{slots.data(), &barrier, lane};
+        for (long long b = 0; b < groups; ++b)
+          warm_solve_packed<T, NV, K, G>(M, Jc, qc, w0, force, w, valid, n,
+                                         b < n ? b : n - 1, b < n, eps, ipm,
+                                         newton, g);
+      });
+    for (std::thread& t : pool) t.join();
+  }
+}
+
+// K5 at the elbow's (7, 8) on one thread a QP (lanes 1) or on the card's
+// kWarmLanes lanes a QP; returns 1 for another count of lanes.
+#define WARM_SOLVE_ENTRY(T, SUFFIX)                                          \
+  extern "C" int warm_solve_host_nv7_k8_##SUFFIX(                            \
+      int lanes, const T* M, const T* Jc, const T* qc, const T* w0,          \
+      long long n, long long groups, double eps, int ipm, int newton,        \
+      T* force, T* w, unsigned char* valid) {                                \
+    constexpr int L = kWarmLanes<7, 8>;                                      \
+    if (lanes == 1)                                                          \
+      run_warm_solve<T, 7, 8, 1>(M, Jc, qc, w0, n, groups, eps, ipm, newton, \
+                                 force, w, valid);                           \
+    else if (lanes == L)                                                     \
+      run_warm_solve<T, 7, 8, L>(M, Jc, qc, w0, n, groups, eps, ipm, newton, \
+                                 force, w, valid);                           \
+    else                                                                     \
+      return 1;                                                              \
+    return 0;                                                                \
+  }
+WARM_SOLVE_ENTRY(float, f32)
+WARM_SOLVE_ENTRY(double, f64)
+extern "C" int warm_lanes_nv7_k8() { return kWarmLanes<7, 8>; }
+
+// The counts of K5's body at (7, 8) (warm_solve_packed, one thread a QP) on
+// Counted<T> over the QPs [lo, hi) of n packed QPs, each read into a
+// one-QP pack of data values.
+template <typename T>
+static void warm_solve_count_run(const T* M, const T* Jc, const T* qc,
+                                 const T* w0, long long n, long long lo,
+                                 long long hi, double eps, int ipm,
+                                 int newton) {
+  constexpr int NV = 7, K = 8;
+  using S = Counted<T>;
+  S m[NV * NV], jc[3 * NV * K], q[3 * K], w[NV], force[3 * K], w_out[NV];
+  unsigned char valid;
+  for (long long b = lo; b < hi; ++b) {
+    for (int i = 0; i < NV * NV; ++i) m[i] = S::data(M[i * n + b]);
+    for (int i = 0; i < 3 * NV * K; ++i) jc[i] = S::data(Jc[i * n + b]);
+    for (int i = 0; i < 3 * K; ++i) q[i] = S::data(qc[i * n + b]);
+    for (int i = 0; i < NV; ++i) w[i] = S::data(w0[i * n + b]);
+    warm_solve_packed<S, NV, K>(m, jc, q, w, force, w_out, &valid, 1, 0,
+                                true, eps, ipm, newton);
+  }
+}
+
+// As count() for the loss bodies: counts = {needed, executed, recomputed
+// (none)}.
+#define WARM_SOLVE_COUNT_ENTRY(T, SUFFIX)                                    \
+  extern "C" void warm_solve_count_nv7_k8_##SUFFIX(                          \
+      const T* M, const T* Jc, const T* qc, const T* w0, long long n,        \
+      double eps, int ipm, int newton, int threads, long long* counts) {     \
+    tally_on_threads(n, threads, counts, [&](long long lo, long long hi) {   \
+      warm_solve_count_run<T>(M, Jc, qc, w0, n, lo, hi, eps, ipm, newton);   \
+    });                                                                      \
+  }
+WARM_SOLVE_COUNT_ENTRY(float, f32)
+WARM_SOLVE_COUNT_ENTRY(double, f64)
+
+// The counts of the box cube's K1 (cube_loss_cold, fin null) or K3
+// (cube_loss_warm from fin) on Counted<B> over the samples [lo, hi) of n.
+template <typename B>
+static void cube_count_run(int kind, const B* pvec, const B* xin,
+                           const B* xp, const B* fin, long long n,
+                           long long lo, long long hi, double dt, double eps,
+                           int ipm, int newton) {
+  using S = Counted<B>;
+  using V = Scalar<S>;
+  S p[kCubeP];
+  for (int i = 0; i < kCubeP; ++i) p[i] = V::in(pvec[i]);
+  const S dt_s = V::in(B(dt));
+  for (long long b = lo; b < hi; ++b) {
+    S x[kCubeNX], x_plus[kCubeNX], f_prev[3][kCubeK], f[3][kCubeK];
+    for (int i = 0; i < kCubeNX; ++i) {
+      x[i] = V::in(xin[i * n + b]);
+      x_plus[i] = V::in(xp[i * n + b]);
+    }
+    bool ok;
+    if (kind == kCold) {
+      cube_loss_cold<S>(p, x, x_plus, dt_s, eps, ipm, newton, f, ok);
+    } else {
+      for (int i = 0; i < 3; ++i)
+        for (int c = 0; c < kCubeK; ++c)
+          f_prev[i][c] = V::in(fin[(i * kCubeK + c) * n + b]);
+      cube_loss_warm<S>(p, x, x_plus, f_prev, dt_s, eps, ipm, newton, f,
+                        ok);
+    }
+  }
+}
+
+// As count() for the generic bodies: counts = {needed, executed,
+// recomputed (none)}.
+#define CUBE_COUNT_ENTRY(B, SUFFIX)                                          \
+  extern "C" void cube_count_##SUFFIX(                                       \
+      int kind, const B* pvec, const B* xin, const B* xp, const B* fin,      \
+      long long n, double dt, double eps, int ipm, int newton, int threads,  \
+      long long* counts) {                                                   \
+    tally_on_threads(n, threads, counts, [&](long long lo, long long hi) {   \
+      cube_count_run<B>(kind, pvec, xin, xp, fin, n, lo, hi, dt, eps, ipm,   \
+                        newton);                                             \
+    });                                                                      \
+  }
+CUBE_COUNT_ENTRY(float, f32)
+CUBE_COUNT_ENTRY(double, f64)
+
 // cube_loss_cold<double> (fprev null) or cube_loss_warm<double>.
 extern "C" void cube_host_f64(const double* pvec, const double* xin,
                               const double* xp, const double* fprev,
@@ -704,6 +854,9 @@ _KINDS = {"cold": 0, "warm": 1, "vjp": 2}
 _HOST_ARGS = [_I, _P] + [_P] * 6 + [_LL, _D, _D, _I, _I] + [_P] * 6
 _LANES_ARGS = [_I] + [_P] * 5 + [_LL, _D, _D, _I, _I] + [_P] * 3
 _COUNT_ARGS = [_I, _P] + [_P] * 6 + [_LL, _D, _D, _I, _I, _I, _P]
+_WARM_SOLVE_ARGS = [_I] + [_P] * 4 + [_LL, _LL, _D, _I, _I] + [_P] * 3
+_CUBE_COUNT_ARGS = [_I] + [_P] * 4 + [_LL, _D, _D, _I, _I, _I, _P]
+_WARM_COUNT_ARGS = [_P] * 4 + [_LL, _D, _I, _I, _I, _P]
 
 
 def _model_batch_source() -> str:
@@ -718,8 +871,9 @@ class HostModelTerms:
     """The generic loss kernels' per-sample bodies built for the host into
     ``work_dir``: the cold and warm loss (``csrc/model_terms.cuh``) and
     K2's gradient (``csrc/model_adjoint.cuh``) of any model the generic
-    kernels cover, in float64 and counted; and the box cube's loss and
-    gradient from ``cube_terms.cuh`` and ``cube_adjoint.cuh``."""
+    kernels cover, in float64 and counted; the box cube's loss (also
+    counted) and gradient from ``cube_terms.cuh`` and ``cube_adjoint.cuh``;
+    and K5's body at (7, 8) as the card runs it, and counted."""
 
     def __init__(self, work_dir: str, flags: Tuple[str, ...] = ()):
         # -O1: the unrolled bodies of every size and scalar make one large
@@ -738,6 +892,16 @@ class HostModelTerms:
                     _COUNT_ARGS
         self._lib.cube_host_f64.argtypes = [_P] * 4 + [_LL, _D, _D, _I, _I] + \
             [_P] * 3
+        for s in ("f32", "f64"):
+            getattr(self._lib, f"warm_solve_host_nv7_k8_{s}").argtypes = \
+                _WARM_SOLVE_ARGS
+            getattr(self._lib, f"cube_count_{s}").argtypes = \
+                _CUBE_COUNT_ARGS
+            getattr(self._lib, f"cube_count_{s}").restype = None
+            getattr(self._lib, f"warm_solve_count_nv7_k8_{s}").argtypes = \
+                _WARM_COUNT_ARGS
+            getattr(self._lib, f"warm_solve_count_nv7_k8_{s}").restype = None
+        self._lib.warm_lanes_nv7_k8.argtypes = []
         self._lib.cube_loss_vjp_f64.argtypes = \
             _SIGNATURES["cube_loss_vjp_f64"]
         for fn in (self._lib.cube_host_f64, self._lib.cube_loss_vjp_f64,
@@ -805,6 +969,66 @@ class HostModelTerms:
                                 newton, *[_ptr(a) for a in outs])
         return (torch.from_numpy(outs[0]), torch.from_numpy(outs[1]),
                 torch.from_numpy(outs[2].astype(bool)))
+
+    def cube_count(self, kind: str, pvec: Tensor, xin: Tensor, xp: Tensor,
+                   fin: Optional[Tensor], dt: float, eps: float, ipm: int,
+                   newton: int, threads: int = 1) -> Dict:
+        """The operations the box cube's K1 (``kind`` ``cold``:
+        ``cube_terms.cuh``'s ``cube_loss_cold``) or K3 (``warm``:
+        ``cube_loss_warm`` from ``fin``) does over the batch in ``xin``'s
+        dtype (float32 or float64), on ``threads`` threads, as
+        :meth:`count` tallies the generic bodies: ``{"needed": ...,
+        "executed": ...}``."""
+        dtype = _NP[xin.dtype]
+        ins = [self._array(t, dtype) for t in (pvec, xin, xp, fin)]
+        counts = np.zeros(3, dtype=np.int64)
+        getattr(self._lib, f"cube_count_{_SUFFIX[xin.dtype]}")(
+            _KINDS[kind], *[_ptr(a) for a in ins], xin.shape[1], dt, eps,
+            ipm, newton, threads, counts.ctypes.data)
+        return {"needed": int(counts[0]), "executed": int(counts[1])}
+
+    def warm_lanes(self) -> int:
+        """Lanes a QP of the card's K5 at the elbow's (7, 8)
+        (``kWarmLanes`` of ``csrc/hybrid_solve.cuh``)."""
+        return self._lib.warm_lanes_nv7_k8()
+
+    def warm_solve(self, m: Tensor, jc: Tensor, qc: Tensor, w0: Tensor,
+                   eps: float, ipm: int, newton: int, lanes: int = 1,
+                   groups: Optional[int] = None
+                   ) -> Tuple[Tensor, Tensor, Tensor]:
+        """K5's body at (7, 8) (``warm_solve_packed``) on packed QPs in
+        their dtype (float32 or float64), as the card runs it: one thread a
+        QP, or on ``lanes`` (``warm_lanes()``) lanes a QP over ``groups``
+        (at least the batch; those past it solve the last QP again and
+        write nothing). Returns ``(force (3, 8, B), w (7, B), valid
+        (B,))``, as ``soa_kernels.plain_packed``."""
+        dtype = _NP[m.dtype]
+        n = qc.shape[-1]
+        ins = [self._array(t, dtype) for t in (m, jc, qc, w0)]
+        outs = [np.zeros((3, 8, n), dtype), np.zeros((7, n), dtype),
+                np.zeros(n, dtype=np.uint8)]
+        if getattr(self._lib, f"warm_solve_host_nv7_k8_{_SUFFIX[m.dtype]}")(
+                lanes, *[_ptr(a) for a in ins], n,
+                n if groups is None else groups, eps, ipm, newton,
+                *[_ptr(a) for a in outs]):
+            raise ValueError(f"no host build of K5 on {lanes} lanes a QP")
+        return (torch.from_numpy(outs[0]), torch.from_numpy(outs[1]),
+                torch.from_numpy(outs[2].astype(bool)))
+
+    def warm_solve_count(self, m: Tensor, jc: Tensor, qc: Tensor,
+                         w0: Tensor, eps: float, ipm: int, newton: int,
+                         threads: int = 1) -> Dict:
+        """The operations K5's body at (7, 8) (``warm_solve_packed``) does
+        on packed QPs in their dtype (float32 or float64), on ``threads``
+        threads, as :meth:`cube_count` tallies the loss bodies:
+        ``{"needed": ..., "executed": ...}``."""
+        dtype = _NP[m.dtype]
+        ins = [self._array(t, dtype) for t in (m, jc, qc, w0)]
+        counts = np.zeros(3, dtype=np.int64)
+        getattr(self._lib, f"warm_solve_count_nv7_k8_{_SUFFIX[m.dtype]}")(
+            *[_ptr(a) for a in ins], qc.shape[-1], eps, ipm, newton, threads,
+            counts.ctypes.data)
+        return {"needed": int(counts[0]), "executed": int(counts[1])}
 
     def cube_vjp(self, pvec: Tensor, xin: Tensor, xp: Tensor, force: Tensor,
                  valid: Tensor, ct: Tensor, dt: float

@@ -14,27 +14,36 @@ For the checkout at ``--tree`` (this one by default):
   the training budgets in float64, and on the polygon cube's 262,144
   (``chip_smoke.train_transitions``) at the training budgets in both
   types;
-- with ``--solves``, the hybrid solve kernels that share the solve's
-  source, K5 and K4 at (n_v, k) = (6, 4) and (7, 8), timed in both types
-  on the QPs of the box cube's and the elbow's fused rollouts
-  (``chip_smoke.rollout_qps``): K5 on 8,192, K4 on 65,536.
+- with ``--solves``, instead of the loss kernels, the hybrid solve
+  kernels that share the solve's source, K5 and K4 at (n_v, k) = (6, 4)
+  and (7, 8), timed in both types on the QPs of the box cube's and the
+  elbow's fused rollouts (``chip_smoke.rollout_qps``): K5 on 8,192, K4 on
+  65,536. K5 at (7, 8) also on 65,536 of the elbow's rollout QPs and on
+  the 65,536 QPs the ICNN elbow's warm loss hands it, each set with the
+  share of its QPs that have contact and a digest of K5's outputs in each
+  type (equal digests across trees and variants: equal bits), and on the
+  8,192 against ``soa_kernels.plain_packed`` in float64 bit for bit; with
+  ptxas's lines of K5 at (7, 8).
 
 The data, checks and timing are this checkout's ``chip_smoke.py``; the
 package, and so the kernels' sources, are the ``--tree``'s, built under its
 ``build/kernels``. ``--variant NAME`` measures instead a copy of the
 tree's package under ``build/lane_probe/NAME/`` with the source edits of
-``VARIANTS[NAME]``, designs the shipped kernels were measured against. To
-compare two checkouts on one card, unpack the other into a directory
+``VARIANTS[NAME]``, designs the shipped kernels were measured against
+(the ``k5_*`` ones K5's at (7, 8), measured with ``--solves``). To compare
+two checkouts on one card, unpack the other into a directory
 ``.gitignore`` lists and run both in turns in one call:
 
     python3 scripts/probe_loss_lanes.py --tree committed_tree/parent \\
         --label parent --check
     python3 scripts/probe_loss_lanes.py --label change --check
+    python3 scripts/probe_loss_lanes.py --solves --variant k5_lanes8
 
 Needs one CUDA card and ``nvcc``. Prints one JSON line and appends it to
 ``chiprun_out/probe_loss_lanes.jsonl``.
 """
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -46,9 +55,40 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 #: QPs K4 is timed on with ``--solves`` (K5 on ``chip_smoke.B``).
 SOLVE_K4_B = 65536
-#: Other designs of the generic K1/K3, as edits (file under ``csrc/``, old
-#: text, new text) of the shipped sources.
+#: The lines of the solve's sources that set K5's layout at (7, 8): lanes a
+#: QP, threads a block, and the 48 KB of shared memory a block may hold.
+K5_LANES = "template <int NV, int K> constexpr int kWarmLanes = K > 4 ? 4 : 1;"
+K5_BLOCK = "template <int L> constexpr int kBlock = L == 1 ? 32 : 64;"
+K5_SHARED = ('  static_assert(shared <= 48 * 1024, "a block\'s slots fit in '
+             '48 KB");')
+
+
+def k5_design(lanes: int, threads: int) -> list:
+    """Edits that run K5 at (7, 8) on ``lanes`` lanes a QP in blocks of
+    ``threads`` threads, raising the kernel's shared memory past 48 KB
+    where the block needs it."""
+    hybrid = "hybrid_solve.cuh"
+    return [(hybrid, K5_LANES, K5_LANES.replace("? 4 :", f"? {lanes} :")),
+            ("warm_hybrid_solve.cu", K5_BLOCK,
+             K5_BLOCK.replace(": 64;", f": {threads};")),
+            ("warm_hybrid_solve.cu", K5_SHARED,
+             "  if (shared > 48 * 1024 && cudaFuncSetAttribute(\n"
+             "          warm_hybrid_solve_kernel<T, NV, K, L>,\n"
+             "          cudaFuncAttributeMaxDynamicSharedMemorySize,\n"
+             "          (int)shared) != cudaSuccess)\n"
+             "    return (int)cudaGetLastError();")]
+
+
+#: Other designs of the generic K1/K3 and of K5 at (7, 8), as edits (file
+#: under ``csrc/``, old text, new text) of the shipped sources.
 VARIANTS = {
+    # K5 at (7, 8) on one thread a QP (its design before lanes), on 2 or 8
+    # lanes a QP, and on the shipped 4 in blocks of 32 or 128 threads.
+    "k5_one_thread": k5_design(1, 64),
+    "k5_lanes2": k5_design(2, 64),
+    "k5_lanes8": k5_design(8, 64),
+    "k5_block32": k5_design(4, 32),
+    "k5_block128": k5_design(4, 128),
     # One lane a contact at the elbow's size (8 lanes a sample).
     "lanes8": [("model_terms.cuh",
                 "constexpr int kFwdLanes = Z::K > 4 ? Z::K / 2 : 1;",
@@ -112,93 +152,23 @@ def variant_tree(tree: str, name: str) -> str:
     return root
 
 
-def solve_times(cs, elbow) -> dict:
-    """K5 and K4 at (6, 4) (the box cube) and (7, 8) (the elbow) on the
-    QPs of their fused rollouts at the initial parameters, in ms, float32
-    and float64: K5 on 8,192 QPs at the rollout's budget, K4 on 65,536 at
-    the cold loss's."""
-    import numpy as np
+def loss_times(cs, check: bool) -> dict:
+    """The generic K1 and K3 (and with ``check`` K1, K3 and K2 against
+    their plain versions) on the elbow's and the polygon cube's training
+    transitions, as the module's docstring lists."""
     import torch
     from dair_pll_tpu_torch import assets
     from dair_pll_tpu_torch.multibody.learnable_system import (
         MultibodyLearnableSystem)
-    from dair_pll_tpu_torch.ops import soa_kernels
-    cube = MultibodyLearnableSystem.from_urdfs(
-        {"cube": assets.get_asset("cube")}, cs.DT)
-    out = {}
-    for shape, system, states in (
-            ("nv6_k4", cube, lambda n: torch.tensor(
-                assets.cube_states_near_ground(np.random.default_rng(0), n),
-                dtype=torch.float64, device=cube.device)),
-            ("nv7_k8", elbow, lambda n: cs.states_near_ground(elbow, n, 4))):
-        params = system.initial_params(torch.float64)
-        for name, n, kernel, args in (
-                ("K5", cs.B, soa_kernels.solve_warm_hybrid_soa_cuda_packed,
-                 lambda q: (*q, cs.EPS, *cs.BUDGET)),
-                ("K4", SOLVE_K4_B,
-                 soa_kernels.solve_contact_impulse_soa_cuda_packed,
-                 lambda q: (*q[:3], cs.LOSS_EPS, *cs.COLD_BUDGET))):
-            q64 = cs.rollout_qps(system, params, states(n))
-            for dtype in (torch.float32, torch.float64):
-                q = tuple(t.to(dtype) for t in q64)
-                with torch.no_grad():
-                    out[f"{name}_{shape}_{str(dtype).split('.')[1]}"] = \
-                        cs.cuda_ms(lambda: kernel(*args(q)), 5)
-            del q64, q
-            torch.cuda.empty_cache()
-    return out
-
-
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--tree", default=ROOT,
-                        help="checkout whose package and kernels to measure")
-    parser.add_argument("--label", default="change")
-    parser.add_argument("--check", action="store_true",
-                        help="hold the kernels against their plain versions")
-    parser.add_argument("--solves", action="store_true",
-                        help="time K5 and K4 at both shapes too")
-    parser.add_argument("--variant", choices=sorted(VARIANTS),
-                        help="measure the tree with this design's edits")
-    args = parser.parse_args()
-    tree = os.path.abspath(args.tree)
-    if args.variant:
-        tree = variant_tree(tree, args.variant)
-    sys.path.insert(0, tree)
-    import torch
-    if not torch.cuda.is_available():
-        print("probe_loss_lanes: no CUDA device is available",
-              file=sys.stderr)
-        return 2
-    import dair_pll_tpu_torch
-    found = os.path.dirname(os.path.dirname(
-        os.path.abspath(dair_pll_tpu_torch.__file__)))
-    if found != tree:
-        raise RuntimeError(f"the package came from {found}, not {tree}")
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    from dair_pll_tpu_torch import assets
-    from dair_pll_tpu_torch.multibody.learnable_system import (
-        MultibodyLearnableSystem)
-    from dair_pll_tpu_torch.ops import soa_kernels
     from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
-
-    out = {"label": args.label, "tree": tree, "variant": args.variant,
-           "nvidia_smi": cs.phase_device()}
-    t0 = time.perf_counter()
-    soa_kernels.load_library()
-    out["build_seconds"] = time.perf_counter() - t0
-    out["ptxas"] = {size: cs.loss_ptxas(size) for size in ("b1", "b2")}
-
+    out = {}
     systems = {"elbow": cs.elbow_system(),
                "elbow_polygon": cs.elbow_system(
                    "elbow_mesh", mesh_representation="polygon"),
                "cube_polygon": MultibodyLearnableSystem.from_urdfs(
                    {"cube": assets.get_asset("cube_mesh")}, cs.DT,
                    mesh_representation="polygon")}
-    if args.check:
+    if check:
         out["vs_plain"] = {}
         for i, (name, system) in enumerate(systems.items()):
             x0 = cs.states_near_ground(system, cs.B, 6 + i)
@@ -235,9 +205,182 @@ def main() -> int:
         out[f"timing_{name}"] = timing
         del xin, xp, fprev
         torch.cuda.empty_cache()
+    return out
+
+
+def solve_times(cs, elbow) -> dict:
+    """K5 and K4 at (6, 4) (the box cube) and (7, 8) (the elbow) on the
+    QPs of their fused rollouts at the initial parameters, in ms, float32
+    and float64: K5 on 8,192 QPs at the rollout's budget, K4 on 65,536 at
+    the cold loss's; K5 at (7, 8) on more sets (``k5_sets``)."""
+    import numpy as np
+    import torch
+    from dair_pll_tpu_torch import assets
+    from dair_pll_tpu_torch.multibody.learnable_system import (
+        MultibodyLearnableSystem)
+    from dair_pll_tpu_torch.ops import soa_kernels
+    cube = MultibodyLearnableSystem.from_urdfs(
+        {"cube": assets.get_asset("cube")}, cs.DT)
+    out = {}
+    for shape, system, states in (
+            ("nv6_k4", cube, lambda n: torch.tensor(
+                assets.cube_states_near_ground(np.random.default_rng(0), n),
+                dtype=torch.float64, device=cube.device)),
+            ("nv7_k8", elbow, lambda n: cs.states_near_ground(elbow, n, 4))):
+        params = system.initial_params(torch.float64)
+        for name, n, kernel, args in (
+                ("K5", cs.B, soa_kernels.solve_warm_hybrid_soa_cuda_packed,
+                 lambda q: (*q, cs.EPS, *cs.BUDGET)),
+                ("K4", SOLVE_K4_B,
+                 soa_kernels.solve_contact_impulse_soa_cuda_packed,
+                 lambda q: (*q[:3], cs.LOSS_EPS, *cs.COLD_BUDGET))):
+            if (name, shape) == ("K5", "nv7_k8"):
+                continue
+            q64 = cs.rollout_qps(system, params, states(n))
+            for dtype in (torch.float32, torch.float64):
+                q = tuple(t.to(dtype) for t in q64)
+                with torch.no_grad():
+                    out[f"{name}_{shape}_{str(dtype).split('.')[1]}"] = \
+                        cs.cuda_ms(lambda: kernel(*args(q)), 5)
+            del q64, q
+            torch.cuda.empty_cache()
+    out["K5_nv7_k8"] = k5_sets(cs, elbow)
+    return out
+
+
+def digest(outputs) -> str:
+    """A digest of a solve's outputs' bits."""
+    h = hashlib.sha256()
+    for t in outputs:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def k5_sets(cs, elbow) -> dict:
+    """K5 at (7, 8) on the elbow's rollout QPs (8,192, the main path's
+    batch, and 65,536; budget (14, 6), eps 1e-4) and on the 65,536 QPs
+    the ICNN elbow's warm loss hands it (``icnn_warm_qps``): per set the
+    share of QPs with any impulse, the digest of the outputs and the time
+    in each type; on the 8,192, float64 against the plain version bit for
+    bit. ptxas's lines of K5 at (7, 8)."""
+    import torch
+    from dair_pll_tpu_torch.ops import soa_kernels
+    kernel = soa_kernels.solve_warm_hybrid_soa_cuda_packed
+    params = elbow.initial_params(torch.float64)
+    rollout = (cs.EPS, *cs.BUDGET)
+    out = {"ptxas": [line for mangled in ("IfLi7ELi8E", "IdLi7ELi8E")
+                     for line in cs.ptxas_lines(
+                         "warm_hybrid_solve.cu",
+                         "warm_hybrid_solve_kernel" + mangled)]}
+    sets = (("rollout_8192", lambda: (cs.rollout_qps(
+                elbow, params, cs.states_near_ground(elbow, cs.B, 4)),
+                rollout)),
+            ("rollout_65536", lambda: (cs.rollout_qps(
+                elbow, params, cs.states_near_ground(elbow, SOLVE_K4_B, 4)),
+                rollout)),
+            ("icnn_loss_65536", lambda: icnn_warm_qps(
+                cs, cs.elbow_system("elbow_mesh"))))
+    for name, make in sets:
+        qps, args = make()
+        entry = {"B": int(qps[0].shape[-1]), "args": list(args)}
+        for dtype in (torch.float32, torch.float64):
+            key = str(dtype).split(".")[1]
+            q = tuple(t.to(dtype) for t in qps)
+            with torch.no_grad():
+                got = kernel(*q, *args)
+                entry[f"{key}_digest"] = digest(got)
+                entry[f"{key}_active_share"] = got[0].abs().amax(
+                    dim=(0, 1)).gt(0).float().mean().item()
+                if name == "rollout_8192" and dtype == torch.float64:
+                    entry["float64_equals_plain"] = all(
+                        torch.equal(a, b) for a, b in zip(
+                            got, soa_kernels.plain_packed(*q, *args)))
+                entry["ms" if key == "float32" else "ms_float64"] = [
+                    cs.cuda_ms(lambda: kernel(*q, *args), 10)
+                    for _ in range(3)]
+        out[name] = entry
+        del qps, q, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def icnn_warm_qps(cs, system):
+    """The packed QPs ``(m, jc, qc, w0)`` and arguments ``(eps, ipm,
+    newton)`` the ICNN elbow's warm loss hands K5 at ELBOW_ICNN_B
+    transitions of the elbow's training recipe (float32, initial
+    parameters, warm-started from the cache's seed as
+    ``chip_smoke.phase_elbow_icnn_loss`` runs it), captured at
+    ``solve_warm_hybrid_soa_cuda_packed``."""
+    import torch
+    from dair_pll_tpu_torch.ops import soa_kernels
+    x, x_plus = cs.elbow_train_transitions(cs.ELBOW_ICNN_B, system.device)
+    params = system.initial_params(torch.float32)
+    u = x.new_zeros((x.shape[0], 0))
+    solve = soa_kernels.solve_warm_hybrid_soa_cuda_packed
+    captured = []
+
+    def capture(*args):
+        captured.append(args)
+        return solve(*args)
+
+    with torch.no_grad():
+        _, seed = system.contactnets_loss_batch_warm(
+            params, x, u, x_plus,
+            x.new_zeros((3, system.model.n_contacts, x.shape[0])),
+            budget=cs.COLD_BUDGET)
+        soa_kernels.solve_warm_hybrid_soa_cuda_packed = capture
+        try:
+            system.contactnets_loss_batch_warm(params, x, u, x_plus, seed)
+        finally:
+            soa_kernels.solve_warm_hybrid_soa_cuda_packed = solve
+    if len(captured) != 1:
+        raise AssertionError(f"the warm loss solved {len(captured)} times")
+    return captured[0][:4], captured[0][4:]
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--tree", default=ROOT,
+                        help="checkout whose package and kernels to measure")
+    parser.add_argument("--label", default="change")
+    parser.add_argument("--check", action="store_true",
+                        help="hold the kernels against their plain versions")
+    parser.add_argument("--solves", action="store_true",
+                        help="time K5 and K4 instead of the loss kernels")
+    parser.add_argument("--variant", choices=sorted(VARIANTS),
+                        help="measure the tree with this design's edits")
+    args = parser.parse_args()
+    tree = os.path.abspath(args.tree)
+    if args.variant:
+        tree = variant_tree(tree, args.variant)
+    sys.path.insert(0, tree)
+    import torch
+    if not torch.cuda.is_available():
+        print("probe_loss_lanes: no CUDA device is available",
+              file=sys.stderr)
+        return 2
+    import dair_pll_tpu_torch
+    found = os.path.dirname(os.path.dirname(
+        os.path.abspath(dair_pll_tpu_torch.__file__)))
+    if found != tree:
+        raise RuntimeError(f"the package came from {found}, not {tree}")
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from dair_pll_tpu_torch.ops import soa_kernels
+
+    out = {"label": args.label, "tree": tree, "variant": args.variant,
+           "nvidia_smi": cs.phase_device()}
+    t0 = time.perf_counter()
+    soa_kernels.load_library()
+    out["build_seconds"] = time.perf_counter() - t0
+    out["ptxas"] = {size: cs.loss_ptxas(size) for size in ("b1", "b2")}
 
     if args.solves:
-        out["solves"] = solve_times(cs, systems["elbow"])
+        out["solves"] = solve_times(cs, cs.elbow_system())
+    else:
+        out.update(loss_times(cs, args.check))
 
     line = json.dumps(out)
     print(line, flush=True)

@@ -40,10 +40,11 @@ import torch
 
 from dair_pll_tpu_torch import assets
 from dair_pll_tpu_torch.multibody.learnable_system import (
-    MultibodyLearnableSystem)
+    CONTACT_FILTER_EPS, MultibodyLearnableSystem)
 from dair_pll_tpu_torch.multibody.model import params_from_numpy
-from dair_pll_tpu_torch.multibody.soa_terms import derive_scalar_params
-from dair_pll_tpu_torch.ops import host_adjoint
+from dair_pll_tpu_torch.multibody.soa_terms import (
+    derive_scalar_params, soa_forward_dynamics_batch, soa_rollout_qp)
+from dair_pll_tpu_torch.ops import host_adjoint, soa_kernels
 from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
 from dair_pll_tpu_torch.urdf import build_multibody_model
 from torch_parity import (COLD_BUDGET, DT, KERNEL_MODELS, LOSS_EPS,
@@ -454,3 +455,143 @@ def test_operation_counts_add_up(host, urdf_dir, dtype):
     autograd = host_adjoint.count_torch_operations(lambda: lk.plain_loss_bwd(
         model, *args, f, valid, ct.to(dtype), DT, LOSS_EPS))
     assert whole["needed"] < autograd
+
+
+#: K5's rollout QPs: the elbow's fused rollout budget and regularization,
+#: and a batch that leaves the last block's groups past its end.
+ROLLOUT_BUDGET, ROLLOUT_EPS, QP_B = (14, 6), 1e-4, 37
+
+
+@functools.lru_cache(maxsize=None)
+def _elbow_rollout_qps():
+    """Packed float64 QPs ``(m, jc, qc, w0)`` of the elbow's fused rollout
+    at (7, 8): the solve of step 4 from states near the ground
+    (``assets.tree_states_near_ground``), with the primal carried from
+    step 3, as the rollout hands K5 its QPs."""
+    system = MultibodyLearnableSystem.from_urdfs(
+        {"elbow": assets.get_asset("elbow")}, DT, device="cpu")
+    params = system.initial_params(torch.float64)
+    x0 = torch.tensor(assets.tree_states_near_ground(
+        np.random.default_rng(21), QP_B, system.model))
+    traj = system.simulate_batch(params, x0, 4, use_fused=True)
+    with torch.no_grad():
+        _, w_carry = soa_forward_dynamics_batch(
+            system.model, params, traj[:, 3],
+            torch.zeros_like(traj[:, 0, :system.model.n_v]), DT,
+            ROLLOUT_EPS, CONTACT_FILTER_EPS, *ROLLOUT_BUDGET)
+        m, jc, qc, _, _ = soa_rollout_qp(system.model, params, traj[:, 4],
+                                         DT)
+    return m, jc, qc, w_carry.T.contiguous()
+
+
+def test_warm_solve_lanes_match_plain_bit_for_bit(host):
+    """K5 at the elbow's (7, 8) on the card's lanes a QP (``warm_lanes``,
+    a thread a lane, the last groups past the batch) against
+    ``soa_kernels.plain_packed`` with the C library's float64 square
+    roots, on the rollout's QPs at its budget: impulses, primal and valid
+    mask bit for bit."""
+    qps = _elbow_rollout_qps()
+    lanes = host.warm_lanes()
+    assert lanes > 1 and 8 % lanes == 0
+    got = host.warm_solve(*qps, ROLLOUT_EPS, *ROLLOUT_BUDGET, lanes=lanes,
+                          groups=QP_B + 11)
+    with _library_math():
+        want = soa_kernels.plain_packed(*qps, ROLLOUT_EPS, *ROLLOUT_BUDGET)
+    for what, a, b in zip(("force", "w", "valid"), got, want):
+        assert torch.equal(a, b), (
+            f"{what}: max abs difference "
+            f"{(a.double() - b.double()).abs().max().item():.3e}")
+    assert want[0][0].amax(dim=0).gt(1e-6).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_warm_solve_lanes_equal_one_thread(host, dtype):
+    """K5 at (7, 8) on the card's lanes a QP gives the one-thread body's
+    bits (``warm_solve_packed`` at L = 1, the old kernel's code), in
+    ``dtype``: with exactly the batch's groups and with the last groups
+    past its end, which must write nothing."""
+    qps = [t.to(dtype) for t in _elbow_rollout_qps()]
+    one = host.warm_solve(*qps, ROLLOUT_EPS, *ROLLOUT_BUDGET)
+    for groups in (QP_B, QP_B + 11):
+        got = host.warm_solve(*qps, ROLLOUT_EPS, *ROLLOUT_BUDGET,
+                              lanes=host.warm_lanes(), groups=groups)
+        for a, b in zip(one, got):
+            assert torch.equal(a, b), (dtype, groups)
+    assert one[0].dtype == dtype and bool(one[2].any())
+
+
+def _cube_inputs():
+    """The box cube at its initial parameters: the packed derived vector
+    and 16 batch-minor float64 transitions (``kernel_transitions``)."""
+    model = build_multibody_model({"cube": assets.get_asset("cube")})
+    x, x_plus, _ = kernel_transitions("cube_polygon", model,
+                                      np.random.default_rng(4))
+    params = MultibodyLearnableSystem(model, DT, device="cpu") \
+        .initial_params(torch.float64)
+    pvec = lk.pack_derived(model, derive_scalar_params(model,
+                                                       params)).detach()
+    return (model, pvec, torch.tensor(x).T.contiguous(),
+            torch.tensor(x_plus).T.contiguous())
+
+
+def test_cube_warm_body_matches_plain_bit_for_bit(host):
+    """The box cube's K3 as the card runs it (``cube_terms.cuh``'s
+    ``cube_loss_warm``, one thread a sample) from K1's impulses, and K1
+    (``cube_loss_cold``), against ``plain_loss_fwd_warm`` and
+    ``plain_loss_fwd`` with the C library's float64 square roots: the
+    loss, the impulses and the valid mask bit for bit."""
+    model, pvec, xin, xp = _cube_inputs()
+    cold = host.cube_loss(pvec, xin, xp, DT, LOSS_EPS, *COLD_BUDGET)
+    warm = host.cube_loss(pvec, xin, xp, DT, LOSS_EPS, *WARM_BUDGET,
+                          fprev=cold[1])
+    with _library_math():
+        want = (lk.plain_loss_fwd(model, pvec, xin, xp, DT, LOSS_EPS,
+                                  *COLD_BUDGET),
+                lk.plain_loss_fwd_warm(model, pvec, xin, xp, cold[1], DT,
+                                       LOSS_EPS, *WARM_BUDGET))
+    for got, ref in zip((cold, warm), want):
+        for what, a, b in zip(("loss", "impulse", "valid"), got, ref):
+            assert torch.equal(a, b), (
+                f"{what}: max abs difference "
+                f"{(a.double() - b.double()).abs().max().item():.3e}")
+    assert warm[1].abs().max() > 0 and bool(warm[2].all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cube_operation_counts(host, dtype):
+    """The box cube's K1 and K3 bodies (``cube_terms.cuh``) counted on
+    ``Counted`` in ``dtype``'s arithmetic, the counts their rows' bounds
+    take in ``chip_smoke.py``: positive, ``needed`` at most ``executed``,
+    the same on a second run and on three threads, and K3's warm (4, 10)
+    solve below K1's cold (10, 10)."""
+    _, pvec, xin, xp = _cube_inputs()
+    fprev = host.cube_loss(pvec, xin, xp, DT, LOSS_EPS, *COLD_BUDGET)[1]
+    args = [t.to(dtype) for t in (pvec, xin, xp)]
+    counts = {}
+    for kind, fin, budget in (("cold", None, COLD_BUDGET),
+                              ("warm", fprev.to(dtype), WARM_BUDGET)):
+        c = host.cube_count(kind, *args, fin, DT, LOSS_EPS, *budget)
+        assert 0 < c["needed"] <= c["executed"], kind
+        assert host.cube_count(kind, *args, fin, DT, LOSS_EPS, *budget) == c
+        assert host.cube_count(kind, *args, fin, DT, LOSS_EPS, *budget,
+                               threads=3) == c
+        counts[kind] = c
+    assert counts["warm"]["needed"] < counts["cold"]["needed"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_warm_solve_operation_counts(host, dtype):
+    """K5's body at (7, 8) (``warm_solve_packed``) counted on ``Counted``
+    in ``dtype``'s arithmetic, the count its row's bound takes in
+    ``chip_smoke.py``, on the rollout's QPs: positive, ``needed`` at most
+    ``executed``, the same on a second run and on three threads, and below
+    the plain version's count (torch's dense algebra)."""
+    qps = [t.to(dtype) for t in _elbow_rollout_qps()]
+    c = host.warm_solve_count(*qps, ROLLOUT_EPS, *ROLLOUT_BUDGET)
+    assert 0 < c["needed"] <= c["executed"]
+    assert host.warm_solve_count(*qps, ROLLOUT_EPS, *ROLLOUT_BUDGET) == c
+    assert host.warm_solve_count(*qps, ROLLOUT_EPS, *ROLLOUT_BUDGET,
+                                 threads=3) == c
+    plain = host_adjoint.count_torch_operations(
+        lambda: soa_kernels.plain_packed(*qps, ROLLOUT_EPS, *ROLLOUT_BUDGET))
+    assert c["needed"] < plain
