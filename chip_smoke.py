@@ -15,14 +15,19 @@ slower (PERF.md).
 1. Device: the card's name and power limit as ``nvidia-smi`` reports them.
    Build: every kernel of ``dair_pll_tpu_torch/csrc/`` into one library,
    with ``ptxas``'s register and spill report.
-2. Solve kernel against plain version (K5, ``csrc/warm_hybrid_solve.cu``):
-   the contact QPs of a cube rollout step at 8,192 samples with the
-   rollout budget (14, 6), eps = 1e-4: in float64 against the plain
-   PyTorch version on the card, and in float32 against the plain float32
-   version, with the samples where the two differ decided against the
-   plain float64 result. Times the kernel and the plain version with CUDA
-   events and computes the kernel's bound from the bytes it moves and the
-   operations the plain version counts.
+2. Solve kernel against plain version (K5, ``csrc/warm_hybrid_solve.cu``,
+   at the cube's (n_v, k) = (6, 4) on 4 lanes a QP): the contact QPs of a
+   cube rollout step at 8,192 samples with the rollout budget (14, 6), eps
+   = 1e-4, their first 8,191 and 1,001 (ragged batches, groups past the
+   end), and 65,536 (where float32 runs one thread a QP): in float64
+   against the plain PyTorch version on the card,
+   bit for bit, and in float32 against the plain float32 version, with the
+   samples where the two differ decided against the plain float64 result.
+   Times the kernel and the plain version with CUDA events and computes
+   the kernel's bound in each type from the bytes it moves and the
+   operations its own body needs on these QPs (counted on the host, as
+   for the elbow's K5 in phase 11), with the share of QPs with contact and
+   ptxas's lines in both types.
 3. Rollouts: ``MultibodyLearnableSystem.from_urdfs(cube)`` on the card,
    ``simulate_batch`` over 8,192 trajectories x 128 steps in float32 (the
    simulation-bench shape of the JAX package), with K5's launch count read
@@ -46,13 +51,17 @@ slower (PERF.md).
    the first 10 steps of 8 trajectories in float64 on the card and on the
    CPU.
 6. The vmapped stack and the APGD cone-solve kernel (K6,
-   ``csrc/apgd_cone_solve.cu``): K6 against its plain version on 8,192
-   problems each of the cube's vmapped loss QPs (k = 4) and random PSD
-   problems at k = 1, 4 and 9, float64 within 1e-9 (1 + |plain|) with
-   equal valid masks, float32 by the K5 rule; its times at 65,536 (the
-   batch the K6 route's training step hands it) and 262,144 cube loss QPs
-   (float32 and float64), the plain version's at 8,192, its bound and
-   ptxas's lines for it. Then the box cube's vmapped training
+   ``csrc/apgd_cone_solve.cu``, a group of 8, 16 or 32 lanes a problem):
+   K6 against its plain version on 8,192 problems each of the cube's
+   vmapped loss QPs (k = 4) and random PSD problems at k = 1, 4 and 9,
+   and on the random problems at 65,535 and 1,001 (ragged batches),
+   float64 within 1e-9 (1 + |plain|) with equal valid masks, float32 by
+   the K5 rule; its times at 65,536 (the batch the K6 route's training
+   step hands it) and 262,144 cube loss QPs (float32 and float64), the
+   plain version's at 8,192, its bound and ptxas's lines for it; the
+   share of diverged solutions (not finite or above 1e3) from K6 and its
+   plain version in float32 and float64 on 262,144 random k = 4 problems
+   at the recipe's ridge and at 1e-4. Then the box cube's vmapped training
    step at the reference recipe's batch of 256 (the default route: the
    hybrid solve in plain PyTorch, no kernel) and on the APGD kernel route
    at 256 and 65,536 (one K6 launch a step), 8 steps each; K6 on the
@@ -275,9 +284,29 @@ FWD_DESIGN = {"b2_q8_v7_k8": "terms on one thread a sample, then the solve "
               "b1_q7_v6_k4": "one thread a sample"}
 #: The box cube's K1 and K3 (``csrc/contactnets_loss.cu``).
 CUBE_FWD_DESIGN = "one thread a sample"
-#: K5's design at the elbow's (n_v, k) = (7, 8) (``kWarmLanes`` of
-#: ``csrc/hybrid_solve.cuh``).
+#: K5's design at the elbow's (n_v, k) = (7, 8) and the cube's (6, 4)
+#: (``kWarmLanes`` of ``csrc/hybrid_solve.cuh``).
 K5_DESIGN = "4 lanes a QP (two contacts a lane), 64-thread blocks"
+CUBE_K5_DESIGN = ("4 lanes a QP (one contact a lane), 64-thread blocks; "
+                  "one thread a QP in float32 from 32,768 QPs")
+#: Ragged batches the cube's K5 is also held against its plain version at
+#: (the first QPs of the rollout's), so that groups past the batch run;
+#: and a batch of rollout QPs at which float32 runs one thread a QP
+#: (``kWarmSoloFrom``), held and timed as well.
+K5_RAGGED_B = (8191, 1001)
+K5_LARGE_B = 65536
+#: K6's design (``csrc/apgd_cone_solve.cu``), and the ragged batches of
+#: random problems it is held against its plain version at, one problem
+#: per group width (k = 1, 4 and 9 on 8, 16 and 32 lanes).
+K6_DESIGN = ("a group of 8, 16 or 32 lanes a problem (16 at k = 4), the "
+             "iterate through shared memory")
+K6_RAGGED_B = (65535, 1001)
+#: Float32 APGD divergence: random k = 4 problems of the JAX package's
+#: recipe (Q = A A' + ridge I) at this batch and ridges, the recipe's and
+#: a worse-conditioned one; problems count as diverged when the solution
+#: is not finite or exceeds 1e3 (the solve's failure mask).
+DIVERGENCE_B = 262144
+DIVERGENCE_RIDGES = (0.1, 1e-4)
 #: H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
@@ -479,68 +508,91 @@ def check_float64(name: str, got, ref) -> float:
     return err.max().item()
 
 
-def phase_kernel(system, x0_64):
+def compare_solve(kernel, plain, q64, args, n_out, name: str) -> dict:
+    """A hybrid solve kernel against its plain version on float64 QPs and
+    on the same cast to float32: float64 within TOL64 (1 + |plain|) with
+    equal valid masks, float32 by the tail rule; the share of QPs with any
+    impulse. Raises on a failure."""
     import torch
+    q32 = tuple(t.float() for t in q64)
+    with torch.no_grad():
+        k64, p64 = kernel(*q64, *args), plain(*q64, *args)
+        k32, p32 = kernel(*q32, *args), plain(*q32, *args)
+    torch.cuda.synchronize()
+    err64 = max(check_float64(f"{name} output {i}", k64[i], p64[i])
+                for i in range(n_out))
+    if not torch.equal(k64[-1], p64[-1]):
+        raise AssertionError(f"float64 {name} valid masks differ")
+    tail, _ = float32_tails(k32, p32, p64)
+    return {"B": int(q64[0].shape[-1]), "max_abs_err_float64": err64,
+            "max_abs_err": max((k32[i] - p32[i]).abs().max().item()
+                               for i in range(n_out)),
+            "float64_bit_identical": all(torch.equal(k64[i], p64[i])
+                                         for i in range(n_out)),
+            "float32_tails": tail,
+            "valid_share": k32[-1].float().mean().item(),
+            "max_abs_impulse": p64[0].abs().max().item(),
+            "active_share": p64[0].abs().amax(dim=(0, 1)).gt(0).float()
+            .mean().item()}
+
+
+def phase_kernel(system, x0_64):
+    """The cube's K5 (6, 4) against its plain version on the rollout's
+    8,192 QPs (``rollout_qps``), on their first K5_RAGGED_B, whose last
+    groups lie past the batch, and on K5_LARGE_B rollout QPs, where
+    float32 runs one thread a QP (CUBE_K5_DESIGN); float64 bit for bit as
+    well. Its times at 8,192 (and K5_LARGE_B) in both types and its bound
+    in each from the operations its own body (``warm_solve_packed``) needs
+    on these QPs, counted by the host build; ptxas's lines of its lanes
+    in both types and of its one thread a QP in float32."""
+    import numpy as np
+    import torch
+    from dair_pll_tpu_torch import assets
     from dair_pll_tpu_torch.ops import soa_kernels
-    from dair_pll_tpu_torch.ops.host_adjoint import count_torch_operations
     kernel = soa_kernels.solve_warm_hybrid_soa_cuda_packed
     plain = soa_kernels.plain_packed
+    args = (EPS, *BUDGET)
 
     params64 = system.initial_params(torch.float64)
     qps64 = rollout_qps(system, params64, x0_64)
+    large64 = rollout_qps(system, params64, torch.tensor(
+        assets.cube_states_near_ground(np.random.default_rng(0), K5_LARGE_B),
+        dtype=torch.float64, device=x0_64.device))
+    checks = [compare_solve(kernel, plain, qps64, args, 2, "K5 (6, 4)")]
+    for n in K5_RAGGED_B:
+        checks.append(compare_solve(
+            kernel, plain, tuple(t[..., :n].contiguous() for t in qps64),
+            args, 2, f"K5 (6, 4) at {n}"))
+    checks.append(compare_solve(kernel, plain, large64, args, 2,
+                                f"K5 (6, 4) at {K5_LARGE_B}"))
+    if not all(c["float64_bit_identical"] for c in checks):
+        raise AssertionError("float64 K5 (6, 4) on lanes is not the plain "
+                             "version's bit for bit")
+    emit({"phase": "kernel_vs_plain", "budget": list(BUDGET),
+          "design": CUBE_K5_DESIGN, "checks": checks})
+
     qps32 = tuple(t.float() for t in qps64)
-
-    def run(fn, qps):
-        with torch.no_grad():
-            out = fn(*qps, EPS, *BUDGET)
-        torch.cuda.synchronize()
-        return out
-
-    k64, p64 = run(kernel, qps64), run(plain, qps64)
-    k32, p32 = run(kernel, qps32), run(plain, qps32)
-
-    # float64: every sample, force, w and the valid mask.
-    err64 = 0.0
-    for got, ref in zip(k64[:2], p64[:2]):
-        excess = (got - ref).abs() - TOL64 * (1 + ref.abs())
-        if excess.max().item() > 0:
-            raise AssertionError(
-                f"float64 kernel differs from the plain version by "
-                f"{(got - ref).abs().max().item():.3e}")
-        err64 = max(err64, (got - ref).abs().max().item())
-    if not torch.equal(k64[2], p64[2]):
-        raise AssertionError("float64 valid masks differ")
-
-    # float32: per-sample agreement, tails decided against float64.
-    tail, tails = float32_tails(k32, p32, p64)
-    agree = ~tails
-    err32 = max((g - r).abs().max().item() for g, r in zip(k32[:2], p32[:2]))
-    err32_agreeing = max((g[..., agree] - r[..., agree]).abs().max().item()
-                         for g, r in zip(k32[:2], p32[:2]))
-    emit({"phase": "kernel_vs_plain", "B": B, "budget": list(BUDGET),
-          "float64_max_abs_err": err64, "float32_max_abs_err": err32,
-          "float32_max_abs_err_agreeing": err32_agreeing,
-          "float32_tails": tail,
-          "valid_share": k32[2].float().mean().item()})
-
-    # Times at the main path's shapes (float32), and the kernel's bound.
+    timing = solve_timing(
+        kernel, plain, qps32, args, 2,
+        count=lambda q: host_model_terms().warm_solve_count(
+            *q, *args, threads=os.cpu_count() or 1))
+    large32 = tuple(t.float() for t in large64)
     with torch.no_grad():
-        ms = cuda_ms(lambda: kernel(*qps32, EPS, *BUDGET), reps=30)
-        ms64 = cuda_ms(lambda: kernel(*qps64, EPS, *BUDGET), reps=10)
-        plain_ms = cuda_ms(lambda: plain(*qps32, EPS, *BUDGET), reps=3,
-                           warmup=1)
-        ops = count_torch_operations(lambda: plain(*qps32, EPS, *BUDGET))
-    n_bytes = sum(t.numel() * t.element_size() for t in qps32) + \
-        sum(t.numel() * t.element_size() for t in k32)
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_OPS_PER_S["float32"] * 1e3
-    timing = {"ms": ms, "ms_float64": ms64, "plain_ms": plain_ms,
-              "bytes": n_bytes, "operations": ops,
-              "operations_per_sample": ops / B, "bytes_ms": bytes_ms,
-              "operations_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
-              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    emit({"phase": "kernel_timing", **timing})
-    return {"max_abs_err": err32, "max_abs_err_float64": err64, **timing}
+        timing[f"ms_at_{K5_LARGE_B}"] = cuda_ms(
+            lambda: kernel(*large32, *args), reps=20)
+        timing[f"ms_float64_at_{K5_LARGE_B}"] = cuda_ms(
+            lambda: kernel(*large64, *args), reps=10)
+    for key, mangled in (("ptxas", "IfLi6ELi4ELi4E"),
+                         ("ptxas_float64", "IdLi6ELi4ELi4E"),
+                         ("ptxas_one_thread", "IfLi6ELi4ELi1E")):
+        timing[key] = ptxas_lines("warm_hybrid_solve.cu",
+                                  "warm_hybrid_solve_kernel" + mangled)
+    timing["active_share"] = checks[0]["active_share"]
+    emit({"phase": "kernel_timing", "B": B, **timing})
+    return {"max_abs_err": max(c["max_abs_err"] for c in checks),
+            "max_abs_err_float64": max(c["max_abs_err_float64"]
+                                       for c in checks),
+            "design": CUBE_K5_DESIGN, **timing}
 
 
 def phase_rollout(system, x0_64):
@@ -1650,16 +1702,16 @@ def apgd_loss_qps(system, params, x, x_plus):
     return (delassus + LOSS_EPS * eye).contiguous(), q_vec.contiguous()
 
 
-def random_psd_qps(n_problems: int, k: int, device):
+def random_psd_qps(n_problems: int, k: int, device, ridge: float = 0.1):
     """Random PSD problems of the JAX package's
     ``tests/test_pallas_cone_solver.py`` recipe, float64: ``Q = A A' +
-    0.1 I``, ``q = 2 N(0, 1)``."""
+    ridge I`` (the recipe's ridge is 0.1), ``q = 2 N(0, 1)``."""
     import numpy as np
     import torch
     rng = np.random.default_rng(40 + k)
     n = 3 * k
     A = rng.standard_normal((n_problems, n, n))
-    Q = A @ np.swapaxes(A, -1, -2) + 0.1 * np.eye(n)
+    Q = A @ np.swapaxes(A, -1, -2) + ridge * np.eye(n)
     q = 2.0 * rng.standard_normal((n_problems, n))
     return (torch.tensor(Q, device=device), torch.tensor(q, device=device))
 
@@ -1711,8 +1763,10 @@ def compare_k6(Q64, q64, chunk=None):
     readings = {"B": n, "k": q64.shape[-1] // 3, "float64_max_abs_err": err64,
                 "float64_bit_identical": torch.equal(k64[0], p64[0]),
                 "float32_max_abs_err": (k32[0] - p32[0]).abs().max().item(),
+                "float32_bit_identical": torch.equal(k32[0], p32[0]),
                 "float32_tails": tail,
                 "valid_share": k32[1].float().mean().item(),
+                "valid_share_float64": k64[1].float().mean().item(),
                 "max_abs_impulse": p64[0].abs().max().item()}
     return readings, failures
 
@@ -1721,18 +1775,22 @@ def phase_apgd_kernel(system, x0_64):
     """K6 against its plain version on 8,192 problems of each of four
     kinds: the cube's vmapped loss QPs (steps 3 to 4 of its float64
     rollout from states near the ground, k = 4) and random PSD problems at
-    k = 1, 4 and 9. Reports every reading before it raises."""
+    k = 1, 4 and 9; then the random problems at the ragged batches of
+    K6_RAGGED_B (the plain version over chunks), whose last groups and
+    warps lie past the batch. Reports every reading before it raises."""
     import torch
     params64 = system.initial_params(torch.float64)
     traj = system.simulate_batch(params64, x0_64, 4, use_fused=True)
     kinds = {"cube_loss": apgd_loss_qps(system, params64, traj[:, 3],
-                                        traj[:, 4]),
-             "random_k1": random_psd_qps(B, 1, x0_64.device),
-             "random_k4": random_psd_qps(B, 4, x0_64.device),
-             "random_k9": random_psd_qps(B, 9, x0_64.device)}
+                                        traj[:, 4])}
+    for k in (1, 4, 9):
+        Q, q = random_psd_qps(max(K6_RAGGED_B), k, x0_64.device)
+        for n in (B, *K6_RAGGED_B):
+            kinds[f"random_k{k}" + ("" if n == B else f"_{n}")] = (
+                Q[:n].contiguous(), q[:n].contiguous())
     failures, result = [], {}
     for name, (Q, q) in kinds.items():
-        result[name], fails = compare_k6(Q, q)
+        result[name], fails = compare_k6(Q, q, APGD_PLAIN_CHUNK)
         failures += [f"{name}: {f}" for f in fails]
     emit({"phase": "apgd_kernel_vs_plain", "iterations": APGD_ITERATIONS,
           "failures": failures, **result})
@@ -1803,13 +1861,53 @@ def phase_apgd_timing(system):
     large = apgd_timing(Q32, q32, ops_per_problem)
     ptxas = ptxas_lines("apgd_cone_solve.cu")
     timing = {**main, "plain_ms": plain_ms, "plain_B": B,
-              "operations_per_problem": ops_per_problem}
+              "operations_per_problem": ops_per_problem,
+              "at_timing_b": large}
     emit({"phase": "apgd_kernel_timing", "dtype": "float32",
-          "iterations": APGD_ITERATIONS, "ptxas": ptxas, **timing,
-          "at_timing_b": large})
+          "iterations": APGD_ITERATIONS, "design": K6_DESIGN,
+          "ptxas": ptxas, **timing})
     del Q32, q32, small
     torch.cuda.empty_cache()
     return timing
+
+
+def phase_apgd_divergence(system):
+    """Float32 APGD divergence: the share of problems whose solution is
+    not finite or exceeds 1e3, from K6 and from its plain version (over
+    chunks), in float32 and float64, on DIVERGENCE_B random k = 4 problems
+    at each ridge of DIVERGENCE_RIDGES; the first diverged problems'
+    indices in float32 (``scripts/probe_apgd_divergence.py`` replays such
+    problems in the JAX package on the CPU)."""
+    import torch
+    from dair_pll_tpu_torch.ops import cone_kernels
+    from dair_pll_tpu_torch.ops.socp_solver import mask_failures
+    result = {}
+    for ridge in DIVERGENCE_RIDGES:
+        Q64, q64 = random_psd_qps(DIVERGENCE_B, 4, system.device, ridge)
+        entry = {}
+        for dtype in (torch.float32, torch.float64):
+            key = str(dtype).split(".")[1]
+            Q, q = Q64.to(dtype), q64.to(dtype)
+            with torch.no_grad():
+                kernel = cone_kernels.solve_cone_qp_cuda(Q, q,
+                                                         APGD_ITERATIONS)
+                plain = torch.cat([cone_kernels.plain_apgd(
+                    Q[s:s + APGD_PLAIN_CHUNK], q[s:s + APGD_PLAIN_CHUNK],
+                    APGD_ITERATIONS) for s in range(0, q.shape[0],
+                                                    APGD_PLAIN_CHUNK)])
+            for name, x in (("kernel", kernel), ("plain", plain)):
+                _, valid = mask_failures(x)
+                entry[f"{name}_{key}_diverged_share"] = (
+                    1.0 - valid.float().mean().item())
+            entry[f"kernel_{key}_diverged_first"] = torch.nonzero(
+                ~mask_failures(kernel)[1]).flatten()[:64].tolist()
+            entry[f"{key}_kernel_equals_plain"] = torch.equal(kernel, plain)
+            del Q, q, kernel, plain
+        result[f"ridge_{ridge:g}"] = entry
+        del Q64, q64
+        torch.cuda.empty_cache()
+    emit({"phase": "apgd_divergence", "B": DIVERGENCE_B, "k": 4,
+          "iterations": APGD_ITERATIONS, **result})
 
 
 def vmapped_trainer(system, x, x_plus, **route):
@@ -2206,35 +2304,16 @@ def phase_elbow_kernel(system, icnn_system, x0_64, x0_icnn):
             ("K4", cold, soa_kernels.plain_packed_cold,
              (LOSS_EPS, *COLD_BUDGET), 1)):
         q64 = qps[name]
-        q32 = tuple(t.float() for t in q64)
         if tuple(q64[1].shape[1:3]) != (7, 8):
             raise AssertionError(f"{name} QPs of shape {q64[1].shape}")
-        with torch.no_grad():
-            k64, p64 = kernel(*q64, *args), plain(*q64, *args)
-            k32, p32 = kernel(*q32, *args), plain(*q32, *args)
-        torch.cuda.synchronize()
-        err64 = max(check_float64(f"{name} (7, 8) output {i}", k64[i],
-                                  p64[i]) for i in range(n_out))
-        if not torch.equal(k64[-1], p64[-1]):
-            raise AssertionError(f"float64 {name} (7, 8) valid masks differ")
-        if name == "K5" and not all(torch.equal(k64[i], p64[i])
-                                    for i in range(n_out)):
+        out[name] = compare_solve(kernel, plain, q64, args, n_out,
+                                  f"{name} (7, 8)")
+        if name == "K5" and not out[name]["float64_bit_identical"]:
             raise AssertionError("float64 K5 (7, 8) on lanes is not the "
                                  "plain version's bit for bit")
-        tail, _ = float32_tails(k32, p32, p64)
-        err32 = max((k32[i] - p32[i]).abs().max().item()
-                    for i in range(n_out))
-        out[name] = {"max_abs_err_float64": err64, "max_abs_err": err32,
-                     "float64_bit_identical": all(
-                         torch.equal(k64[i], p64[i]) for i in range(n_out)),
-                     "float32_tails": tail,
-                     "valid_share": k32[-1].float().mean().item(),
-                     "max_abs_impulse": p64[0].abs().max().item(),
-                     "active_share": p64[0].abs().amax(dim=(0, 1)).gt(0)
-                     .float().mean().item()}
         if name == "K5":
             out[name].update(solve_timing(
-                kernel, plain, q32, args, 2,
+                kernel, plain, tuple(t.float() for t in q64), args, 2,
                 count=lambda q: host_model_terms().warm_solve_count(
                     *q, *args, threads=os.cpu_count() or 1)))
     for name, source, kernel in (
@@ -2778,6 +2857,7 @@ def main() -> int:
     run("icnn_rollout", phase_icnn_rollout, icnn_system, x0_icnn)
     k6 = run("apgd_kernel_vs_plain", phase_apgd_kernel, system, x0_64)
     k6.update(run("apgd_kernel_timing", phase_apgd_timing, system))
+    run("apgd_divergence", phase_apgd_divergence, system)
     k6_launches = run("vmapped_train", phase_vmapped_train, system)
     run("apgd_kernel_vs_plain_full", phase_apgd_full, system)
     run("vmapped_card_vs_cpu", phase_vmapped_vs_cpu,
@@ -2849,6 +2929,10 @@ def main() -> int:
     emit({"phase": "seconds", **seconds_of})
     emit({"phase": "device_state", **device_of})
 
+    #: The extra keys of a solve row whose bound its own body's count
+    #: gives.
+    own_count = ("design", "bound_ms_float64", "operations_per_sample",
+                 "operations_plain_per_sample")
     table = [{
         "name": "warm_hybrid_solve",
         "route": "cuda",
@@ -2862,6 +2946,7 @@ def main() -> int:
         "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
+        **{name: k[name] for name in own_count},
         "library_ms": None,
     }]
     for name, entry, line in (
@@ -2910,6 +2995,9 @@ def main() -> int:
         "max_abs_err_float64": k6["max_abs_err_float64"],
         "ms": k6["ms"],
         "ms_float64": k6["ms_float64"],
+        "ms_at_timing_b": k6["at_timing_b"]["ms"],
+        "ms_float64_at_timing_b": k6["at_timing_b"]["ms_float64"],
+        "design": K6_DESIGN,
         "plain_ms": k6["plain_ms"],
         "bound_ms": k6["bound_ms"],
         "bound_by": k6["bound_by"],
@@ -2931,14 +3019,10 @@ def main() -> int:
             "max_abs_err_float64": entry["max_abs_err_float64"],
             "ms": entry["ms"],
             "ms_float64": entry["ms_float64"],
-            **({"design": entry["design"]} if "design" in entry else {}),
             "plain_ms": entry["plain_ms"],
             "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"],
-            **({name: entry[name] for name in (
-                "bound_ms_float64", "operations_per_sample",
-                "operations_plain_per_sample")}
-               if "bound_ms_float64" in entry else {}),
+            **{name: entry[name] for name in own_count if name in entry},
             "library_ms": None,
         })
     for size, model_name, launches_of, times in (

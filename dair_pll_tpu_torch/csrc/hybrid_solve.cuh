@@ -1205,9 +1205,11 @@ __device__ __forceinline__ void warm_solve_packed(
 }
 
 // Lanes a QP of K5 at a size: 4 at the elbow's k = 8 (two contacts a
-// lane; 2 and 8 lanes were slower on an H100 at the rollout's 8,192 QPs,
-// scripts/probe_loss_lanes.py --solves, PERF.md); one thread a QP at the
-// cube's k = 4.
-template <int NV, int K> constexpr int kWarmLanes = K > 4 ? 4 : 1;
+// lane; 2 and 8 lanes were slower on an H100 at the rollout's 8,192 QPs)
+// and at the cube's k = 4 (one contact a lane; one thread and 2 lanes were
+// slower there). scripts/probe_loss_lanes.py --solves, PERF.md. Large
+// float32 batches at the cube's size run one thread a QP instead
+// (kWarmSoloFrom, warm_hybrid_solve.cu).
+template <int NV, int K> constexpr int kWarmLanes = 4;
 
 }  // namespace

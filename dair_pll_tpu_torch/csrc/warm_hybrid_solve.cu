@@ -14,32 +14,43 @@
 //
 // What bounds it on an H100: at the rollout batch (8,192 samples, cube:
 // n_v = 6, k = 4) it reads 126 and writes 19 values per sample, 4.75 MB in
-// f32, about 1.4 us at 3.35 TB/s; the arithmetic (about 10^5 operations per
-// sample at the (14, 6) budget) is a few us at the f32 vector peak. Neither
-// is reached: one thread per sample fills fewer than 2 warps per SM, each
-// thread runs a long dependent chain, and its ~300 live scalars spill to
-// local memory, so the kernel is bound by latency. The kernel keeps the
-// JAX public batch-minor layout, so that neighbouring threads read
-// neighbouring addresses, and masks the ragged edge instead of padding.
+// f32, about 1.4 us at 3.35 TB/s; its own body needs 74,426 operations a
+// QP there (HostModelTerms.warm_solve_count), 9.1 us at the f32 vector
+// peak. Neither is reached: one thread per sample fills fewer than 2 warps
+// per SM, each thread runs a long dependent chain, and its live scalars
+// spill to local memory, so the kernel is bound by latency. The kernel
+// keeps the JAX public batch-minor layout, so that neighbouring threads
+// read neighbouring addresses, and masks the ragged edge instead of
+// padding.
 //
-// The elbow's instantiation, (n_v, k) = (7, 8), runs each QP on 4 lanes of
-// a warp (kWarmLanes), two contacts a lane: each lane loads M whole and its
-// contacts' columns of Jc and qc, and the lanes exchange every sum over
+// So each QP runs on 4 lanes of a warp (kWarmLanes), one contact a lane at
+// the cube's (6, 4), two at the elbow's (7, 8): each lane loads M whole and
+// its contacts' columns of Jc and qc, and the lanes exchange every sum over
 // contacts through shared memory, folded in contact order, so the results
-// are one thread's bit for bit. One thread carrying the whole (7, 8) QP
-// (M, J's 168 values, the (3, 8) cone state) spilled 2,336 B a thread in
-// float32 and filled under 2 warps a multiprocessor at 8,192 QPs; on 4
-// lanes it holds 255 registers with 80 B of stack and fills 7.8 warps.
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W (scripts/probe_loss_lanes.py
-// --solves and its k5_* variants, PERF.md), in float32 (float64) on the
-// elbow's rollout QPs at (14, 6), 82% of them with contact: at 8,192 one
-// thread 0.98-1.01 ms (2.17-2.20), 2 lanes 0.49 (1.53-1.54), 4 lanes
-// 0.27-0.31 (0.55-0.57), 8 lanes (212 registers, no stack) 0.34-0.35
-// (0.56-0.58); at 65,536 4.78-4.82, 1.98, 1.73-1.78 and 2.22-2.27 ms.
-// Blocks of 32, 64 or 128 threads on 4 lanes lay within that spread. The
-// ICNN elbow's 65,536 warm loss QPs at initial parameters have no contact
-// (every impulse 0), so their times (4 lanes 1.26-1.35 ms) do not weigh
-// in the choice of lanes. Every design gave the same bits.
+// are one thread's bit for bit. Measured on an NVIDIA H100 80GB HBM3 at
+// 700 W (scripts/probe_loss_lanes.py --solves and its k5_* variants,
+// PERF.md), in float32 (float64) on the rollouts' QPs at (14, 6), 81-82%
+// of them with contact:
+//
+// - (6, 4), 8,192 QPs: one thread 0.34-0.37 ms (0.59-0.65; 255 registers,
+//   376 B of stack, f64 2,392 B), 2 lanes 0.23-0.24 (0.32-0.33), 4 lanes
+//   0.17-0.21 (0.25-0.28; 184 registers, no stack, f64 344 B); at 65,536
+//   QPs 0.69-0.76 (2.95-3.04), 0.78-0.79 (1.40-1.44), 0.97-1.00
+//   (1.51-1.59); on the ICNN cube's 262,144 warm loss QPs (no contact)
+//   1.57-1.66 (5.07-5.26), 1.96-2.06 (3.93-3.94), 2.64-2.69 (4.06-4.14).
+//   Once one thread a QP fills the card (132 multiprocessors x 8 warps at
+//   255 registers, 33,792 threads), the lanes only repeat the 6 x 6
+//   factors on each lane: so float32 batches of kWarmSoloFrom QPs or more
+//   run one thread a QP. In float64 one thread spills 2,392 B and stays
+//   behind at every batch.
+// - (7, 8), 8,192 QPs: one thread 0.98-1.01 ms (2.17-2.20; 2,336 B of
+//   stack), 2 lanes 0.49 (1.53-1.54), 4 lanes 0.27-0.31 (0.55-0.57; 80 B),
+//   8 lanes 0.34-0.35 (0.56-0.58); at 65,536 4.78-4.82, 1.98, 1.73-1.78
+//   and 2.22-2.27 ms. The ICNN elbow's 65,536 warm loss QPs have no
+//   contact at initial parameters and do not weigh in the choice.
+//
+// Blocks of 32, 64 or 128 threads on 4 lanes lay within each other's
+// spread at both sizes. Every design gave the same bits.
 //
 // Build: ops/soa_kernels.py compiles every source of this directory into one
 // library (no fast math: the solver relies on isfinite, NaN comparisons and
@@ -48,17 +59,26 @@
 // the line search would amplify). The device functions live in
 // hybrid_solve.cuh, shared with the ContactNets loss kernels.
 
+#include <climits>
+
 #include "hybrid_solve.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// Thread t is lane t % L of QP t / L (L = kWarmLanes: one thread a QP at the
-// cube's (6, 4), 4 lanes at the elbow's (7, 8)), in blocks of kBlock<L>
-// threads. On lanes, each group's slots (kLaneSlots values) sit in dynamic
-// shared memory, and a group past the batch solves the last QP again and
-// writes nothing, so that every lane of a warp meets each exchange.
+// Thread t is lane t % L of QP t / L (L = kWarmLanes, or 1 from
+// kWarmSoloFrom QPs on), in blocks of kBlock<L> threads. On lanes, each
+// group's slots (kLaneSlots values) sit in dynamic shared memory, and a
+// group past the batch solves the last QP again and writes nothing, so that
+// every lane of a warp meets each exchange.
 template <int L> constexpr int kBlock = L == 1 ? 32 : 64;
+
+// The batch from which K5 runs one thread a QP: the cube's (6, 4) in
+// float32 from about the batch at which one thread a QP fills an H100
+// (see above); never at the elbow's (7, 8) or in float64.
+template <typename T, int NV, int K>
+constexpr long long kWarmSoloFrom =
+    sizeof(T) == 4 && NV == 6 && K == 4 ? 32768 : LLONG_MAX;
 
 // The shared memory of a block on lanes, within the 48 KB a launch gets
 // without raising the kernel's limit.
@@ -88,11 +108,11 @@ __global__ void __launch_bounds__(kBlock<L>) warm_hybrid_solve_kernel(
   }
 }
 
-template <typename T, int NV, int K>
-int launch(const void* M, const void* Jc, const void* qc, const void* w0,
-           void* force, void* w, void* valid, long long B, double eps,
-           int ipm_iterations, int newton_iterations, void* stream) {
-  constexpr int L = kWarmLanes<NV, K>;
+template <typename T, int NV, int K, int L>
+int launch_lanes(const void* M, const void* Jc, const void* qc,
+                 const void* w0, void* force, void* w, void* valid,
+                 long long B, double eps, int ipm_iterations,
+                 int newton_iterations, void* stream) {
   constexpr size_t shared = kSharedBytes<T, NV, K, L>;
   static_assert(shared <= 48 * 1024, "a block's slots fit in 48 KB");
   const unsigned blocks = (unsigned)((B * L + kBlock<L> - 1) / kBlock<L>);
@@ -102,6 +122,20 @@ int launch(const void* M, const void* Jc, const void* qc, const void* w0,
           (T*)w, (unsigned char*)valid, B, eps, ipm_iterations,
           newton_iterations);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int NV, int K>
+int launch(const void* M, const void* Jc, const void* qc, const void* w0,
+           void* force, void* w, void* valid, long long B, double eps,
+           int ipm_iterations, int newton_iterations, void* stream) {
+  if constexpr (kWarmSoloFrom<T, NV, K> < LLONG_MAX)
+    if (B >= kWarmSoloFrom<T, NV, K>)
+      return launch_lanes<T, NV, K, 1>(M, Jc, qc, w0, force, w, valid, B,
+                                       eps, ipm_iterations,
+                                       newton_iterations, stream);
+  return launch_lanes<T, NV, K, kWarmLanes<NV, K>>(
+      M, Jc, qc, w0, force, w, valid, B, eps, ipm_iterations,
+      newton_iterations, stream);
 }
 
 }  // namespace

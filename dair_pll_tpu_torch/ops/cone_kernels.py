@@ -4,17 +4,20 @@ launch counter.
 Counterpart of ``dair_pll_tpu/ops/pallas_cone_solver.py``
 (``solve_cone_qp_pallas`` and ``solve_contact_impulse_pallas``, the TPU
 kernel ``_make_kernel``): the whole APGD solve of a batch of cone QPs in
-one launch of ``csrc/apgd_cone_solve.cu``, one warp per problem, built
-into the library of ``ops/soa_kernels.py``. For tensors on the CPU the
-wrappers call :func:`plain_apgd`; for CUDA tensors they launch the kernel
-or raise. ``solve_cone_qp_cuda.launches`` counts launches.
+one launch of ``csrc/apgd_cone_solve.cu``, a group of 8, 16 or 32 lanes
+of a warp per problem, built into the library of ``ops/soa_kernels.py``.
+For tensors on the CPU the wrappers call :func:`plain_apgd`; for CUDA
+tensors they launch the kernel or raise. ``solve_cone_qp_cuda.launches``
+counts launches.
 
 :func:`plain_apgd` runs the kernel's arithmetic in the kernel's order:
 each matvec sums over the columns in order; the dot products, the
 power-iteration norm ``sqrt(max(sum w^2, 1e-30))`` and the restart test
-sum as the kernel's warp reduction does (a halving tree over 32 lanes,
-zeros past ``n``). The lax APGD of ``ops/cone_solver.py`` differs in
-those orders and in its norm, ``max(||w||, 1e-30)``.
+sum as a 32-lane butterfly does (a halving tree over 32 lanes, zeros
+past ``n``), which the kernel's butterfly over its group of lanes equals
+bit for bit (``tests/test_torch_apgd_groups.py``). The lax APGD of
+``ops/cone_solver.py`` differs in those orders and in its norm,
+``max(||w||, 1e-30)``.
 """
 from __future__ import annotations
 
@@ -36,8 +39,9 @@ _LANES = 32
 
 
 def _warp_sum(v: Tensor) -> Tensor:
-    """Sum over the last axis (``n <= 32``) in the order of the kernel's
-    butterfly reduction: zeros to 32 lanes, then halves added pairwise."""
+    """Sum over the last axis (``n <= 32``) in the order of a 32-lane
+    butterfly reduction: zeros to 32 lanes, then halves added pairwise
+    (the kernel's butterfly over its group of lanes gives the same bits)."""
     v = torch.nn.functional.pad(v, (0, _LANES - v.shape[-1]))
     width = _LANES
     while width > 1:

@@ -6,8 +6,8 @@ with ``g++``: the box cube's ``cube_loss_vjp`` (``csrc/cube_adjoint.cuh``,
 the plain version by the tests) and a count of the arithmetic the sweep
 needs (K2's bound in ``chip_smoke.py``). :class:`HostModelTerms` also
 counts the forward bodies (the generic and the box cube's K1 and K3 bounds)
-and K5's body at the elbow's (7, 8) (its bound), and runs that body on
-lanes as the card does.
+and K5's body at the cube's (6, 4) and the elbow's (7, 8) (its bounds),
+and runs that body on lanes as the card does.
 
 A stand-in ``cuda_runtime.h`` turns the CUDA qualifiers into plain C++, so
 the device code compiles unchanged. The count runs the same code on
@@ -403,9 +403,10 @@ class HostAdjoint:
 #: box cube's ``cube_loss_cold``/``_warm`` (``cube_terms.cuh``) and
 #: ``cube_loss_vjp`` (``cube_adjoint.cuh``) in float64, to hold the generic
 #: code against the cube's, and ``cube_loss_cold``/``_warm`` counted (the
-#: cube's K1 and K3 bounds); and K5's body at the elbow's (7, 8)
-#: (``hybrid_solve.cuh``'s ``warm_solve_packed``) on one thread or on the
-#: card's lanes a QP, in float32 and float64, and counted (its bound).
+#: cube's K1 and K3 bounds); and K5's body at the sizes the card builds,
+#: the cube's (6, 4) and the elbow's (7, 8) (``hybrid_solve.cuh``'s
+#: ``warm_solve_packed``), on one thread or on the card's lanes a QP, in
+#: float32 and float64, and counted (its bounds).
 MODEL_BATCH = r"""#include <atomic>
 #include <limits>
 #include <thread>
@@ -713,37 +714,33 @@ static void run_warm_solve(const T* M, const T* Jc, const T* qc,
   }
 }
 
-// K5 at the elbow's (7, 8) on one thread a QP (lanes 1) or on the card's
-// kWarmLanes lanes a QP; returns 1 for another count of lanes.
-#define WARM_SOLVE_ENTRY(T, SUFFIX)                                          \
-  extern "C" int warm_solve_host_nv7_k8_##SUFFIX(                            \
+// K5 at (NV, K) on one thread a QP (lanes 1) or on the card's kWarmLanes
+// lanes a QP; returns 1 for another count of lanes.
+#define WARM_SOLVE_ENTRY(NV, K, T, SUFFIX)                                   \
+  extern "C" int warm_solve_host_nv##NV##_k##K##_##SUFFIX(                   \
       int lanes, const T* M, const T* Jc, const T* qc, const T* w0,          \
       long long n, long long groups, double eps, int ipm, int newton,        \
       T* force, T* w, unsigned char* valid) {                                \
-    constexpr int L = kWarmLanes<7, 8>;                                      \
+    constexpr int L = kWarmLanes<NV, K>;                                     \
     if (lanes == 1)                                                          \
-      run_warm_solve<T, 7, 8, 1>(M, Jc, qc, w0, n, groups, eps, ipm, newton, \
-                                 force, w, valid);                           \
+      run_warm_solve<T, NV, K, 1>(M, Jc, qc, w0, n, groups, eps, ipm,        \
+                                  newton, force, w, valid);                  \
     else if (lanes == L)                                                     \
-      run_warm_solve<T, 7, 8, L>(M, Jc, qc, w0, n, groups, eps, ipm, newton, \
-                                 force, w, valid);                           \
+      run_warm_solve<T, NV, K, L>(M, Jc, qc, w0, n, groups, eps, ipm,        \
+                                  newton, force, w, valid);                  \
     else                                                                     \
       return 1;                                                              \
     return 0;                                                                \
   }
-WARM_SOLVE_ENTRY(float, f32)
-WARM_SOLVE_ENTRY(double, f64)
-extern "C" int warm_lanes_nv7_k8() { return kWarmLanes<7, 8>; }
 
-// The counts of K5's body at (7, 8) (warm_solve_packed, one thread a QP) on
-// Counted<T> over the QPs [lo, hi) of n packed QPs, each read into a
+// The counts of K5's body at (NV, K) (warm_solve_packed, one thread a QP)
+// on Counted<T> over the QPs [lo, hi) of n packed QPs, each read into a
 // one-QP pack of data values.
-template <typename T>
+template <typename T, int NV, int K>
 static void warm_solve_count_run(const T* M, const T* Jc, const T* qc,
                                  const T* w0, long long n, long long lo,
                                  long long hi, double eps, int ipm,
                                  int newton) {
-  constexpr int NV = 7, K = 8;
   using S = Counted<T>;
   S m[NV * NV], jc[3 * NV * K], q[3 * K], w[NV], force[3 * K], w_out[NV];
   unsigned char valid;
@@ -759,16 +756,25 @@ static void warm_solve_count_run(const T* M, const T* Jc, const T* qc,
 
 // As count() for the loss bodies: counts = {needed, executed, recomputed
 // (none)}.
-#define WARM_SOLVE_COUNT_ENTRY(T, SUFFIX)                                    \
-  extern "C" void warm_solve_count_nv7_k8_##SUFFIX(                          \
+#define WARM_SOLVE_COUNT_ENTRY(NV, K, T, SUFFIX)                             \
+  extern "C" void warm_solve_count_nv##NV##_k##K##_##SUFFIX(                 \
       const T* M, const T* Jc, const T* qc, const T* w0, long long n,        \
       double eps, int ipm, int newton, int threads, long long* counts) {     \
     tally_on_threads(n, threads, counts, [&](long long lo, long long hi) {   \
-      warm_solve_count_run<T>(M, Jc, qc, w0, n, lo, hi, eps, ipm, newton);   \
+      warm_solve_count_run<T, NV, K>(M, Jc, qc, w0, n, lo, hi, eps, ipm,     \
+                                     newton);                                \
     });                                                                      \
   }
-WARM_SOLVE_COUNT_ENTRY(float, f32)
-WARM_SOLVE_COUNT_ENTRY(double, f64)
+
+// The sizes K5 is built for on the card (soa_kernels.KERNEL_SHAPES).
+#define WARM_SOLVE_SIZE(NV, K)                                               \
+  WARM_SOLVE_ENTRY(NV, K, float, f32)                                        \
+  WARM_SOLVE_ENTRY(NV, K, double, f64)                                       \
+  WARM_SOLVE_COUNT_ENTRY(NV, K, float, f32)                                  \
+  WARM_SOLVE_COUNT_ENTRY(NV, K, double, f64)                                 \
+  extern "C" int warm_lanes_nv##NV##_k##K() { return kWarmLanes<NV, K>; }
+WARM_SOLVE_SIZE(6, 4)
+WARM_SOLVE_SIZE(7, 8)
 
 // The counts of the box cube's K1 (cube_loss_cold, fin null) or K3
 // (cube_loss_warm from fin) on Counted<B> over the samples [lo, hi) of n.
@@ -873,7 +879,8 @@ class HostModelTerms:
     K2's gradient (``csrc/model_adjoint.cuh``) of any model the generic
     kernels cover, in float64 and counted; the box cube's loss (also
     counted) and gradient from ``cube_terms.cuh`` and ``cube_adjoint.cuh``;
-    and K5's body at (7, 8) as the card runs it, and counted."""
+    and K5's body at (6, 4) and (7, 8) as the card runs it, and
+    counted."""
 
     def __init__(self, work_dir: str, flags: Tuple[str, ...] = ()):
         # -O1: the unrolled bodies of every size and scalar make one large
@@ -893,15 +900,16 @@ class HostModelTerms:
         self._lib.cube_host_f64.argtypes = [_P] * 4 + [_LL, _D, _D, _I, _I] + \
             [_P] * 3
         for s in ("f32", "f64"):
-            getattr(self._lib, f"warm_solve_host_nv7_k8_{s}").argtypes = \
-                _WARM_SOLVE_ARGS
             getattr(self._lib, f"cube_count_{s}").argtypes = \
                 _CUBE_COUNT_ARGS
             getattr(self._lib, f"cube_count_{s}").restype = None
-            getattr(self._lib, f"warm_solve_count_nv7_k8_{s}").argtypes = \
-                _WARM_COUNT_ARGS
-            getattr(self._lib, f"warm_solve_count_nv7_k8_{s}").restype = None
-        self._lib.warm_lanes_nv7_k8.argtypes = []
+        for n_v, k in soa_kernels.KERNEL_SHAPES:
+            for s in ("f32", "f64"):
+                fn = getattr(self._lib, f"warm_solve_host_nv{n_v}_k{k}_{s}")
+                fn.argtypes = _WARM_SOLVE_ARGS
+                fn = getattr(self._lib, f"warm_solve_count_nv{n_v}_k{k}_{s}")
+                fn.argtypes, fn.restype = _WARM_COUNT_ARGS, None
+            getattr(self._lib, f"warm_lanes_nv{n_v}_k{k}").argtypes = []
         self._lib.cube_loss_vjp_f64.argtypes = \
             _SIGNATURES["cube_loss_vjp_f64"]
         for fn in (self._lib.cube_host_f64, self._lib.cube_loss_vjp_f64,
@@ -987,46 +995,53 @@ class HostModelTerms:
             ipm, newton, threads, counts.ctypes.data)
         return {"needed": int(counts[0]), "executed": int(counts[1])}
 
-    def warm_lanes(self) -> int:
-        """Lanes a QP of the card's K5 at the elbow's (7, 8)
-        (``kWarmLanes`` of ``csrc/hybrid_solve.cuh``)."""
-        return self._lib.warm_lanes_nv7_k8()
+    def warm_lanes(self, shape: Tuple[int, int]) -> int:
+        """Lanes a QP of the card's K5 at ``shape``, ``(n_v, k)``: the
+        cube's (6, 4) or the elbow's (7, 8) (``kWarmLanes`` of
+        ``csrc/hybrid_solve.cuh``)."""
+        n_v, k = shape
+        return getattr(self._lib, f"warm_lanes_nv{n_v}_k{k}")()
 
     def warm_solve(self, m: Tensor, jc: Tensor, qc: Tensor, w0: Tensor,
                    eps: float, ipm: int, newton: int, lanes: int = 1,
                    groups: Optional[int] = None
                    ) -> Tuple[Tensor, Tensor, Tensor]:
-        """K5's body at (7, 8) (``warm_solve_packed``) on packed QPs in
-        their dtype (float32 or float64), as the card runs it: one thread a
-        QP, or on ``lanes`` (``warm_lanes()``) lanes a QP over ``groups``
-        (at least the batch; those past it solve the last QP again and
-        write nothing). Returns ``(force (3, 8, B), w (7, B), valid
-        (B,))``, as ``soa_kernels.plain_packed``."""
+        """K5's body (``warm_solve_packed``) at the QPs' ``(n_v, k)``, from
+        ``jc (3, n_v, k, B)``, on packed QPs in their dtype (float32 or
+        float64), as the card runs it: one thread a QP, or on ``lanes``
+        (``warm_lanes((n_v, k))``) lanes a QP over ``groups`` (at least the
+        batch; those past it solve the last QP again and write nothing).
+        Returns ``(force (3, k, B), w (n_v, B), valid (B,))``, as
+        ``soa_kernels.plain_packed``."""
         dtype = _NP[m.dtype]
-        n = qc.shape[-1]
+        _, n_v, k, n = jc.shape
         ins = [self._array(t, dtype) for t in (m, jc, qc, w0)]
-        outs = [np.zeros((3, 8, n), dtype), np.zeros((7, n), dtype),
+        outs = [np.zeros((3, k, n), dtype), np.zeros((n_v, n), dtype),
                 np.zeros(n, dtype=np.uint8)]
-        if getattr(self._lib, f"warm_solve_host_nv7_k8_{_SUFFIX[m.dtype]}")(
+        entry = f"warm_solve_host_nv{n_v}_k{k}_{_SUFFIX[m.dtype]}"
+        if getattr(self._lib, entry)(
                 lanes, *[_ptr(a) for a in ins], n,
                 n if groups is None else groups, eps, ipm, newton,
                 *[_ptr(a) for a in outs]):
-            raise ValueError(f"no host build of K5 on {lanes} lanes a QP")
+            raise ValueError(f"no host build of K5 at {(n_v, k)} on {lanes} "
+                             f"lanes a QP")
         return (torch.from_numpy(outs[0]), torch.from_numpy(outs[1]),
                 torch.from_numpy(outs[2].astype(bool)))
 
     def warm_solve_count(self, m: Tensor, jc: Tensor, qc: Tensor,
                          w0: Tensor, eps: float, ipm: int, newton: int,
                          threads: int = 1) -> Dict:
-        """The operations K5's body at (7, 8) (``warm_solve_packed``) does
-        on packed QPs in their dtype (float32 or float64), on ``threads``
-        threads, as :meth:`cube_count` tallies the loss bodies:
-        ``{"needed": ..., "executed": ...}``."""
+        """The operations K5's body (``warm_solve_packed``) at the QPs'
+        ``(n_v, k)`` does on packed QPs in their dtype (float32 or
+        float64), on ``threads`` threads, as :meth:`cube_count` tallies the
+        loss bodies: ``{"needed": ..., "executed": ...}``."""
         dtype = _NP[m.dtype]
+        _, n_v, k, n = jc.shape
         ins = [self._array(t, dtype) for t in (m, jc, qc, w0)]
         counts = np.zeros(3, dtype=np.int64)
-        getattr(self._lib, f"warm_solve_count_nv7_k8_{_SUFFIX[m.dtype]}")(
-            *[_ptr(a) for a in ins], qc.shape[-1], eps, ipm, newton, threads,
+        getattr(self._lib, f"warm_solve_count_nv{n_v}_k{k}_"
+                           f"{_SUFFIX[m.dtype]}")(
+            *[_ptr(a) for a in ins], n, eps, ipm, newton, threads,
             counts.ctypes.data)
         return {"needed": int(counts[0]), "executed": int(counts[1])}
 

@@ -11,8 +11,9 @@ The warm hybrid solve kernel here is the counterpart of
 ``dair_pll_tpu/ops/soa_pallas.py``'s ``solve_warm_hybrid_soa_pallas`` (the
 TPU kernel ``_warm_kernel``): the whole solve of
 ``ops/soa_solver.solve_warm_hybrid_soa`` runs in one launch of
-``csrc/warm_hybrid_solve.cu``, one CUDA thread per sample at the cube's
-``(n_v, k)`` and 4 lanes of a warp per sample at the elbow's. For tensors on
+``csrc/warm_hybrid_solve.cu``, on 4 lanes of a warp per sample at the
+cube's ``(n_v, k)`` and at the elbow's (at the cube's, large float32
+batches one CUDA thread per sample). For tensors on
 the CPU the wrapper calls the plain version in ``ops/soa_solver.py``; for
 CUDA tensors it launches the kernel or raises.
 ``solve_warm_hybrid_soa_cuda.launches`` counts launches, and

@@ -16,21 +16,25 @@ For the checkout at ``--tree`` (this one by default):
   types;
 - with ``--solves``, instead of the loss kernels, the hybrid solve
   kernels that share the solve's source, K5 and K4 at (n_v, k) = (6, 4)
-  and (7, 8), timed in both types on the QPs of the box cube's and the
-  elbow's fused rollouts (``chip_smoke.rollout_qps``): K5 on 8,192, K4 on
-  65,536. K5 at (7, 8) also on 65,536 of the elbow's rollout QPs and on
-  the 65,536 QPs the ICNN elbow's warm loss hands it, each set with the
-  share of its QPs that have contact and a digest of K5's outputs in each
-  type (equal digests across trees and variants: equal bits), and on the
-  8,192 against ``soa_kernels.plain_packed`` in float64 bit for bit; with
-  ptxas's lines of K5 at (7, 8).
+  and (7, 8), on the QPs of the box cube's and the elbow's fused rollouts
+  (``chip_smoke.rollout_qps``): K4 on 65,536 in both types; K5 on 8,192
+  and 65,536 rollout QPs (at (6, 4) also 16,384, 32,768 and 49,152, about
+  where one thread a QP fills the card) and on the QPs an ICNN model's
+  warm loss hands it
+  (the ICNN cube's 262,144 at (6, 4), the ICNN elbow's 65,536 at (7, 8)),
+  each set with the share of its QPs that have contact, a digest of K5's
+  outputs in each type (equal digests across trees and variants: equal
+  bits) and its times in both types, and on the 8,192 against
+  ``soa_kernels.plain_packed`` in float64 bit for bit; with ptxas's lines
+  of K5 at both sizes.
 
 The data, checks and timing are this checkout's ``chip_smoke.py``; the
 package, and so the kernels' sources, are the ``--tree``'s, built under its
 ``build/kernels``. ``--variant NAME`` measures instead a copy of the
 tree's package under ``build/lane_probe/NAME/`` with the source edits of
 ``VARIANTS[NAME]``, designs the shipped kernels were measured against
-(the ``k5_*`` ones K5's at (7, 8), measured with ``--solves``). To compare
+(the ``k5_*`` ones K5's at (7, 8), the ``k5_cube_*`` ones K5's at (6,
+4), measured with ``--solves``). To compare
 two checkouts on one card, unpack the other into a directory
 ``.gitignore`` lists and run both in turns in one call:
 
@@ -47,30 +51,40 @@ import hashlib
 import importlib.util
 import json
 import os
+import re
 import shutil
 import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
-#: QPs K4 is timed on with ``--solves`` (K5 on ``chip_smoke.B``).
+#: QPs K4 is timed on with ``--solves``, and the rollout batches K5 is
+#: timed on at the cube's (6, 4): about where one thread a QP fills the
+#: card (``kWarmSoloFrom``), too.
 SOLVE_K4_B = 65536
-#: The lines of the solve's sources that set K5's layout at (7, 8): lanes a
-#: QP, threads a block, and the 48 KB of shared memory a block may hold.
-K5_LANES = "template <int NV, int K> constexpr int kWarmLanes = K > 4 ? 4 : 1;"
+CUBE_K5_BATCHES = (8192, 16384, 32768, 49152, 65536)
+#: The lines of the solve's sources that set K5's layout: lanes a QP (the
+#: whole line, whatever the tree's counts), threads a block, and the 48 KB
+#: of shared memory a block may hold.
+K5_LANES = re.compile(r"template <int NV, int K> constexpr int kWarmLanes = "
+                      r"[^;]*;")
 K5_BLOCK = "template <int L> constexpr int kBlock = L == 1 ? 32 : 64;"
 K5_SHARED = ('  static_assert(shared <= 48 * 1024, "a block\'s slots fit in '
              '48 KB");')
 
 
-def k5_design(lanes: int, threads: int) -> list:
-    """Edits that run K5 at (7, 8) on ``lanes`` lanes a QP in blocks of
-    ``threads`` threads, raising the kernel's shared memory past 48 KB
-    where the block needs it."""
-    hybrid = "hybrid_solve.cuh"
-    return [(hybrid, K5_LANES, K5_LANES.replace("? 4 :", f"? {lanes} :")),
+def k5_design(elbow: int, cube: int, threads: int,
+              one_thread_block: int = 32) -> list:
+    """Edits that run K5 on ``elbow`` lanes a QP at (7, 8) and ``cube`` at
+    (6, 4), in blocks of ``threads`` threads (``one_thread_block`` where a
+    QP has one thread), raising the kernel's shared memory past 48 KB where
+    the block needs it."""
+    return [("hybrid_solve.cuh", K5_LANES,
+             "template <int NV, int K> constexpr int kWarmLanes = "
+             f"K > 4 ? {elbow} : {cube};"),
             ("warm_hybrid_solve.cu", K5_BLOCK,
-             K5_BLOCK.replace(": 64;", f": {threads};")),
+             "template <int L> constexpr int kBlock = "
+             f"L == 1 ? {one_thread_block} : {threads};"),
             ("warm_hybrid_solve.cu", K5_SHARED,
              "  if (shared > 48 * 1024 && cudaFuncSetAttribute(\n"
              "          warm_hybrid_solve_kernel<T, NV, K, L>,\n"
@@ -79,16 +93,28 @@ def k5_design(lanes: int, threads: int) -> list:
              "    return (int)cudaGetLastError();")]
 
 
-#: Other designs of the generic K1/K3 and of K5 at (7, 8), as edits (file
-#: under ``csrc/``, old text, new text) of the shipped sources.
+#: Other designs of the generic K1/K3 and of K5, as edits (file under
+#: ``csrc/``, old text or pattern, new text) of the shipped sources.
 VARIANTS = {
     # K5 at (7, 8) on one thread a QP (its design before lanes), on 2 or 8
-    # lanes a QP, and on the shipped 4 in blocks of 32 or 128 threads.
-    "k5_one_thread": k5_design(1, 64),
-    "k5_lanes2": k5_design(2, 64),
-    "k5_lanes8": k5_design(8, 64),
-    "k5_block32": k5_design(4, 32),
-    "k5_block128": k5_design(4, 128),
+    # lanes a QP, and on the shipped 4 in blocks of 32 or 128 threads (the
+    # cube's at its shipped 4 lanes).
+    "k5_one_thread": k5_design(1, 4, 64),
+    "k5_lanes2": k5_design(2, 4, 64),
+    "k5_lanes8": k5_design(8, 4, 64),
+    "k5_block32": k5_design(4, 4, 32),
+    "k5_block128": k5_design(4, 4, 128),
+    # K5 at the cube's (6, 4) on one thread a QP in blocks of 64 (its
+    # design before lanes had blocks of 32), on 2 lanes a QP, and on the
+    # shipped 4 in blocks of 32 or 128 threads; and on 4 lanes at every
+    # batch, float32 included (the shipped kernel runs one thread a QP
+    # from kWarmSoloFrom QPs on).
+    "k5_cube_one_thread": k5_design(4, 1, 64, one_thread_block=64),
+    "k5_cube_lanes2": k5_design(4, 2, 64),
+    "k5_cube_block32": k5_design(4, 4, 32),
+    "k5_cube_block128": k5_design(4, 4, 128),
+    "k5_cube_lanes_always": [("warm_hybrid_solve.cu", "? 32768 : LLONG_MAX;",
+                              "? LLONG_MAX : LLONG_MAX;")],
     # One lane a contact at the elbow's size (8 lanes a sample).
     "lanes8": [("model_terms.cuh",
                 "constexpr int kFwdLanes = Z::K > 4 ? Z::K / 2 : 1;",
@@ -144,11 +170,14 @@ def variant_tree(tree: str, name: str) -> str:
         path = os.path.join(package, "csrc", source)
         with open(path) as handle:
             text = handle.read()
-        if text.count(old) != 1:
+        if not isinstance(old, re.Pattern):
+            old = re.compile(re.escape(old))
+        text, found = old.subn(lambda _: new, text)
+        if found != 1:
             raise RuntimeError(f"variant {name}: {source} does not hold "
-                               f"{old!r} once")
+                               f"{old.pattern!r} once")
         with open(path, "w") as handle:
-            handle.write(text.replace(old, new))
+            handle.write(text)
     return root
 
 
@@ -211,9 +240,8 @@ def loss_times(cs, check: bool) -> dict:
 def solve_times(cs, elbow) -> dict:
     """K5 and K4 at (6, 4) (the box cube) and (7, 8) (the elbow) on the
     QPs of their fused rollouts at the initial parameters, in ms, float32
-    and float64: K5 on 8,192 QPs at the rollout's budget, K4 on 65,536 at
-    the cold loss's; K5 at (7, 8) on more sets (``k5_sets``)."""
-    import numpy as np
+    and float64: K4 on 65,536 at the cold loss's budget; K5 on the sets of
+    ``k5_sets``."""
     import torch
     from dair_pll_tpu_torch import assets
     from dair_pll_tpu_torch.multibody.learnable_system import (
@@ -221,31 +249,41 @@ def solve_times(cs, elbow) -> dict:
     from dair_pll_tpu_torch.ops import soa_kernels
     cube = MultibodyLearnableSystem.from_urdfs(
         {"cube": assets.get_asset("cube")}, cs.DT)
+    kernel = soa_kernels.solve_contact_impulse_soa_cuda_packed
     out = {}
     for shape, system, states in (
-            ("nv6_k4", cube, lambda n: torch.tensor(
-                assets.cube_states_near_ground(np.random.default_rng(0), n),
-                dtype=torch.float64, device=cube.device)),
+            ("nv6_k4", cube, lambda n: cube_states(cs, cube, n)),
             ("nv7_k8", elbow, lambda n: cs.states_near_ground(elbow, n, 4))):
-        params = system.initial_params(torch.float64)
-        for name, n, kernel, args in (
-                ("K5", cs.B, soa_kernels.solve_warm_hybrid_soa_cuda_packed,
-                 lambda q: (*q, cs.EPS, *cs.BUDGET)),
-                ("K4", SOLVE_K4_B,
-                 soa_kernels.solve_contact_impulse_soa_cuda_packed,
-                 lambda q: (*q[:3], cs.LOSS_EPS, *cs.COLD_BUDGET))):
-            if (name, shape) == ("K5", "nv7_k8"):
-                continue
-            q64 = cs.rollout_qps(system, params, states(n))
-            for dtype in (torch.float32, torch.float64):
-                q = tuple(t.to(dtype) for t in q64)
-                with torch.no_grad():
-                    out[f"{name}_{shape}_{str(dtype).split('.')[1]}"] = \
-                        cs.cuda_ms(lambda: kernel(*args(q)), 5)
-            del q64, q
-            torch.cuda.empty_cache()
-    out["K5_nv7_k8"] = k5_sets(cs, elbow)
+        q64 = cs.rollout_qps(system, system.initial_params(torch.float64),
+                             states(SOLVE_K4_B))
+        for dtype in (torch.float32, torch.float64):
+            q = tuple(t.to(dtype) for t in q64[:3])
+            with torch.no_grad():
+                out[f"K4_{shape}_{str(dtype).split('.')[1]}"] = cs.cuda_ms(
+                    lambda: kernel(*q, cs.LOSS_EPS, *cs.COLD_BUDGET), 5)
+        del q64, q
+        torch.cuda.empty_cache()
+    out["K5_nv6_k4"] = k5_sets(cs, cube, (6, 4), CUBE_K5_BATCHES, (
+        ("icnn_loss_262144", lambda: icnn_warm_qps(
+            cs, MultibodyLearnableSystem.from_urdfs(
+                {"cube": assets.get_asset("cube_mesh")}, cs.DT),
+            cs.train_transitions, cs.ICNN_TRAIN_B)),))
+    out["K5_nv7_k8"] = k5_sets(cs, elbow, (7, 8), (cs.B, SOLVE_K4_B), (
+        ("icnn_loss_65536", lambda: icnn_warm_qps(
+            cs, cs.elbow_system("elbow_mesh"), cs.elbow_train_transitions,
+            cs.ELBOW_ICNN_B)),))
     return out
+
+
+def cube_states(cs, cube, n: int):
+    """The box cube's rollout states near the ground, as ``chip_smoke.py``
+    makes them."""
+    import numpy as np
+    import torch
+    from dair_pll_tpu_torch import assets
+    return torch.tensor(
+        assets.cube_states_near_ground(np.random.default_rng(0), n),
+        dtype=torch.float64, device=cube.device)
 
 
 def digest(outputs) -> str:
@@ -256,30 +294,28 @@ def digest(outputs) -> str:
     return h.hexdigest()[:16]
 
 
-def k5_sets(cs, elbow) -> dict:
-    """K5 at (7, 8) on the elbow's rollout QPs (8,192, the main path's
-    batch, and 65,536; budget (14, 6), eps 1e-4) and on the 65,536 QPs
-    the ICNN elbow's warm loss hands it (``icnn_warm_qps``): per set the
-    share of QPs with any impulse, the digest of the outputs and the time
-    in each type; on the 8,192, float64 against the plain version bit for
-    bit. ptxas's lines of K5 at (7, 8)."""
+def k5_sets(cs, system, shape, batches, loss_sets) -> dict:
+    """K5 at ``shape`` on the model's rollout QPs at ``batches`` (8,192,
+    the main path's batch, first; budget (14, 6), eps 1e-4) and on the sets of
+    ``loss_sets`` (name, maker of ``(qps, args)``: the QPs an ICNN
+    model's warm loss hands it): per set the share of QPs with any
+    impulse, the digest of the outputs and the time in each type; on the
+    8,192, float64 against the plain version bit for bit. ptxas's lines
+    of K5 at ``shape``."""
     import torch
     from dair_pll_tpu_torch.ops import soa_kernels
     kernel = soa_kernels.solve_warm_hybrid_soa_cuda_packed
-    params = elbow.initial_params(torch.float64)
+    params = system.initial_params(torch.float64)
     rollout = (cs.EPS, *cs.BUDGET)
-    out = {"ptxas": [line for mangled in ("IfLi7ELi8E", "IdLi7ELi8E")
-                     for line in cs.ptxas_lines(
-                         "warm_hybrid_solve.cu",
-                         "warm_hybrid_solve_kernel" + mangled)]}
-    sets = (("rollout_8192", lambda: (cs.rollout_qps(
-                elbow, params, cs.states_near_ground(elbow, cs.B, 4)),
-                rollout)),
-            ("rollout_65536", lambda: (cs.rollout_qps(
-                elbow, params, cs.states_near_ground(elbow, SOLVE_K4_B, 4)),
-                rollout)),
-            ("icnn_loss_65536", lambda: icnn_warm_qps(
-                cs, cs.elbow_system("elbow_mesh"))))
+    states = ((lambda n: cube_states(cs, system, n)) if shape == (6, 4) else
+              (lambda n: cs.states_near_ground(system, n, 4)))
+    n_v, k = shape
+    out = {"ptxas": [line for t in "fd" for line in cs.ptxas_lines(
+        "warm_hybrid_solve.cu",
+        f"warm_hybrid_solve_kernelI{t}Li{n_v}ELi{k}E")]}
+    sets = (*((f"rollout_{n}", lambda n=n: (cs.rollout_qps(
+                system, params, states(n)), rollout)) for n in batches),
+            *loss_sets)
     for name, make in sets:
         qps, args = make()
         entry = {"B": int(qps[0].shape[-1]), "args": list(args)}
@@ -304,16 +340,16 @@ def k5_sets(cs, elbow) -> dict:
     return out
 
 
-def icnn_warm_qps(cs, system):
+def icnn_warm_qps(cs, system, transitions, n: int):
     """The packed QPs ``(m, jc, qc, w0)`` and arguments ``(eps, ipm,
-    newton)`` the ICNN elbow's warm loss hands K5 at ELBOW_ICNN_B
-    transitions of the elbow's training recipe (float32, initial
-    parameters, warm-started from the cache's seed as
-    ``chip_smoke.phase_elbow_icnn_loss`` runs it), captured at
+    newton)`` an ICNN model's warm loss hands K5 at ``n`` transitions of
+    ``transitions(n, device)`` (the model's training recipe: float32,
+    initial parameters, warm-started from the cache's seed as
+    ``chip_smoke.py``'s ICNN phases run it), captured at
     ``solve_warm_hybrid_soa_cuda_packed``."""
     import torch
     from dair_pll_tpu_torch.ops import soa_kernels
-    x, x_plus = cs.elbow_train_transitions(cs.ELBOW_ICNN_B, system.device)
+    x, x_plus = transitions(n, system.device)
     params = system.initial_params(torch.float32)
     u = x.new_zeros((x.shape[0], 0))
     solve = soa_kernels.solve_warm_hybrid_soa_cuda_packed

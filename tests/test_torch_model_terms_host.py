@@ -457,22 +457,26 @@ def test_operation_counts_add_up(host, urdf_dir, dtype):
     assert whole["needed"] < autograd
 
 
-#: K5's rollout QPs: the elbow's fused rollout budget and regularization,
-#: and a batch that leaves the last block's groups past its end.
+#: K5's rollout QPs: the fused rollouts' budget and regularization, and a
+#: batch that leaves the last block's groups past its end.
 ROLLOUT_BUDGET, ROLLOUT_EPS, QP_B = (14, 6), 1e-4, 37
+#: K5's sizes, (n_v, k): the box cube's and the elbow's.
+WARM_SHAPES = {"cube": (6, 4), "elbow": (7, 8)}
 
 
 @functools.lru_cache(maxsize=None)
-def _elbow_rollout_qps():
-    """Packed float64 QPs ``(m, jc, qc, w0)`` of the elbow's fused rollout
-    at (7, 8): the solve of step 4 from states near the ground
-    (``assets.tree_states_near_ground``), with the primal carried from
-    step 3, as the rollout hands K5 its QPs."""
+def _rollout_qps(name: str):
+    """Packed float64 QPs ``(m, jc, qc, w0)`` of the fused rollout of the
+    box cube (``name`` ``cube``, at (6, 4)) or the elbow (at (7, 8)): the
+    solve of step 4 from states near the ground, with the primal carried
+    from step 3, as the rollout hands K5 its QPs."""
     system = MultibodyLearnableSystem.from_urdfs(
-        {"elbow": assets.get_asset("elbow")}, DT, device="cpu")
+        {name: assets.get_asset(name)}, DT, device="cpu")
     params = system.initial_params(torch.float64)
-    x0 = torch.tensor(assets.tree_states_near_ground(
-        np.random.default_rng(21), QP_B, system.model))
+    rng = np.random.default_rng(21)
+    x0 = torch.tensor(
+        assets.cube_states_near_ground(rng, QP_B) if name == "cube" else
+        assets.tree_states_near_ground(rng, QP_B, system.model))
     traj = system.simulate_batch(params, x0, 4, use_fused=True)
     with torch.no_grad():
         _, w_carry = soa_forward_dynamics_batch(
@@ -481,18 +485,21 @@ def _elbow_rollout_qps():
             ROLLOUT_EPS, CONTACT_FILTER_EPS, *ROLLOUT_BUDGET)
         m, jc, qc, _, _ = soa_rollout_qp(system.model, params, traj[:, 4],
                                          DT)
+    assert tuple(jc.shape[1:3]) == WARM_SHAPES[name]
     return m, jc, qc, w_carry.T.contiguous()
 
 
-def test_warm_solve_lanes_match_plain_bit_for_bit(host):
-    """K5 at the elbow's (7, 8) on the card's lanes a QP (``warm_lanes``,
-    a thread a lane, the last groups past the batch) against
-    ``soa_kernels.plain_packed`` with the C library's float64 square
-    roots, on the rollout's QPs at its budget: impulses, primal and valid
-    mask bit for bit."""
-    qps = _elbow_rollout_qps()
-    lanes = host.warm_lanes()
-    assert lanes > 1 and 8 % lanes == 0
+@pytest.mark.parametrize("name", sorted(WARM_SHAPES))
+def test_warm_solve_lanes_match_plain_bit_for_bit(host, name):
+    """K5 at the cube's (6, 4) and the elbow's (7, 8) on the card's lanes a
+    QP (``warm_lanes``, a thread a lane, the last groups past the batch)
+    against ``soa_kernels.plain_packed`` with the C library's float64
+    square roots, on the rollout's QPs at its budget: impulses, primal and
+    valid mask bit for bit."""
+    qps = _rollout_qps(name)
+    n_v, k = WARM_SHAPES[name]
+    lanes = host.warm_lanes((n_v, k))
+    assert lanes > 1 and k % lanes == 0
     got = host.warm_solve(*qps, ROLLOUT_EPS, *ROLLOUT_BUDGET, lanes=lanes,
                           groups=QP_B + 11)
     with _library_math():
@@ -505,16 +512,18 @@ def test_warm_solve_lanes_match_plain_bit_for_bit(host):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_warm_solve_lanes_equal_one_thread(host, dtype):
-    """K5 at (7, 8) on the card's lanes a QP gives the one-thread body's
-    bits (``warm_solve_packed`` at L = 1, the old kernel's code), in
-    ``dtype``: with exactly the batch's groups and with the last groups
-    past its end, which must write nothing."""
-    qps = [t.to(dtype) for t in _elbow_rollout_qps()]
+@pytest.mark.parametrize("name", sorted(WARM_SHAPES))
+def test_warm_solve_lanes_equal_one_thread(host, name, dtype):
+    """K5 at (6, 4) and (7, 8) on the card's lanes a QP gives the
+    one-thread body's bits (``warm_solve_packed`` at L = 1, the old
+    kernels' code), in ``dtype``: with exactly the batch's groups and with
+    the last groups past its end, which must write nothing."""
+    qps = [t.to(dtype) for t in _rollout_qps(name)]
     one = host.warm_solve(*qps, ROLLOUT_EPS, *ROLLOUT_BUDGET)
     for groups in (QP_B, QP_B + 11):
         got = host.warm_solve(*qps, ROLLOUT_EPS, *ROLLOUT_BUDGET,
-                              lanes=host.warm_lanes(), groups=groups)
+                              lanes=host.warm_lanes(WARM_SHAPES[name]),
+                              groups=groups)
         for a, b in zip(one, got):
             assert torch.equal(a, b), (dtype, groups)
     assert one[0].dtype == dtype and bool(one[2].any())
@@ -580,13 +589,14 @@ def test_cube_operation_counts(host, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_warm_solve_operation_counts(host, dtype):
-    """K5's body at (7, 8) (``warm_solve_packed``) counted on ``Counted``
-    in ``dtype``'s arithmetic, the count its row's bound takes in
-    ``chip_smoke.py``, on the rollout's QPs: positive, ``needed`` at most
-    ``executed``, the same on a second run and on three threads, and below
-    the plain version's count (torch's dense algebra)."""
-    qps = [t.to(dtype) for t in _elbow_rollout_qps()]
+@pytest.mark.parametrize("name", sorted(WARM_SHAPES))
+def test_warm_solve_operation_counts(host, name, dtype):
+    """K5's body at (6, 4) and (7, 8) (``warm_solve_packed``) counted on
+    ``Counted`` in ``dtype``'s arithmetic, the count its rows' bounds take
+    in ``chip_smoke.py``, on the rollout's QPs: positive, ``needed`` at
+    most ``executed``, the same on a second run and on three threads, and
+    below the plain version's count (torch's dense algebra)."""
+    qps = [t.to(dtype) for t in _rollout_qps(name)]
     c = host.warm_solve_count(*qps, ROLLOUT_EPS, *ROLLOUT_BUDGET)
     assert 0 < c["needed"] <= c["executed"]
     assert host.warm_solve_count(*qps, ROLLOUT_EPS, *ROLLOUT_BUDGET) == c
