@@ -37,11 +37,15 @@ slower (PERF.md).
 4. Cold solve kernel against plain version (K4, ``csrc/cold_hybrid_solve.cu``)
    on the deep-support (ICNN) cube's cold loss QPs at 8,192 samples of its
    own float64 rollout, (10, 10) at eps = 1e-3: float64 within 1e-9 (1 +
-   |plain|) with equal valid masks, float32 by the K5 rule; the same at
-   the ICNN training batch of 262,144, on the QPs the training step's cold
-   loss hands K4 (float32, and the same cast to float64), against the
-   plain version run over chunks. Then its times at the training batch
-   (float32 and float64), the plain version's at 8,192, and its bound.
+   |plain|) with equal valid masks and bit for bit, float32 by the K5
+   rule; the same at the ICNN training batch of 262,144, on the QPs the
+   training step's cold loss hands K4 (float32, and the same cast to
+   float64), against the plain version run over chunks. Then its times at
+   the training batch (float32 and float64), the plain version's at
+   8,192, its bound in each type from the operations its own body needs
+   (counted on the host on the first COUNT_B QPs, scaled), the shares of
+   its IPM and Newton iterations that were exact fixed points (where it
+   leaves the loop), its design and ptxas's lines.
    Then the ICNN cube's cold and warm loss in float64 on 16 transitions
    (8 of the training batch, 8 rollout steps in contact), with every
    leaf's gradient, on the card (K4, K5) against the CPU at the same
@@ -96,7 +100,9 @@ slower (PERF.md).
    of the same code (K1's and K3's on the first COUNT_B samples, scaled);
    K1 and K3 also in float64 and at each budget of SOLVE_BUDGETS, with the
    split into the terms, an IPM and a Newton iteration, and ptxas's lines
-   of the three in both types. Then the
+   of the three in both types; the shares of K1's IPM and Newton
+   iterations that were exact fixed points, where its solve leaves the
+   loop, and its operations without those exits. Then the
    three kernels at the training shape against their plain versions run
    over chunks of the batch, K2 with the mean's cotangent 1/B.
 10. Training: ``bench.py``'s workload on the card, float32, 2,097,152 cube
@@ -123,9 +129,15 @@ slower (PERF.md).
    10 steps of 8 in float64 on the card against the CPU; the ICNN
    elbow's cold and warm loss at 65,536 transitions (K4, K5 at (7, 8)),
    K4 on the 65,536 QPs that loss hands it against its plain version
-   over chunks (the same rules) with its times and bound there, then the
-   loss in float64 on 16 transitions with every leaf's gradient, card
-   against CPU. After phase 10: the generic K1, K3 and K2 against their
+   over chunks (the same rules) with its times, own-count bound and
+   fixed-point shares there, then the loss in float64 on 16 transitions
+   with every leaf's gradient, card against CPU; then K4 on its
+   contact-rich sets (the ICNN models' QPs at initial parameters have no
+   contact): the QPs of the box cube's (6, 4) and the elbow's (7, 8)
+   rollouts near the ground at 262,144 and 65,536, at (10, 10), against
+   the plain version at 8,192, 8,191 and 1,001 and over chunks of the
+   whole set (float64 bit for bit), its times, own-count bounds and
+   fixed-point shares there. After phase 10: the generic K1, K3 and K2 against their
    plain versions on 8,192 transitions of the elbow's, the polygon
    elbow's and the polygon cube's own rollouts (phase 9's rules); their
    times at 2,097,152 elbow transitions (the cube's recipe carried to the
@@ -284,6 +296,23 @@ FWD_DESIGN = {"b2_q8_v7_k8": "terms on one thread a sample, then the solve "
               "b1_q7_v6_k4": "one thread a sample"}
 #: The box cube's K1 and K3 (``csrc/contactnets_loss.cu``).
 CUBE_FWD_DESIGN = "one thread a sample"
+CUBE_K1_DESIGN = ("one thread a sample; the cold solve leaves its IPM and "
+                  "Newton loops at their exact fixed points")
+#: K4's design at each size (``kColdLanes`` of ``csrc/hybrid_solve.cuh``;
+#: ``kColdFewerFrom``, ``kColdIpmExits`` of ``csrc/cold_hybrid_solve.cu``).
+K4_EXITS = ("SAP-Newton leaves at its exact fixed point, a warp together; "
+            "in float64 the IPM too")
+K4_DESIGN = {
+    "nv6_k4": "4 lanes a QP (one contact a lane), 64-thread blocks; from "
+              "32,768 QPs one thread a QP in float32, 2 lanes in float64; "
+              + K4_EXITS,
+    "nv7_k8": "4 lanes a QP (two contacts a lane), 64-thread blocks; "
+              + K4_EXITS}
+#: K4's contact-rich sets: the QPs of the box cube's (6, 4) and the
+#: elbow's (7, 8) fused rollouts near the ground at the main path's
+#: batches of K4 at each size (the ICNN cube's training batch, the ICNN
+#: elbow's loss batch), solved at the cold loss's budget.
+K4_RICH_B = {"nv6_k4": 262144, "nv7_k8": 65536}
 #: K5's design at the elbow's (n_v, k) = (7, 8) and the cube's (6, 4)
 #: (``kWarmLanes`` of ``csrc/hybrid_solve.cuh``).
 K5_DESIGN = "4 lanes a QP (two contacts a lane), 64-thread blocks"
@@ -943,6 +972,15 @@ def phase_loss_timing(system, transitions, x_train, xp_train):
                     "bound_ms_float64": max(bytes_ms, ops_ms),
                     "bound_by_float64": ("bytes" if bytes_ms >= ops_ms
                                          else "operations")})
+    # K1's cold solve leaves its loops at their exact fixed points: the
+    # shares of its iterations that were, and its operations without the
+    # exits, on the same samples.
+    result["K1"]["exits"] = exit_readings(
+        lambda dtype, exits: host_terms.cube_count(
+            "cold", *(t.to(dtype) for t in (pvec, xin_t[:, cols],
+                                            xp_t[:, cols])), None, DT,
+            LOSS_EPS, *COLD_BUDGET, threads=os.cpu_count() or 1,
+            exits=bool(exits)), cols.stop, COLD_BUDGET)
     result["K3"]["count_seconds"] = time.perf_counter() - t0
     # K2's operations are not its plain version's (torch autograd's dense
     # algebra over the structural zeros and ones of Jw = [R | 0] and Jv =
@@ -1421,6 +1459,9 @@ def cold_solve_vs_plain_full(qps32, phase: str):
     if ((f64[0] - q64[0]).abs() - TOL64 * (1 + q64[0].abs())).max() > 0:
         failures.append(f"float64 K4 at {shape} differs from the plain "
                         f"version by {err64:.3e}")
+    if not torch.equal(f64[0], q64[0]):
+        failures.append(f"float64 K4 at {shape} is not the plain version's "
+                        f"bit for bit")
     if not torch.equal(f64[1], q64[1]):
         failures.append(f"float64 K4 valid masks differ at {shape}")
     try:
@@ -1469,6 +1510,9 @@ def phase_icnn_kernel(system, x0_64, x_train, xp_train):
     err64 = check_float64("K4 impulse", k64[0], p64[0])
     if not torch.equal(k64[1], p64[1]):
         raise AssertionError("float64 K4 valid masks differ")
+    if not torch.equal(k64[0], p64[0]):
+        raise AssertionError("float64 K4 is not the plain version's bit for "
+                             "bit")
     tail, _ = float32_tails(k32, p32, p64)
     err32 = (k32[0] - p32[0]).abs().max().item()
     emit({"phase": "icnn_kernel_vs_plain", "B": B,
@@ -1488,7 +1532,11 @@ def phase_icnn_kernel(system, x0_64, x_train, xp_train):
         train32, "icnn_kernel_vs_plain_full")
 
     # Times at the training batch (float32, as the training step runs
-    # it, and float64), the plain version's at 8,192, and the bound.
+    # it, and float64), the plain version's at 8,192, and the bound from
+    # the operations K4's own body needs on these QPs in each type (its
+    # count on the first COUNT_B, scaled; the plain version's count
+    # beside it), with the shares of its loops' iterations that were
+    # fixed points.
     with torch.no_grad():
         ms = cuda_ms(lambda: kernel(*train32, LOSS_EPS, *COLD_BUDGET),
                      reps=10)
@@ -1497,16 +1545,32 @@ def phase_icnn_kernel(system, x0_64, x_train, xp_train):
         result = kernel(*train32, LOSS_EPS, *COLD_BUDGET)
         plain_ms = cuda_ms(lambda: plain(*qps32, LOSS_EPS, *COLD_BUDGET),
                            reps=3, warmup=1)
-        ops = count_torch_operations(
+        plain_ops = count_torch_operations(
             lambda: plain(*qps32, LOSS_EPS, *COLD_BUDGET)) * (n_train / B)
+    t0 = time.perf_counter()
+    ops, ops64 = (k4_count(qps)["needed"] for qps in (train32, train64))
+    exits = k4_exit_readings(train32)
+    count_seconds = time.perf_counter() - t0
     n_bytes = sum(t.numel() * t.element_size() for t in train32 + result)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_OPS_PER_S["float32"] * 1e3
+    ops64_ms = ops64 / PEAK_OPS_PER_S["float64"] * 1e3
+    bytes64_ms = (2 * n_bytes - n_train) / HBM_BYTES_PER_S * 1e3
     timing = {"ms": ms, "ms_float64": ms64, "plain_ms": plain_ms,
               "plain_B": B, "bytes": n_bytes, "operations": ops,
-              "operations_per_sample": ops / n_train, "bytes_ms": bytes_ms,
-              "operations_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
-              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+              "operations_per_sample": ops / n_train,
+              "operations_float64": ops64,
+              "operations_plain": plain_ops,
+              "operations_plain_per_sample": plain_ops / n_train,
+              "count_B": min(COUNT_B, n_train),
+              "count_seconds": count_seconds, "exits": exits,
+              "bytes_ms": bytes_ms, "operations_ms": ops_ms,
+              "bound_ms": max(bytes_ms, ops_ms),
+              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+              "bound_ms_float64": max(bytes64_ms, ops64_ms),
+              "bound_by_float64": ("bytes" if bytes64_ms >= ops64_ms
+                                   else "operations"),
+              "design": K4_DESIGN["nv6_k4"], **k4_ptxas("nv6_k4")}
     emit({"phase": "icnn_kernel_timing", "B": n_train, "dtype": "float32",
           **timing})
     return {"max_abs_err": max(err32, full_err32),
@@ -2232,28 +2296,33 @@ def elbow_train_transitions(n: int, device):
             torch.tensor(x_plus, device=device))
 
 
-def solve_timing(kernel, plain, qps32, args, n_result, count=None) -> dict:
+def solve_timing(kernel, plain, qps32, args, n_result, count=None,
+                 plain_b=None) -> dict:
     """A solve kernel's times on float32 QPs (and the same cast to
-    float64), its plain version's, and its bound: the bytes it moves and
-    the operations its plain version counts, or, with ``count`` (QPs ->
-    ``{"needed": ...}``, the kernel's own body counted on the host), the
-    operations its own code needs on these QPs in each type (the plain
-    version's count then beside them as ``operations_plain``), with a
-    float64 bound of its own."""
+    float64), its plain version's (on the first ``plain_b`` QPs, if
+    given, its count scaled to the batch), and its bound: the bytes it
+    moves and the operations its plain version counts, or, with ``count``
+    (QPs -> ``{"needed": ...}``, the kernel's own body counted on the
+    host), the operations its own code needs on these QPs in each type
+    (the plain version's count then beside them as ``operations_plain``),
+    with a float64 bound of its own."""
     import torch
     from dair_pll_tpu_torch.ops.host_adjoint import count_torch_operations
     qps64 = tuple(t.double() for t in qps32)
+    n = qps32[0].shape[-1]
+    part = tuple(t[..., :plain_b].contiguous() for t in qps32) \
+        if plain_b is not None else qps32
     with torch.no_grad():
         ms = cuda_ms(lambda: kernel(*qps32, *args), reps=20)
         ms64 = cuda_ms(lambda: kernel(*qps64, *args), reps=10)
         result = kernel(*qps32, *args)
-        plain_ms = cuda_ms(lambda: plain(*qps32, *args), reps=3, warmup=1)
-        ops = count_torch_operations(lambda: plain(*qps32, *args))
-    n = qps32[0].shape[-1]
+        plain_ms = cuda_ms(lambda: plain(*part, *args), reps=3, warmup=1)
+        ops = count_torch_operations(lambda: plain(*part, *args)) * (
+            n / part[0].shape[-1])
     n_bytes = sum(t.numel() * t.element_size()
                   for t in qps32 + tuple(result[:n_result]))
     out = {"ms": ms, "ms_float64": ms64, "plain_ms": plain_ms,
-           "bytes": n_bytes}
+           "plain_B": part[0].shape[-1], "bytes": n_bytes}
     if count is not None:
         t0 = time.perf_counter()
         own = {dtype: count(tuple(t.cpu() for t in qps))["needed"]
@@ -2324,6 +2393,77 @@ def phase_elbow_kernel(system, icnn_system, x0_64, x0_icnn):
             out[name][key] = ptxas_lines(source, kernel + mangled)
     out["K5"]["design"] = K5_DESIGN
     emit({"phase": "elbow_kernel_vs_plain", "B": B, **out})
+    return out
+
+
+def phase_k4_contact_rich(cube, elbow) -> dict:
+    """K4 on its contact-rich sets: the QPs of the box cube's (6, 4) and
+    the elbow's (7, 8) fused rollouts near the ground, at the main path's
+    batch of K4 at each size (K4_RICH_B), solved at the cold loss's budget
+    (the ICNN models' QPs at initial parameters have no contact). At each
+    size: against its plain version at 8,192 QPs and at the ragged
+    K5_RAGGED_B (the first of them), float64 bit for bit with equal valid
+    masks, float32 by the K5 rule; on the whole set against the plain
+    version over chunks (``cold_solve_vs_plain_full``); its times there in
+    both types, the plain version's at 8,192, its bound in each type from
+    the operations its own body needs on these QPs (counted on the first
+    COUNT_B), the shares of QPs with contact and of its loops' iterations
+    that were fixed points, its design and ptxas's lines. Reports every
+    reading before it raises; returns the readings by size."""
+    import numpy as np
+    import torch
+    from dair_pll_tpu_torch import assets
+    from dair_pll_tpu_torch.ops import soa_kernels
+    kernel = soa_kernels.solve_contact_impulse_soa_cuda_packed
+    plain = soa_kernels.plain_packed_cold
+    args = (LOSS_EPS, *COLD_BUDGET)
+    out, failures = {}, []
+    for shape, system in (("nv6_k4", cube), ("nv7_k8", elbow)):
+        n = K4_RICH_B[shape]
+        x0 = (torch.tensor(assets.cube_states_near_ground(
+            np.random.default_rng(0), n), dtype=torch.float64,
+            device=system.device) if shape == "nv6_k4" else
+              states_near_ground(system, n, 4))
+        qps64 = rollout_qps(system, system.initial_params(torch.float64),
+                            x0)[:3]
+        del x0
+        entry = {"B": n, "checks": []}
+        for b in (B, *K5_RAGGED_B):
+            name = f"K4 {shape} at {b}"
+            try:
+                c = compare_solve(kernel, plain, tuple(
+                    t[..., :b].contiguous() for t in qps64), args, 1, name)
+            except AssertionError as exc:
+                failures.append(str(exc))
+                continue
+            if not c["float64_bit_identical"]:
+                failures.append(f"float64 {name} is not the plain "
+                                f"version's bit for bit")
+            entry["checks"].append(c)
+        qps32 = tuple(t.float() for t in qps64)
+        del qps64
+        torch.cuda.empty_cache()
+        try:
+            cold_solve_vs_plain_full(qps32, f"k4_contact_rich_full_{shape}")
+        except AssertionError as exc:
+            failures.append(str(exc))
+        with torch.no_grad():
+            force = kernel(*qps32, *args)[0]
+        entry["contact_share"] = force.abs().amax(dim=(0, 1)).gt(0).float() \
+            .mean().item()
+        del force
+        entry.update(solve_timing(kernel, plain, qps32, args, 2,
+                                  count=k4_count, plain_b=B))
+        entry.update({"count_B": min(COUNT_B, n),
+                      "exits": k4_exit_readings(qps32),
+                      "design": K4_DESIGN[shape], **k4_ptxas(shape)})
+        out[shape] = entry
+        del qps32
+        torch.cuda.empty_cache()
+    emit({"phase": "k4_contact_rich", "budget": list(COLD_BUDGET),
+          "failures": failures, **out})
+    if failures:
+        raise AssertionError("; ".join(failures))
     return out
 
 
@@ -2484,7 +2624,10 @@ def phase_elbow_icnn_loss(system, x0_icnn):
     k4 = {"B": x.shape[0], "max_abs_err": err32, "max_abs_err_float64": err64,
           **solve_timing(soa_kernels.solve_contact_impulse_soa_cuda_packed,
                          soa_kernels.plain_packed_cold, qps32,
-                         (LOSS_EPS, *COLD_BUDGET), 2)}
+                         (LOSS_EPS, *COLD_BUDGET), 2, count=k4_count),
+          "count_B": min(COUNT_B, x.shape[0]),
+          "exits": k4_exit_readings(qps32), "design": K4_DESIGN["nv7_k8"],
+          **k4_ptxas("nv7_k8")}
     emit({"phase": "elbow_icnn_kernel_timing", "dtype": "float32", **k4})
     del qps32
     half = 8
@@ -2523,6 +2666,82 @@ def phase_elbow_loss_kernels(systems: dict, x0s: dict):
         inputs[name] = (x64, xp64, pvec)
     emit({"phase": "elbow_loss_kernels_vs_plain", "B": B, **out})
     return out, inputs
+
+
+def k4_exits(dtype, exits="card"):
+    """K4's exits for the host count (``cold_solve_count``): as the card
+    runs them in ``dtype`` (``"card"``: SAP-Newton's, in float64 the IPM's
+    too, ``kColdIpmExits`` of ``csrc/cold_hybrid_solve.cu``), or as
+    given."""
+    import torch
+    if exits != "card":
+        return exits
+    return True if dtype == torch.float64 else "newton"
+
+
+def k4_count(qps, exits="card") -> dict:
+    """K4's own body (``hybrid_solve.cuh``'s ``cold_solve_packed``, its
+    fixed-point exits as the card runs them, or ``exits`` as
+    ``cold_solve_count`` takes them) counted by the host build on the
+    first COUNT_B of the packed QPs ``(m, jc, qc)``, in their dtype, at
+    the cold loss's budget: the tallies scaled to the batch."""
+    n = qps[0].shape[-1]
+    m = min(COUNT_B, n)
+    c = host_model_terms().cold_solve_count(
+        *(t[..., :m].cpu() for t in qps[:3]), LOSS_EPS, *COLD_BUDGET,
+        threads=os.cpu_count() or 1, exits=k4_exits(qps[0].dtype, exits))
+    return {key: value * n / m for key, value in c.items()}
+
+
+def exit_readings(count, n: int, budget) -> dict:
+    """The exact fixed points of a cold solve over n samples in each type
+    (``count(dtype, exits)``: the host build's tallies of its body with
+    exits ``"card"``, as the kernel runs them, True, both loops', or
+    False, none): the shares of the IPM and Newton iterations that
+    repeated the one before, and the operations the body needs with the
+    kernel's exits, with both loops' and with none."""
+    import torch
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        card, both, off = (count(dtype, exits)
+                           for exits in ("card", True, False))
+        out[str(dtype).split(".")[1]] = {
+            "ipm_fixed_share": both["ipm_fixed"] / (n * budget[0]),
+            "newton_fixed_share": both["newton_fixed"] / (n * budget[1]),
+            "operations_per_sample": card["needed"] / n,
+            "operations_per_sample_both_exits": both["needed"] / n,
+            "operations_per_sample_without_exits": off["needed"] / n,
+            "operations_ratio": card["needed"] / off["needed"]}
+    return out
+
+
+def k4_exit_readings(qps) -> dict:
+    """``exit_readings`` of K4 on the packed QPs (counted on the first
+    COUNT_B)."""
+    return exit_readings(
+        lambda dtype, exits: k4_count(tuple(t.to(dtype) for t in qps[:3]),
+                                      exits),
+        qps[0].shape[-1], COLD_BUDGET)
+
+
+def k4_ptxas(shape: str) -> dict:
+    """ptxas's lines of K4 at a size (``nv6_k4``, ``nv7_k8``) in float32
+    and float64: on 4 lanes, on one thread and on other lanes a QP, as
+    built."""
+    n_v, k = shape[2], shape[5]
+    out = {}
+    for key, t in (("ptxas", "f"), ("ptxas_float64", "d")):
+        name = f"cold_hybrid_solve_kernelI{t}Li{n_v}ELi{k}E"
+        for lanes in range(1, 33):
+            lines = ptxas_lines("cold_hybrid_solve.cu", f"{name}Li{lanes}E")
+            if lines:
+                out[key if lanes == 4 else f"{key}_one_thread" if lanes == 1
+                    else f"{key}_lanes{lanes}"] = lines
+        if not out.get(key) and not out.get(f"{key}_one_thread"):
+            # A kernel that takes no lanes argument: one thread a QP.
+            out[f"{key}_one_thread"] = ptxas_lines("cold_hybrid_solve.cu",
+                                                   name + "E")
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -2877,6 +3096,7 @@ def main() -> int:
     icnn_elbow_launches, k4_main = run(
         "elbow_icnn_loss", phase_elbow_icnn_loss, icnn_elbow, x0_icnn_elbow)
     elbow_k4 = icnn_elbow_launches["K4"]["nv7_k8"]
+    k4_rich = run("k4_contact_rich", phase_k4_contact_rich, system, elbow)
     # K4's row: its errors on the rollout's and on the main path's QPs,
     # its times and bound at the main path's shape.
     k45["K4"] = {**k4_main, **{name: max(k45["K4"][name], k4_main[name])
@@ -2933,6 +3153,16 @@ def main() -> int:
     #: gives.
     own_count = ("design", "bound_ms_float64", "operations_per_sample",
                  "operations_plain_per_sample")
+
+    def contact_rich(shape: str) -> dict:
+        """K4's readings on its contact-rich set at a size."""
+        entry = k4_rich[shape]
+        return {"B_contact_rich": entry["B"],
+                "ms_contact_rich": entry["ms"],
+                "ms_float64_contact_rich": entry["ms_float64"],
+                "bound_ms_contact_rich": entry["bound_ms"],
+                "bound_ms_float64_contact_rich": entry["bound_ms_float64"],
+                "exits_contact_rich": entry["exits"]}
     table = [{
         "name": "warm_hybrid_solve",
         "route": "cuda",
@@ -2964,10 +3194,14 @@ def main() -> int:
             "ms": loss_times[name]["ms"],
             "ms_float64": loss_times[name]["ms_float64"],
             "design": ("reverse-mode adjoint, one sweep per sample"
-                       if name == "K2" else CUBE_FWD_DESIGN),
+                       if name == "K2" else CUBE_K1_DESIGN if name == "K1"
+                       else CUBE_FWD_DESIGN),
             "plain_ms": loss_times[name]["plain_ms"],
             "bound_ms": loss_times[name]["bound_ms"],
             "bound_by": loss_times[name]["bound_by"],
+            **{key: loss_times[name][key]
+               for key in ("bound_ms_float64", "exits")
+               if key in loss_times[name]},
             "library_ms": None,
         })
     table.append({
@@ -2983,6 +3217,8 @@ def main() -> int:
         "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"],
+        **{name: k4[name] for name in own_count},
+        **contact_rich("nv6_k4"),
         "library_ms": None,
     })
     table.append({
@@ -3023,6 +3259,7 @@ def main() -> int:
             "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"],
             **{name: entry[name] for name in own_count if name in entry},
+            **(contact_rich("nv7_k8") if key == "K4" else {}),
             "library_ms": None,
         })
     for size, model_name, launches_of, times in (

@@ -58,6 +58,17 @@
 // sample and 23.4 ms on 4 (their Newton iterations 0.92 and 1.78 ms
 // against 0.56: at (6, 4) each lane repeats the 6 x 6 factors and solves
 // for too few contacts). So one thread a sample stays.
+// K1's cold solve leaves its IPM and SAP-Newton loops at their exact fixed
+// points (hybrid_solve.cuh's exits), a warp once all its threads are at
+// theirs, with the same bits. On the box cube's 2,097,152 training
+// transitions on an NVIDIA H100 80GB HBM3 at 700 W (scripts/probe_cube_k3.py
+// --k1, PERF.md): 13.7-14.1 ms without the exits, 11.2-11.5 ms with them
+// in float32 (an IPM iteration 0.77 -> 0.50 ms on average: in float32 mu
+// freezes in 42% of the IPM iterations); float64 gains nothing (62-64
+// ms). Each thread leaving on its own gave the same times; fewer live
+// values in the solve (the Newton matrix factored in place, the line
+// search's candidates streamed) 1-2% in float32 and none in float64, with
+// the same registers and stack, so the solve stays as it is.
 
 #include "cube_adjoint.cuh"
 
@@ -112,14 +123,18 @@ __global__ void __launch_bounds__(kThreads) contactnets_loss_fwd_kernel(
     int ipm_iterations, int newton_iterations) {
   S p[kCubeP];
   load_params<S>(pvec, p);
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  // A thread past the batch solves the last sample again and writes
+  // nothing, so that every thread of a warp meets each vote of the solve's
+  // exits.
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long b = t < B ? t : B - 1;
   S x[kCubeNX], x_plus[kCubeNX], f[3][kCubeK];
   load_states<S>(xin, xp, B, b, x, x_plus);
   bool ok;
-  const S l = cube_loss_cold<S>(p, x, x_plus, S(dt), eps, ipm_iterations,
-                                newton_iterations, f, ok);
-  store_solution<S>(l, f, ok, B, b, loss, force, valid);
+  const S l = cube_loss_cold<S, true, WarpSolo>(p, x, x_plus, S(dt), eps,
+                                                ipm_iterations,
+                                                newton_iterations, f, ok);
+  if (t < B) store_solution<S>(l, f, ok, B, b, loss, force, valid);
 }
 
 // K3.

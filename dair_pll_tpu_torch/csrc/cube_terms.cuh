@@ -525,18 +525,21 @@ __device__ __forceinline__ void problem_from(const LossParts<S>& lp,
 }
 
 // K1's body: terms, the cold hybrid solve, the loss. Writes the impulse;
-// returns the loss and sets valid.
-template <typename S>
+// returns the loss and sets valid. kExits: the solve leaves its loops at
+// their exact fixed points (hybrid_solve.cuh), as K1 runs it, its samples
+// voting by the group type G (WarpSolo on the card).
+template <typename S, bool kExits = true, typename G = Solo>
 __device__ S cube_loss_cold(const S (&p)[kCubeP], const S (&x)[kCubeNX],
                             const S (&xp)[kCubeNX], S dt, double eps,
                             int ipm_iterations, int newton_iterations,
-                            S (&force)[3][kCubeK], bool& valid) {
+                            S (&force)[3][kCubeK], bool& valid,
+                            const G& g = G()) {
   LossParts<S> lp;
   cube_parts_at<S>(p, x, xp, dt, lp);
   Problem<S, kCubeNV, kCubeK> P;
   problem_from<S>(lp, eps, P);
-  valid = cold_hybrid_solve<S, kCubeNV, kCubeK>(P, ipm_iterations,
-                                                newton_iterations, force);
+  valid = cold_hybrid_solve<S, kCubeNV, kCubeK, G, kExits, kExits>(
+      P, ipm_iterations, newton_iterations, force, g);
   return cube_loss_assemble<S>(lp, force, valid, S(eps));
 }
 

@@ -62,13 +62,42 @@ template <typename T> __device__ __forceinline__ T nan_to_num(T x) {
 }
 
 // ---------------------------------------------------------------------------
-// The lanes of one sample. A group type has kLanes and lane(); with more than
-// one lane also slots() (the group's scratch, kLaneSlots values) and sync()
-// (a barrier of the group's lanes): WarpLanes below on the card, a thread per
-// lane in the host build (ops/host_adjoint.py).
+// Exact fixed-point exits (solve_ipm's and sap_newton's kExits, which the
+// cold solve takes apart: kIpmExits, kNewtonExits). An IPM iteration that
+// applies no update leaves x, z and the merit-best iterate as they were, so
+// every later iteration repeats it; a SAP-Newton iteration depends only on
+// w, so once w comes out of the line search with its bits unchanged, every
+// later one repeats it. Leaving the loop there gives the bits of the whole
+// budget. On the card a warp leaves together, once every sample it holds
+// is at its fixed point (the group's warp_all): the samples there first
+// repeat their last iteration, with the same bits, so that the warp never
+// runs two parts of the solve one after the other. The hook notes each
+// exit: `fixed` iterations of loop `loop` (0 the IPM, 1 SAP-Newton) repeat
+// the one before; a no-op on the card, a tally in the host build's count
+// (ops/host_adjoint.py), which counts one sample's exits.
+#ifndef HYBRID_SOLVE_EXIT_HOOK
+#define HYBRID_SOLVE_EXIT_HOOK(loop, fixed) ((void)0)
+#endif
+
+// Whether b has a's bits: a finite a equal to b with the same sign (the
+// only distinct finite values that compare equal are -0 and +0). A NaN or
+// infinite a never matches, so a non-finite iterate never exits.
+template <typename T> __device__ __forceinline__ bool same_finite_bits(T a,
+                                                                      T b) {
+  return isfinite(a) && a == b && signbit(a) == signbit(b);
+}
+
+// ---------------------------------------------------------------------------
+// The lanes of one sample. A group type has kLanes, lane() and warp_all()
+// (whether a condition holds for every sample of the warp the group runs
+// in: the solve's exits leave a loop on it); with more than one lane also
+// slots() (the group's scratch, kLaneSlots values) and sync() (a barrier of
+// the group's lanes): WarpLanes below on the card, a thread per lane in the
+// host build (ops/host_adjoint.py). Solo is one thread a sample on its own.
 struct Solo {
   static constexpr int kLanes = 1;
   __device__ static constexpr int lane() { return 0; }
+  __device__ static bool warp_all(bool p) { return p; }
 };
 
 // Slots a group of a sample with NV velocities and K contacts needs: rows of
@@ -93,6 +122,18 @@ template <typename T, int L> struct WarpLanes {
   __device__ int lane() const { return lane_; }
   __device__ T* slots() const { return slots_; }
   __device__ void sync() const { __syncwarp(mask_); }
+  // Every lane of the warp takes part: a kernel on lanes keeps all 32 of
+  // each warp running to its end.
+  __device__ bool warp_all(bool p) const { return __all_sync(~0u, p); }
+};
+
+// One thread a sample, the samples of a warp leaving the solve's loops
+// together (warp_all); the kernel keeps all 32 threads of each warp
+// running to its end.
+struct WarpSolo {
+  static constexpr int kLanes = 1;
+  __device__ static constexpr int lane() { return 0; }
+  __device__ static bool warp_all(bool p) { return __all_sync(~0u, p); }
 };
 #endif
 
@@ -653,8 +694,11 @@ __device__ __forceinline__ void assemble_jtgj(const T (&M)[NV][NV],
 }
 
 // ---------------------------------------------------------------------------
-// Interior point (cf. soa_solver.solve_ipm_mj).
-template <typename T, int NV, int K, typename G = Solo>
+// Interior point (cf. soa_solver.solve_ipm_mj). With kExits the loop ends
+// at the first iteration that applies no update (of every sample of the
+// warp): at once when mu is frozen, after the step when the step is not
+// finite.
+template <typename T, int NV, int K, typename G = Solo, bool kExits = false>
 __device__ void solve_ipm(const Problem<T, NV, K>& P, int iterations,
                           T (&x_out)[3][K], const G& g = G()) {
   Ldlt<T, NV> F_M;
@@ -732,6 +776,12 @@ __device__ void solve_ipm(const Problem<T, NV, K>& P, int iterations,
 #pragma unroll
         for (int c = 0; c < K; ++c) x_best[i][c] = x[i][c];
       merit_best = m;
+    }
+    if constexpr (kExits) {
+      if (g.warp_all(mu <= freeze)) {
+        HYBRID_SOLVE_EXIT_HOOK(0, iterations - it);
+        break;
+      }
     }
 
     NTScaling<T, K> scaling;
@@ -837,6 +887,12 @@ __device__ void solve_ipm(const Problem<T, NV, K>& P, int iterations,
           x[i][c] = x[i][c] + alpha * dx[i][c];
           z[i][c] = z[i][c] + alpha * dz[i][c];
         }
+    }
+    if constexpr (kExits) {
+      if (g.warp_all(!(step_ok && !converged))) {
+        HYBRID_SOLVE_EXIT_HOOK(0, iterations - it);
+        break;
+      }
     }
   }
 
@@ -1045,7 +1101,10 @@ __device__ void line_search(const Problem<T, NV, K>& P, T (&w)[NV],
   for (int i = 0; i < NV; ++i) w[i] = w[i] + alpha * dw[i];
 }
 
-template <typename T, int NV, int K, typename G = Solo>
+// With kExits the loop ends once the line search leaves w's bits as they
+// were (of every sample of the warp; w is the same on every lane of a
+// group).
+template <typename T, int NV, int K, typename G = Solo, bool kExits = false>
 __device__ void sap_newton(const Problem<T, NV, K>& P, int iterations,
                            T (&w)[NV], T (&gamma)[3][K], const G& g = G()) {
 #pragma unroll 1
@@ -1083,7 +1142,22 @@ __device__ void sap_newton(const Problem<T, NV, K>& P, int iterations,
 #pragma unroll
       for (int i = 0; i < NV; ++i) dw[i] = -dw[i];
     }
-    line_search<T, NV, K, G>(P, w, dw, g);
+    if constexpr (kExits) {
+      T w_before[NV];
+#pragma unroll
+      for (int i = 0; i < NV; ++i) w_before[i] = w[i];
+      line_search<T, NV, K, G>(P, w, dw, g);
+      bool fixed = true;
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+        fixed = fixed && same_finite_bits(w_before[i], w[i]);
+      if (g.warp_all(fixed)) {
+        HYBRID_SOLVE_EXIT_HOOK(1, iterations - it);
+        break;
+      }
+    } else {
+      line_search<T, NV, K, G>(P, w, dw, g);
+    }
   }
   T z[3][K];
   sap_argument<T, NV, K>(P, w, z);
@@ -1131,16 +1205,19 @@ __device__ __forceinline__ void minv_jt(const Problem<T, NV, K>& P,
   ldlt_solve<T, NV>(F_M, jtu, w);
 }
 
-// Cold hybrid solve: IPM, then SAP-Newton from the IPM iterate.
-template <typename T, int NV, int K, typename G = Solo>
+// Cold hybrid solve: IPM, then SAP-Newton from the IPM iterate;
+// kIpmExits and kNewtonExits leave each loop at its fixed point (the same
+// bits).
+template <typename T, int NV, int K, typename G = Solo,
+          bool kIpmExits = false, bool kNewtonExits = kIpmExits>
 __device__ bool cold_hybrid_solve(const Problem<T, NV, K>& P,
                                   int ipm_iterations, int newton_iterations,
                                   T (&gamma)[3][K], const G& g = G()) {
   T x_ipm[3][K];
-  solve_ipm<T, NV, K, G>(P, ipm_iterations, x_ipm, g);
+  solve_ipm<T, NV, K, G, kIpmExits>(P, ipm_iterations, x_ipm, g);
   T w[NV];
   minv_jt<T, NV, K, G>(P, x_ipm, w, g);
-  sap_newton<T, NV, K, G>(P, newton_iterations, w, gamma, g);
+  sap_newton<T, NV, K, G, kNewtonExits>(P, newton_iterations, w, gamma, g);
   return mask_failures<T, K, G>(gamma, g);
 }
 
@@ -1204,6 +1281,35 @@ __device__ __forceinline__ void warm_solve_packed(
   }
 }
 
+// K4's body: the cold solve of sample b of a packed QP on one thread or on
+// the lanes of a group, with the IPM's and SAP-Newton's fixed-point exits
+// as chosen. Writes the lane's contacts' impulses into force (3, K, B) and
+// (lane 0) the valid byte, unless `store` is false (a group past the
+// batch, as in warm_solve_packed).
+template <typename T, int NV, int K, typename G = Solo,
+          bool kIpmExits = false, bool kNewtonExits = kIpmExits>
+__device__ __forceinline__ void cold_solve_packed(
+    const T* __restrict__ M, const T* __restrict__ Jc,
+    const T* __restrict__ qc, T* __restrict__ force,
+    unsigned char* __restrict__ valid_out, long long B, long long b,
+    bool store, double eps, int ipm_iterations, int newton_iterations,
+    const G& g = G()) {
+  constexpr int KL = K / G::kLanes;
+  Problem<T, NV, KL> P;
+  load_packed_problem<T, NV, K, G>(M, Jc, qc, B, b, eps, P, g);
+  T gamma[3][KL];
+  const bool valid = cold_hybrid_solve<T, NV, KL, G, kIpmExits,
+                                       kNewtonExits>(
+      P, ipm_iterations, newton_iterations, gamma, g);
+  if (!store) return;
+  const int c0 = g.lane() * KL;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int c = 0; c < KL; ++c) force[(i * K + c0 + c) * B + b] = gamma[i][c];
+  if (g.lane() == 0) valid_out[b] = valid ? 1 : 0;
+}
+
 // Lanes a QP of K5 at a size: 4 at the elbow's k = 8 (two contacts a
 // lane; 2 and 8 lanes were slower on an H100 at the rollout's 8,192 QPs)
 // and at the cube's k = 4 (one contact a lane; one thread and 2 lanes were
@@ -1211,5 +1317,12 @@ __device__ __forceinline__ void warm_solve_packed(
 // float32 batches at the cube's size run one thread a QP instead
 // (kWarmSoloFrom, warm_hybrid_solve.cu).
 template <int NV, int K> constexpr int kWarmLanes = 4;
+
+// Lanes a QP of K4 at a size: 4, as K5 (two contacts a lane at the elbow's
+// k = 8, one at the cube's k = 4; 1, 2 and 8 lanes were slower on an H100
+// at the elbow's 65,536 contact-rich QPs and the cube's 8,192). Large
+// batches at the cube's size run fewer (kColdFewerFrom,
+// cold_hybrid_solve.cu). scripts/probe_loss_lanes.py --k4, PERF.md.
+template <int NV, int K> constexpr int kColdLanes = 4;
 
 }  // namespace

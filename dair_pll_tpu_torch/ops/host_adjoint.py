@@ -59,7 +59,7 @@ SHIM = r"""#pragma once
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline double rsqrt(double x) { return 1.0 / std::sqrt(x); }
 using std::isfinite, std::isinf, std::isnan, std::sqrt, std::fabs, std::sin,
-    std::cos;
+    std::cos, std::signbit;
 """
 
 #: The counting scalar. ``constant`` marks a constant of the code (built
@@ -71,9 +71,15 @@ COUNTED = r"""#pragma once
 
 struct Tally {
   long long needed = 0, executed = 0, recomputed = 0;
+  // Iterations of the cold solve's IPM and SAP-Newton loops that repeat the
+  // one before (hybrid_solve.cuh's exits; counted where the exits are on).
+  long long ipm_fixed = 0, newton_fixed = 0;
 };
 // One tally per thread; initial-exec keeps its address a register read.
 static thread_local Tally tally __attribute__((tls_model("initial-exec")));
+#define HYBRID_SOLVE_EXIT_HOOK(loop, fixed) \
+  ((loop) == 0 ? (tally.ipm_fixed += (fixed)) \
+               : (tally.newton_fixed += (fixed)))
 
 template <typename B> struct Counted {
   B v;
@@ -141,6 +147,7 @@ template <typename B> struct Counted {
   friend bool isnan(const Counted& a) { return std::isnan(a.v); }
   friend bool isinf(const Counted& a) { return std::isinf(a.v); }
   friend bool isfinite(const Counted& a) { return std::isfinite(a.v); }
+  friend bool signbit(const Counted& a) { return std::signbit(a.v); }
   friend bool operator<(const Counted& a, const Counted& b) {
     return a.v < b.v;
   }
@@ -478,6 +485,8 @@ template <typename T, int L> struct HostLanes {
   int lane() const { return lane_; }
   T* slots() const { return slots_; }
   void sync() const { barrier_->wait(); }
+  // The host runs one sample's group at a time: its warp is the group.
+  static bool warp_all(bool p) { return p; }
 };
 
 // K1's (fin null) or K3's body in float64 over n batch-minor samples as
@@ -596,7 +605,7 @@ static void run(int kind, const ModelDesc<Z>& desc, const B* pvec,
 
 // Runs body(lo, hi) over the samples [lo, hi) of n split among `threads`
 // threads, each tallying on its own; counts = {needed, executed,
-// recomputed}, summed.
+// recomputed, ipm_fixed, newton_fixed}, summed.
 template <typename F>
 static void tally_on_threads(long long n, int threads, long long* counts,
                              const F& body) {
@@ -608,17 +617,19 @@ static void tally_on_threads(long long n, int threads, long long* counts,
       body(n * t / threads, n * (t + 1) / threads);
       tallies[t] = tally;
     });
-  counts[0] = counts[1] = counts[2] = 0;
+  for (int i = 0; i < 5; ++i) counts[i] = 0;
   for (int t = 0; t < threads; ++t) {
     pool[t].join();
     counts[0] += tallies[t].needed;
     counts[1] += tallies[t].executed;
     counts[2] += tallies[t].recomputed;
+    counts[3] += tallies[t].ipm_fixed;
+    counts[4] += tallies[t].newton_fixed;
   }
 }
 
 // The counts of one kind on Counted<B> over n samples, on `threads`
-// threads; counts = {needed, executed, recomputed}.
+// threads; counts as tally_on_threads'.
 template <typename B, typename Z>
 static void count(int kind, const ModelDesc<Z>& desc, const B* pvec,
                   const B* xin, const B* xp, const B* fin,
@@ -776,10 +787,122 @@ static void warm_solve_count_run(const T* M, const T* Jc, const T* qc,
 WARM_SOLVE_SIZE(6, 4)
 WARM_SOLVE_SIZE(7, 8)
 
-// The counts of the box cube's K1 (cube_loss_cold, fin null) or K3
-// (cube_loss_warm from fin) on Counted<B> over the samples [lo, hi) of n.
+// K4's body (hybrid_solve.cuh's cold_solve_packed, both loops' exits on
+// or off) over n packed QPs as the card runs it, on one thread a QP or L
+// lanes a QP, as run_warm_solve runs K5's.
+template <typename T, int NV, int K, int L, bool kExits>
+static void run_cold_solve(const T* M, const T* Jc, const T* qc, long long n,
+                           long long groups, double eps, int ipm, int newton,
+                           T* force, unsigned char* valid) {
+  if constexpr (L == 1) {
+    for (long long b = 0; b < n; ++b)
+      cold_solve_packed<T, NV, K, Solo, kExits, kExits>(
+          M, Jc, qc, force, valid, n, b, true, eps, ipm, newton);
+  } else {
+    std::vector<T> slots(kLaneSlots<NV, K>);
+    SpinBarrier barrier(L);
+    std::vector<std::thread> pool;
+    for (int lane = 0; lane < L; ++lane)
+      pool.emplace_back([&, lane] {
+        using G = HostLanes<T, L>;
+        const G g{slots.data(), &barrier, lane};
+        for (long long b = 0; b < groups; ++b)
+          cold_solve_packed<T, NV, K, G, kExits, kExits>(
+              M, Jc, qc, force, valid, n, b < n ? b : n - 1, b < n, eps, ipm,
+              newton, g);
+      });
+    for (std::thread& t : pool) t.join();
+  }
+}
+
+template <typename T, int NV, int K, bool kExits>
+static int run_cold_solve_lanes(int lanes, const T* M, const T* Jc,
+                                const T* qc, long long n, long long groups,
+                                double eps, int ipm, int newton, T* force,
+                                unsigned char* valid) {
+  constexpr int L = kColdLanes<NV, K>;
+  if (lanes == 1) {
+    run_cold_solve<T, NV, K, 1, kExits>(M, Jc, qc, n, groups, eps, ipm,
+                                        newton, force, valid);
+  } else if (lanes == L) {
+    run_cold_solve<T, NV, K, L, kExits>(M, Jc, qc, n, groups, eps, ipm,
+                                        newton, force, valid);
+  } else {
+    // The cube's float64 QPs run on 2 lanes from a batch on.
+    if constexpr (NV == 6 && K == 4)
+      if (lanes == 2) {
+        run_cold_solve<T, NV, K, 2, kExits>(M, Jc, qc, n, groups, eps, ipm,
+                                            newton, force, valid);
+        return 0;
+      }
+    return 1;
+  }
+  return 0;
+}
+
+// The counts of K4's body (cold_solve_packed, one thread a QP, each loop's
+// exits on or off) on Counted<T> over the QPs [lo, hi) of n, as
+// warm_solve_count_run.
+template <typename T, int NV, int K, bool kIpmExits, bool kNewtonExits>
+static void cold_solve_count_run(const T* M, const T* Jc, const T* qc,
+                                 long long n, long long lo, long long hi,
+                                 double eps, int ipm, int newton) {
+  using S = Counted<T>;
+  S m[NV * NV], jc[3 * NV * K], q[3 * K], force[3 * K];
+  unsigned char valid;
+  for (long long b = lo; b < hi; ++b) {
+    for (int i = 0; i < NV * NV; ++i) m[i] = S::data(M[i * n + b]);
+    for (int i = 0; i < 3 * NV * K; ++i) jc[i] = S::data(Jc[i * n + b]);
+    for (int i = 0; i < 3 * K; ++i) q[i] = S::data(qc[i * n + b]);
+    cold_solve_packed<S, NV, K, Solo, kIpmExits, kNewtonExits>(
+        m, jc, q, force, &valid, 1, 0, true, eps, ipm, newton);
+  }
+}
+
+// K4 at (NV, K) on one thread a QP (lanes 1), on the card's kColdLanes
+// lanes a QP or, at (6, 4), on 2, exits on or off (returns 1 for another
+// count of lanes); and its counts, as the loss bodies' count() (counts as
+// tally_on_threads'), with exits 0 (none), 1 (both loops') or 2
+// (SAP-Newton's alone).
+#define COLD_SOLVE_ENTRIES(NV, K, T, SUFFIX)                                 \
+  extern "C" int cold_solve_host_nv##NV##_k##K##_##SUFFIX(                   \
+      int lanes, int exits, const T* M, const T* Jc, const T* qc,            \
+      long long n, long long groups, double eps, int ipm, int newton,        \
+      T* force, unsigned char* valid) {                                      \
+    return exits ? run_cold_solve_lanes<T, NV, K, true>(                     \
+                       lanes, M, Jc, qc, n, groups, eps, ipm, newton, force, \
+                       valid)                                                \
+                 : run_cold_solve_lanes<T, NV, K, false>(                    \
+                       lanes, M, Jc, qc, n, groups, eps, ipm, newton, force, \
+                       valid);                                               \
+  }                                                                          \
+  extern "C" void cold_solve_count_nv##NV##_k##K##_##SUFFIX(                 \
+      int exits, const T* M, const T* Jc, const T* qc, long long n,          \
+      double eps, int ipm, int newton, int threads, long long* counts) {     \
+    tally_on_threads(n, threads, counts, [&](long long lo, long long hi) {   \
+      if (exits == 1)                                                        \
+        cold_solve_count_run<T, NV, K, true, true>(M, Jc, qc, n, lo, hi,     \
+                                                   eps, ipm, newton);        \
+      else if (exits == 2)                                                   \
+        cold_solve_count_run<T, NV, K, false, true>(M, Jc, qc, n, lo, hi,    \
+                                                    eps, ipm, newton);       \
+      else                                                                   \
+        cold_solve_count_run<T, NV, K, false, false>(M, Jc, qc, n, lo, hi,   \
+                                                     eps, ipm, newton);      \
+    });                                                                      \
+  }
+#define COLD_SOLVE_SIZE(NV, K)                                               \
+  COLD_SOLVE_ENTRIES(NV, K, float, f32)                                      \
+  COLD_SOLVE_ENTRIES(NV, K, double, f64)                                     \
+  extern "C" int cold_lanes_nv##NV##_k##K() { return kColdLanes<NV, K>; }
+COLD_SOLVE_SIZE(6, 4)
+COLD_SOLVE_SIZE(7, 8)
+
+// The counts of the box cube's K1 (cube_loss_cold, fin null; its solve's
+// exits on or off) or K3 (cube_loss_warm from fin) on Counted<B> over the
+// samples [lo, hi) of n.
 template <typename B>
-static void cube_count_run(int kind, const B* pvec, const B* xin,
+static void cube_count_run(int kind, int exits, const B* pvec, const B* xin,
                            const B* xp, const B* fin, long long n,
                            long long lo, long long hi, double dt, double eps,
                            int ipm, int newton) {
@@ -795,8 +918,10 @@ static void cube_count_run(int kind, const B* pvec, const B* xin,
       x_plus[i] = V::in(xp[i * n + b]);
     }
     bool ok;
-    if (kind == kCold) {
-      cube_loss_cold<S>(p, x, x_plus, dt_s, eps, ipm, newton, f, ok);
+    if (kind == kCold && exits) {
+      cube_loss_cold<S, true>(p, x, x_plus, dt_s, eps, ipm, newton, f, ok);
+    } else if (kind == kCold) {
+      cube_loss_cold<S, false>(p, x, x_plus, dt_s, eps, ipm, newton, f, ok);
     } else {
       for (int i = 0; i < 3; ++i)
         for (int c = 0; c < kCubeK; ++c)
@@ -807,27 +932,27 @@ static void cube_count_run(int kind, const B* pvec, const B* xin,
   }
 }
 
-// As count() for the generic bodies: counts = {needed, executed,
-// recomputed (none)}.
+// As count() for the generic bodies (recomputed none).
 #define CUBE_COUNT_ENTRY(B, SUFFIX)                                          \
   extern "C" void cube_count_##SUFFIX(                                       \
-      int kind, const B* pvec, const B* xin, const B* xp, const B* fin,      \
-      long long n, double dt, double eps, int ipm, int newton, int threads,  \
-      long long* counts) {                                                   \
+      int kind, int exits, const B* pvec, const B* xin, const B* xp,         \
+      const B* fin, long long n, double dt, double eps, int ipm, int newton, \
+      int threads, long long* counts) {                                      \
     tally_on_threads(n, threads, counts, [&](long long lo, long long hi) {   \
-      cube_count_run<B>(kind, pvec, xin, xp, fin, n, lo, hi, dt, eps, ipm,   \
-                        newton);                                             \
+      cube_count_run<B>(kind, exits, pvec, xin, xp, fin, n, lo, hi, dt, eps, \
+                        ipm, newton);                                        \
     });                                                                      \
   }
 CUBE_COUNT_ENTRY(float, f32)
 CUBE_COUNT_ENTRY(double, f64)
 
-// cube_loss_cold<double> (fprev null) or cube_loss_warm<double>.
-extern "C" void cube_host_f64(const double* pvec, const double* xin,
-                              const double* xp, const double* fprev,
-                              long long n, double dt, double eps, int ipm,
-                              int newton, double* loss, double* force,
-                              unsigned char* valid) {
+// cube_loss_cold<double> (fprev null; exits on, as K1 runs it, or off) or
+// cube_loss_warm<double>.
+extern "C" void cube_host_f64(int exits, const double* pvec,
+                              const double* xin, const double* xp,
+                              const double* fprev, long long n, double dt,
+                              double eps, int ipm, int newton, double* loss,
+                              double* force, unsigned char* valid) {
   double p[kCubeP];
   for (int i = 0; i < kCubeP; ++i) p[i] = pvec[i];
   for (long long b = 0; b < n; ++b) {
@@ -838,8 +963,12 @@ extern "C" void cube_host_f64(const double* pvec, const double* xin,
     }
     bool ok;
     double l;
-    if (fprev == nullptr) {
-      l = cube_loss_cold<double>(p, x, x_plus, dt, eps, ipm, newton, f, ok);
+    if (fprev == nullptr && exits) {
+      l = cube_loss_cold<double, true>(p, x, x_plus, dt, eps, ipm, newton, f,
+                                       ok);
+    } else if (fprev == nullptr) {
+      l = cube_loss_cold<double, false>(p, x, x_plus, dt, eps, ipm, newton,
+                                        f, ok);
     } else {
       for (int i = 0; i < 3; ++i)
         for (int c = 0; c < kCubeK; ++c)
@@ -861,8 +990,16 @@ _HOST_ARGS = [_I, _P] + [_P] * 6 + [_LL, _D, _D, _I, _I] + [_P] * 6
 _LANES_ARGS = [_I] + [_P] * 5 + [_LL, _D, _D, _I, _I] + [_P] * 3
 _COUNT_ARGS = [_I, _P] + [_P] * 6 + [_LL, _D, _D, _I, _I, _I, _P]
 _WARM_SOLVE_ARGS = [_I] + [_P] * 4 + [_LL, _LL, _D, _I, _I] + [_P] * 3
-_CUBE_COUNT_ARGS = [_I] + [_P] * 4 + [_LL, _D, _D, _I, _I, _I, _P]
+_CUBE_COUNT_ARGS = [_I, _I] + [_P] * 4 + [_LL, _D, _D, _I, _I, _I, _P]
 _WARM_COUNT_ARGS = [_P] * 4 + [_LL, _D, _I, _I, _I, _P]
+_COLD_SOLVE_ARGS = [_I, _I] + [_P] * 3 + [_LL, _LL, _D, _I, _I] + [_P] * 2
+_COLD_COUNT_ARGS = [_I] + [_P] * 3 + [_LL, _D, _I, _I, _I, _P]
+#: The host entries' tallies (``tally_on_threads``).
+_TALLIES = ("needed", "executed", "recomputed", "ipm_fixed", "newton_fixed")
+
+
+def _tallies(counts, *keys) -> Dict:
+    return {key: int(counts[_TALLIES.index(key)]) for key in keys}
 
 
 def _model_batch_source() -> str:
@@ -897,8 +1034,8 @@ class HostModelTerms:
             for s in ("f32", "f64"):
                 getattr(self._lib, f"model_count_{name}_{s}").argtypes = \
                     _COUNT_ARGS
-        self._lib.cube_host_f64.argtypes = [_P] * 4 + [_LL, _D, _D, _I, _I] + \
-            [_P] * 3
+        self._lib.cube_host_f64.argtypes = [_I] + [_P] * 4 + \
+            [_LL, _D, _D, _I, _I] + [_P] * 3
         for s in ("f32", "f64"):
             getattr(self._lib, f"cube_count_{s}").argtypes = \
                 _CUBE_COUNT_ARGS
@@ -910,6 +1047,12 @@ class HostModelTerms:
                 fn = getattr(self._lib, f"warm_solve_count_nv{n_v}_k{k}_{s}")
                 fn.argtypes, fn.restype = _WARM_COUNT_ARGS, None
             getattr(self._lib, f"warm_lanes_nv{n_v}_k{k}").argtypes = []
+            for s in ("f32", "f64"):
+                fn = getattr(self._lib, f"cold_solve_host_nv{n_v}_k{k}_{s}")
+                fn.argtypes = _COLD_SOLVE_ARGS
+                fn = getattr(self._lib, f"cold_solve_count_nv{n_v}_k{k}_{s}")
+                fn.argtypes, fn.restype = _COLD_COUNT_ARGS, None
+            getattr(self._lib, f"cold_lanes_nv{n_v}_k{k}").argtypes = []
         self._lib.cube_loss_vjp_f64.argtypes = \
             _SIGNATURES["cube_loss_vjp_f64"]
         for fn in (self._lib.cube_host_f64, self._lib.cube_loss_vjp_f64,
@@ -967,33 +1110,38 @@ class HostModelTerms:
 
     def cube_loss(self, pvec: Tensor, xin: Tensor, xp: Tensor, dt: float,
                   eps: float, ipm: int, newton: int,
-                  fprev: Optional[Tensor] = None):
-        """``cube_terms.cuh``'s ``cube_loss_cold`` (``fprev`` None) or
+                  fprev: Optional[Tensor] = None, exits: bool = True):
+        """``cube_terms.cuh``'s ``cube_loss_cold`` (``fprev`` None; its
+        solve's fixed-point exits on, as K1 runs it, or off) or
         ``cube_loss_warm`` in float64: ``(loss, force, valid)``."""
         n = xin.shape[1]
         ins = [self._array(t, np.float64) for t in (pvec, xin, xp, fprev)]
         outs = [np.zeros(n), np.zeros((3, 4, n)), np.zeros(n, dtype=np.uint8)]
-        self._lib.cube_host_f64(*[_ptr(a) for a in ins], n, dt, eps, ipm,
-                                newton, *[_ptr(a) for a in outs])
+        self._lib.cube_host_f64(int(exits), *[_ptr(a) for a in ins], n, dt,
+                                eps, ipm, newton, *[_ptr(a) for a in outs])
         return (torch.from_numpy(outs[0]), torch.from_numpy(outs[1]),
                 torch.from_numpy(outs[2].astype(bool)))
 
     def cube_count(self, kind: str, pvec: Tensor, xin: Tensor, xp: Tensor,
                    fin: Optional[Tensor], dt: float, eps: float, ipm: int,
-                   newton: int, threads: int = 1) -> Dict:
+                   newton: int, threads: int = 1, exits: bool = True) -> Dict:
         """The operations the box cube's K1 (``kind`` ``cold``:
-        ``cube_terms.cuh``'s ``cube_loss_cold``) or K3 (``warm``:
-        ``cube_loss_warm`` from ``fin``) does over the batch in ``xin``'s
-        dtype (float32 or float64), on ``threads`` threads, as
-        :meth:`count` tallies the generic bodies: ``{"needed": ...,
-        "executed": ...}``."""
+        ``cube_terms.cuh``'s ``cube_loss_cold``, its solve's exits on, as
+        K1 runs it, or off) or K3 (``warm``: ``cube_loss_warm`` from
+        ``fin``) does over the batch in ``xin``'s dtype (float32 or
+        float64), on ``threads`` threads, as :meth:`count` tallies the
+        generic bodies: ``{"needed": ..., "executed": ..., "ipm_fixed":
+        ..., "newton_fixed": ...}``, the last two the cold solve's
+        iterations that repeated the one before (counted with the
+        exits)."""
         dtype = _NP[xin.dtype]
         ins = [self._array(t, dtype) for t in (pvec, xin, xp, fin)]
-        counts = np.zeros(3, dtype=np.int64)
+        counts = np.zeros(len(_TALLIES), dtype=np.int64)
         getattr(self._lib, f"cube_count_{_SUFFIX[xin.dtype]}")(
-            _KINDS[kind], *[_ptr(a) for a in ins], xin.shape[1], dt, eps,
-            ipm, newton, threads, counts.ctypes.data)
-        return {"needed": int(counts[0]), "executed": int(counts[1])}
+            _KINDS[kind], int(exits), *[_ptr(a) for a in ins], xin.shape[1],
+            dt, eps, ipm, newton, threads, counts.ctypes.data)
+        return _tallies(counts, "needed", "executed", "ipm_fixed",
+                        "newton_fixed")
 
     def warm_lanes(self, shape: Tuple[int, int]) -> int:
         """Lanes a QP of the card's K5 at ``shape``, ``(n_v, k)``: the
@@ -1038,12 +1186,62 @@ class HostModelTerms:
         dtype = _NP[m.dtype]
         _, n_v, k, n = jc.shape
         ins = [self._array(t, dtype) for t in (m, jc, qc, w0)]
-        counts = np.zeros(3, dtype=np.int64)
+        counts = np.zeros(len(_TALLIES), dtype=np.int64)
         getattr(self._lib, f"warm_solve_count_nv{n_v}_k{k}_"
                            f"{_SUFFIX[m.dtype]}")(
             *[_ptr(a) for a in ins], n, eps, ipm, newton, threads,
             counts.ctypes.data)
-        return {"needed": int(counts[0]), "executed": int(counts[1])}
+        return _tallies(counts, "needed", "executed")
+
+    def cold_lanes(self, shape: Tuple[int, int]) -> int:
+        """Lanes a QP of the card's K4 at ``shape``, ``(n_v, k)``
+        (``kColdLanes`` of ``csrc/hybrid_solve.cuh``)."""
+        n_v, k = shape
+        return getattr(self._lib, f"cold_lanes_nv{n_v}_k{k}")()
+
+    def cold_solve(self, m: Tensor, jc: Tensor, qc: Tensor, eps: float,
+                   ipm: int, newton: int, lanes: int = 1,
+                   groups: Optional[int] = None, exits: bool = True
+                   ) -> Tuple[Tensor, Tensor]:
+        """K4's body (``cold_solve_packed``, its loops' fixed-point exits
+        on, as the card runs it, or off) at the QPs' ``(n_v, k)`` on packed
+        QPs in their dtype, on one thread a QP or on ``lanes``
+        (``cold_lanes((n_v, k))``, or 2 at (6, 4), where the card's float64
+        kernel runs 2 from a batch on) lanes a QP over ``groups``, as
+        :meth:`warm_solve`. Returns ``(force (3, k, B), valid (B,))``, as
+        ``soa_kernels.plain_packed_cold``."""
+        dtype = _NP[m.dtype]
+        _, n_v, k, n = jc.shape
+        ins = [self._array(t, dtype) for t in (m, jc, qc)]
+        outs = [np.zeros((3, k, n), dtype), np.zeros(n, dtype=np.uint8)]
+        entry = f"cold_solve_host_nv{n_v}_k{k}_{_SUFFIX[m.dtype]}"
+        if getattr(self._lib, entry)(
+                lanes, int(exits), *[_ptr(a) for a in ins], n,
+                n if groups is None else groups, eps, ipm, newton,
+                *[_ptr(a) for a in outs]):
+            raise ValueError(f"no host build of K4 at {(n_v, k)} on {lanes} "
+                             f"lanes a QP")
+        return (torch.from_numpy(outs[0]),
+                torch.from_numpy(outs[1].astype(bool)))
+
+    def cold_solve_count(self, m: Tensor, jc: Tensor, qc: Tensor,
+                         eps: float, ipm: int, newton: int,
+                         threads: int = 1, exits=True) -> Dict:
+        """The operations K4's body (``cold_solve_packed``) at the QPs'
+        ``(n_v, k)`` does on packed QPs in their dtype, on ``threads``
+        threads, with ``exits`` True (both loops' exits), False (none) or
+        ``"newton"`` (SAP-Newton's alone), as :meth:`cube_count` tallies
+        K1's: ``{"needed", "executed", "ipm_fixed", "newton_fixed"}``."""
+        dtype = _NP[m.dtype]
+        _, n_v, k, n = jc.shape
+        ins = [self._array(t, dtype) for t in (m, jc, qc)]
+        counts = np.zeros(len(_TALLIES), dtype=np.int64)
+        getattr(self._lib, f"cold_solve_count_nv{n_v}_k{k}_"
+                           f"{_SUFFIX[m.dtype]}")(
+            {False: 0, True: 1, "newton": 2}[exits], *[_ptr(a) for a in ins],
+            n, eps, ipm, newton, threads, counts.ctypes.data)
+        return _tallies(counts, "needed", "executed", "ipm_fixed",
+                        "newton_fixed")
 
     def cube_vjp(self, pvec: Tensor, xin: Tensor, xp: Tensor, force: Tensor,
                  valid: Tensor, ct: Tensor, dt: float
@@ -1085,12 +1283,11 @@ class HostModelTerms:
         dtype = _NP[xin.dtype]
         ins = [self._array(t, dtype) for t in (pvec, xin, xp, fin)]
         ins += [self._array(valid, np.uint8), self._array(ct, dtype)]
-        counts = np.zeros(3, dtype=np.int64)
+        counts = np.zeros(len(_TALLIES), dtype=np.int64)
         getattr(self._lib, f"model_count_{name}_{_SUFFIX[xin.dtype]}")(
             _KINDS[kind], ctypes.addressof(desc), *[_ptr(a) for a in ins],
             xin.shape[1], dt, eps, ipm, newton, threads, counts.ctypes.data)
-        return {"needed": int(counts[0]), "executed": int(counts[1]),
-                "recomputed": int(counts[2])}
+        return _tallies(counts, "needed", "executed", "recomputed")
 
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}

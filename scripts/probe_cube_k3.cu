@@ -1,7 +1,7 @@
-// Designs of the box cube's warm loss kernel K3 timed beside the shipped one
-// by scripts/probe_cube_k3.py (not part of the kernel library). Each design
-// computes what contactnets_loss.cu's contactnets_loss_fwd_warm_kernel
-// computes, operation for operation:
+// Designs of the box cube's warm loss kernel K3, and of its cold loss kernel
+// K1, timed beside the shipped ones by scripts/probe_cube_k3.py (not part of
+// the kernel library). Each K3 design computes what contactnets_loss.cu's
+// contactnets_loss_fwd_warm_kernel computes, operation for operation:
 //
 //   t<N>[_min<M>]  the shipped one-thread body (cube_loss_warm) in blocks of
 //                  N threads, with at least M blocks a multiprocessor;
@@ -13,12 +13,26 @@
 //   split<L>       the terms kernel, then the solve on L lanes a sample
 //                  (model_loss.cuh's model_loss_fwd_warm_lanes_kernel).
 //
+// and each K1 design what contactnets_loss_fwd_kernel computes, bit for bit:
+//
+//   k1_exits       the one-thread body (cube_loss_cold) in blocks of 64
+//                  threads, its cold solve leaving the IPM and Newton loops
+//                  at their exact fixed points once every thread of the
+//                  warp is at its own (the shipped K1);
+//   k1_exits_diverge  the same, each thread leaving on its own;
+//   k1_no_exits    the same without the exits (K1 before them);
+//   k1_lean        k1_exits built against a copy of csrc/ with the script's
+//                  LEAN_EDITS: fewer live values in the solve (the Newton
+//                  matrix factored in place, the line search's crease
+//                  candidates taken as each contact's roots are found).
+//
 // The script compiles this file once per group (-DPROBE_GROUP_<NAME>), each
-// into a library of its own, with the kernel library's nvcc flags and the
-// checkout's csrc/ on the include path. Every entry takes the same
-// arguments: pvec (15,), xin and xp (13, B), fprev (3, 4, B) -> loss (B,),
-// force (3, 4, B), valid (B,); pack (kPackValues * B values, read by the
-// split designs only).
+// into a library of its own, with the kernel library's nvcc flags and a
+// csrc/ on the include path (the measured checkout's for the K3 groups,
+// this checkout's, or its LEAN_EDITS copy, for the K1 groups). Every entry
+// takes the same arguments: pvec (15,), xin and xp (13, B), fprev (3, 4, B;
+// read by K3 only) -> loss (B,), force (3, 4, B), valid (B,); pack
+// (kPackValues * B values, read by the split designs only).
 
 #include "model_loss.cuh"
 
@@ -222,6 +236,45 @@ int launch_split(const void* pvec, const void* xin, const void* xp,
   return (int)cudaGetLastError();
 }
 
+#if defined(PROBE_GROUP_K1) || defined(PROBE_GROUP_K1LEAN)
+// K1's body (cube_loss_cold, exits on or off, voting by the group G) in
+// blocks of 64 threads; a thread past the batch solves the last sample
+// again and writes nothing, as in the shipped kernel.
+template <typename S, bool kExits, typename G>
+__global__ void __launch_bounds__(64) k1_kernel(
+    const S* __restrict__ pvec, const S* __restrict__ xin,
+    const S* __restrict__ xp, S* __restrict__ loss, S* __restrict__ force,
+    unsigned char* __restrict__ valid, long long B, double dt, double eps,
+    int ipm, int newton) {
+  S p[kCubeP];
+  probe_params<S>(pvec, p);
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long b = t < B ? t : B - 1;
+  S x[kCubeNX], x_plus[kCubeNX], f[3][kCubeK];
+#pragma unroll
+  for (int i = 0; i < kCubeNX; ++i) {
+    x[i] = xin[i * B + b];
+    x_plus[i] = xp[i * B + b];
+  }
+  bool ok;
+  const S l = cube_loss_cold<S, kExits, G>(p, x, x_plus, S(dt), eps, ipm,
+                                           newton, f, ok);
+  if (t < B) probe_store<S>(l, f, ok, B, b, loss, force, valid);
+}
+
+template <typename S, bool kExits, typename G>
+int launch_k1(const void* pvec, const void* xin, const void* xp,
+              const void* fprev, void* loss, void* force, void* valid,
+              long long B, double dt, double eps, int ipm, int newton,
+              cudaStream_t st) {
+  (void)fprev;
+  k1_kernel<S, kExits, G><<<blocks_for(B, 64), 64, 0, st>>>(
+      (const S*)pvec, (const S*)xin, (const S*)xp, (S*)loss, (S*)force,
+      (unsigned char*)valid, B, dt, eps, ipm, newton);
+  return (int)cudaGetLastError();
+}
+#endif
+
 }  // namespace
 
 extern "C" long long probe_pack_values() { return kPackValues<CubeSize>; }
@@ -271,4 +324,16 @@ PROBE_ENTRIES(split2, (launch_split<float, 2>(ARGS, pack, TAIL)),
 #ifdef PROBE_GROUP_SPLIT4
 PROBE_ENTRIES(split4, (launch_split<float, 4>(ARGS, pack, TAIL)),
               (launch_split<double, 4>(ARGS, pack, TAIL)))
+#endif
+#ifdef PROBE_GROUP_K1
+PROBE_ENTRIES(k1_exits, (launch_k1<float, true, WarpSolo>(ARGS, TAIL)),
+              (launch_k1<double, true, WarpSolo>(ARGS, TAIL)))
+PROBE_ENTRIES(k1_exits_diverge, (launch_k1<float, true, Solo>(ARGS, TAIL)),
+              (launch_k1<double, true, Solo>(ARGS, TAIL)))
+PROBE_ENTRIES(k1_no_exits, (launch_k1<float, false, Solo>(ARGS, TAIL)),
+              (launch_k1<double, false, Solo>(ARGS, TAIL)))
+#endif
+#ifdef PROBE_GROUP_K1LEAN
+PROBE_ENTRIES(k1_lean, (launch_k1<float, true, WarpSolo>(ARGS, TAIL)),
+              (launch_k1<double, true, WarpSolo>(ARGS, TAIL)))
 #endif

@@ -1,4 +1,4 @@
-"""Designs of the box cube's warm loss kernel K3 timed in turns on one card.
+"""Designs of the box cube's loss kernels K3 and K1 timed in turns on one card.
 
 On ``bench.py``'s 2,097,152 training transitions
 (``chip_smoke.train_transitions``, initial parameters, warm-started from
@@ -18,13 +18,20 @@ or 4 lanes a sample), in float32 and float64:
   iteration and a Newton iteration, and in float64 at the training budget;
 - ptxas's registers and stack of every design.
 
+With ``--k1``, the same for the cold loss kernel K1 at the (10, 10)
+budget (plain version ``plain_loss_fwd``): the ``--tree``'s shipped K1
+beside the designs of ``probe_cube_k3.cu``'s K1 groups, built from this
+checkout (its solve's fixed-point exits on and off, and the exits with
+fewer live values in the solve, ``LEAN_EDITS`` applied to a copy of
+``csrc/``), each also with the shares of its time split.
+
 Builds go under ``build/cube_k3_probe/`` (``.gitignore`` lists it), every
 ``nvcc`` at once, with the kernel library's flags. To compare two
 checkouts, unpack the other into a directory ``.gitignore`` lists and run
 both in one call (``--tree committed_tree/parent --label parent``).
 
     python3 scripts/probe_cube_k3.py [--tree DIR] [--label NAME]
-        [--rounds N]
+        [--rounds N] [--k1]
 
 Needs one CUDA card and ``nvcc``. Prints one JSON line and appends it to
 ``chiprun_out/probe_cube_k3.jsonl``.
@@ -46,6 +53,94 @@ BUILD = os.path.join(ROOT, "build", "cube_k3_probe")
 K3_GROUPS = {"T64": ("t64", "t64_min6"), "T128": ("t128", "t128_min3"),
              "T32": ("t32", "t64_min4"), "SPLIT1": ("split1",),
              "SPLIT2": ("split2",), "SPLIT4": ("split4",)}
+K1_GROUPS = {"K1": ("k1_exits", "k1_exits_diverge", "k1_no_exits"),
+             "K1LEAN": ("k1_lean",)}
+#: Each K1 design's kernel: its solve's exits on or off, and whether a
+#: warp's threads leave the loops together (``WarpSolo``).
+K1_KERNELS = {"k1_exits": (True, True), "k1_exits_diverge": (True, False),
+              "k1_no_exits": (False, False), "k1_lean": (True, True)}
+#: Fewer live values in the solve (``k1_lean``), as edits (old, new) of
+#: ``hybrid_solve.cuh``, each bit for bit: the Newton matrix factored in
+#: place (its lower triangle overwritten by the factor's unscaled columns,
+#: L = C D^-1 written transposed above the diagonal, which the
+#: factorization never reads); and, on one thread, each contact's two
+#: crease candidates considered as soon as they are found, in place of
+#: keeping all 2K (the bracket is a NaN-free maximum and minimum over the
+#: candidates, none of them a second zero, so their order does not change
+#: its bits).
+LEAN_EDITS = (
+    ("""      Ldlt<T, NV> F_H;
+      ldlt<T, NV>(H, F_H);
+      ldlt_solve<T, NV>(F_H, grad, dw);""",
+     """      T dinv[NV];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        T s = H[j][j];
+#pragma unroll
+        for (int k = 0; k < j; ++k) s = s - H[k][j] * H[j][k];
+        const T dj_inv = T(1) / s;
+        dinv[j] = dj_inv;
+#pragma unroll
+        for (int i = j + 1; i < NV; ++i) {
+          T c = H[i][j];
+#pragma unroll
+          for (int k = 0; k < j; ++k) c = c - H[k][i] * H[j][k];
+          H[i][j] = c;
+          H[j][i] = c * dj_inv;
+        }
+      }
+      T y[NV];
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        T s = grad[i];
+#pragma unroll
+        for (int k = 0; k < i; ++k) s = s - H[k][i] * y[k];
+        y[i] = s;
+      }
+#pragma unroll
+      for (int i = NV - 1; i >= 0; --i) {
+        T s = y[i] * dinv[i];
+#pragma unroll
+        for (int k = i + 1; k < NV; ++k) s = s - H[i][k] * dw[k];
+        dw[i] = s;
+      }"""),
+    ("""  T roots[2][K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    const T n0""",
+     """  auto roots_of = [&](int c, T& root1, T& root2) {
+    const T n0"""),
+    ("""    roots[0][c] = v1 ? r1 : T(1);
+    roots[1][c] = v2 ? r2 : T(1);
+  }
+  bool take_full;
+  if constexpr (G::kLanes == 1) {
+    consider(T(0));
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < K; ++c) consider(roots[j][c]);
+    take_full = consider(T(1)) <= T(0);
+  } else {""",
+     """    root1 = v1 ? r1 : T(1);
+    root2 = v2 ? r2 : T(1);
+  };
+  bool take_full;
+  if constexpr (G::kLanes == 1) {
+    consider(T(0));
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      T root1, root2;
+      roots_of(c, root1, root2);
+      consider(root1);
+      consider(root2);
+    }
+    take_full = consider(T(1)) <= T(0);
+  } else {
+    T roots[2][K];
+#pragma unroll
+    for (int c = 0; c < K; ++c) roots_of(c, roots[0][c], roots[1][c]);"""),
+)
 #: Budgets of the time split: (0, 0) the terms and assembly, then ten IPM
 #: iterations, then ten Newton iterations.
 SPLIT_BUDGETS = ((0, 0), (10, 0), (10, 10))
@@ -86,7 +181,41 @@ def same_bits(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def run_k3(cs, tree: str, rounds: int) -> dict:
+def k1_ptxas(log: str, dtype: str, exits: bool, warp: bool) -> list:
+    """ptxas's register and spill lines of one K1 design's kernel
+    (``k1_kernel<dtype, exits, WarpSolo or Solo>``) in an ``nvcc`` log."""
+    lines, keep = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            keep = (f"k1_kernelI{dtype}Lb{int(exits)}E" in line and
+                    ("WarpSolo" in line) == warp)
+        if keep and ("registers" in line or "spill" in line):
+            lines.append(line.strip())
+    return lines
+
+
+def lean_csrc() -> str:
+    """A copy of this checkout's ``csrc/`` under the build directory with
+    ``LEAN_EDITS`` applied to ``hybrid_solve.cuh``; returns its path."""
+    import shutil
+    out = os.path.join(BUILD, "k1_lean_csrc")
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, "dair_pll_tpu_torch", "csrc"), out)
+    path = os.path.join(out, "hybrid_solve.cuh")
+    with open(path) as handle:
+        text = handle.read()
+    for old, new in LEAN_EDITS:
+        if text.count(old) != 1:
+            raise RuntimeError(f"hybrid_solve.cuh does not hold {old!r} once")
+        text = text.replace(old, new)
+    with open(path, "w") as handle:
+        handle.write(text)
+    return out
+
+
+def run_designs(cs, tree: str, rounds: int, k1: bool) -> dict:
+    """K3's designs (or, with ``k1``, K1's) beside the ``--tree``'s shipped
+    kernel, as the module's docstring lists."""
     import torch
     from dair_pll_tpu_torch import assets
     from dair_pll_tpu_torch.multibody.learnable_system import (
@@ -94,17 +223,22 @@ def run_k3(cs, tree: str, rounds: int) -> dict:
     from dair_pll_tpu_torch.ops import soa_kernels
     from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
     source = os.path.join(HERE, "probe_cube_k3.cu")
-    csrc = os.path.join(tree, "dair_pll_tpu_torch", "csrc")
-    jobs = {group: (source, csrc,
+    groups = K1_GROUPS if k1 else K3_GROUPS
+    csrc = {group: os.path.join(tree, "dair_pll_tpu_torch", "csrc")
+            for group in groups}
+    if k1:
+        csrc = {"K1": os.path.join(ROOT, "dair_pll_tpu_torch", "csrc"),
+                "K1LEAN": lean_csrc()}
+    jobs = {group: (source, csrc[group],
                     os.path.join(BUILD, f"k3_{group}", "lib.so"),
-                    [f"-DPROBE_GROUP_{group}"]) for group in K3_GROUPS}
+                    [f"-DPROBE_GROUP_{group}"]) for group in groups}
     t0 = time.perf_counter()
     soa_kernels.load_library()
     out = {"library_seconds": time.perf_counter() - t0, "designs": {}}
     built = nvcc_all(jobs, [soa_kernels._nvcc(), *soa_kernels.NVCC_FLAGS])
     P = ctypes.c_void_p
     entries = {}
-    for group, names in K3_GROUPS.items():
+    for group, names in groups.items():
         lib = ctypes.CDLL(jobs[group][2])
         lib.probe_pack_values.restype = ctypes.c_longlong
         pack_values = lib.probe_pack_values()
@@ -117,6 +251,12 @@ def run_k3(cs, tree: str, rounds: int) -> dict:
                 fn.restype = ctypes.c_int
                 entries[name, suffix] = fn
             log = built[group]["log"]
+            if k1:
+                out["designs"][name] = {
+                    "build_seconds": built[group]["seconds"],
+                    "ptxas": k1_ptxas(log, "f", *K1_KERNELS[name]),
+                    "ptxas_float64": k1_ptxas(log, "d", *K1_KERNELS[name])}
+                continue
             kernels = (("cube_terms_kernel", "split_solve_kernel")
                        if name == "split1" else
                        ("cube_terms_kernel",
@@ -130,10 +270,12 @@ def run_k3(cs, tree: str, rounds: int) -> dict:
                          for line in cs.ptxas_of(log, kernel + mangled)]
                    for key, mangled in (("ptxas", "If"),
                                         ("ptxas_float64", "Id"))}}
-    shipped_log = soa_kernels.build_log()
+    shipped = ("contactnets_loss_fwd_kernel" if k1 else
+               "contactnets_loss_fwd_warm_kernel")
     out["designs"]["shipped"] = {key: cs.ptxas_lines(
-        "contactnets_loss.cu", "contactnets_loss_fwd_warm_kernel" + mangled)
+        "contactnets_loss.cu", shipped + mangled)
         for key, mangled in (("ptxas", "If"), ("ptxas_float64", "Id"))}
+    budget = cs.COLD_BUDGET if k1 else cs.WARM_BUDGET
 
     system = MultibodyLearnableSystem.from_urdfs(
         {"cube": assets.get_asset("cube")}, cs.DT)
@@ -151,11 +293,14 @@ def run_k3(cs, tree: str, rounds: int) -> dict:
     pack = torch.empty((pack_values * n,), dtype=torch.float64,
                        device=system.device)
 
-    def run(name, dtype, budget=cs.WARM_BUDGET, cols=None):
+    def run(name, dtype, budget=budget, cols=None):
         pvec, xin, xp, fprev = inputs[dtype]
         if cols is not None:
             xin, xp, fprev = (t[..., cols].contiguous()
                               for t in (xin, xp, fprev))
+        if name == "shipped" and k1:
+            return lk.fused_loss_fwd(model, pvec, xin, xp, cs.DT,
+                                     cs.LOSS_EPS, *budget)
         if name == "shipped":
             return lk.fused_loss_fwd_warm(model, pvec, xin, xp, fprev, cs.DT,
                                           cs.LOSS_EPS, *budget)
@@ -167,20 +312,23 @@ def run_k3(cs, tree: str, rounds: int) -> dict:
             pack.data_ptr(), B, cs.DT, cs.LOSS_EPS, *budget,
             torch.cuda.current_stream().cuda_stream)
         if err != 0:
-            raise RuntimeError(f"K3 design {name}: CUDA error {err}")
+            raise RuntimeError(f"design {name}: CUDA error {err}")
         return loss, force, valid
 
-    names = ["shipped", *(name for names in K3_GROUPS.values()
+    names = ["shipped", *(name for names in groups.values()
                           for name in names)]
     small = slice(0, cs.B)
     with torch.no_grad():
         for dtype in (torch.float32, torch.float64):
             key = str(dtype).split(".")[1]
             pvec, xin, xp, fprev = inputs[dtype]
-            plain = lk.plain_loss_fwd_warm(
+            plain = (lk.plain_loss_fwd(
+                model, pvec, xin[:, small].contiguous(),
+                xp[:, small].contiguous(), cs.DT, cs.LOSS_EPS, *budget)
+                if k1 else lk.plain_loss_fwd_warm(
                 model, pvec, xin[:, small].contiguous(),
                 xp[:, small].contiguous(), fprev[..., small].contiguous(),
-                cs.DT, cs.LOSS_EPS, *cs.WARM_BUDGET)
+                cs.DT, cs.LOSS_EPS, *budget))
             whole = run("shipped", dtype)
             for name in names:
                 entry = out["designs"].setdefault(name, {})
@@ -190,13 +338,13 @@ def run_k3(cs, tree: str, rounds: int) -> dict:
                     run(name, dtype), whole)
             del plain, whole
         torch.cuda.synchronize()
-        for what, dtype, budget, reps in (
-                ("ms", torch.float32, cs.WARM_BUDGET, 5),
-                ("ms_float64", torch.float64, cs.WARM_BUDGET, 3),
+        for what, dtype, at, reps in (
+                ("ms", torch.float32, budget, 5),
+                ("ms_float64", torch.float64, budget, 3),
                 *((f"ms_{i},{j}", torch.float32, (i, j), 3)
                   for i, j in SPLIT_BUDGETS)):
             times = timed_rounds(cs, {
-                name: (lambda nm=name: run(nm, dtype, budget))
+                name: (lambda nm=name, dt=dtype, bg=at: run(nm, dt, bg))
                 for name in names}, rounds, reps)
             for name, t in times.items():
                 out["designs"][name][what] = t
@@ -217,6 +365,8 @@ def main() -> int:
                         help="checkout whose package and kernels to measure")
     parser.add_argument("--label", default="change")
     parser.add_argument("--rounds", type=int, default=3)
+    parser.add_argument("--k1", action="store_true",
+                        help="K1's designs in place of K3's")
     args = parser.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -235,10 +385,10 @@ def main() -> int:
     spec.loader.exec_module(cs)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    out = {"label": args.label, "tree": tree,
-           "nvidia_smi": cs.phase_device(), "rounds": args.rounds}
+    out = {"label": args.label, "tree": tree, "kernel": "K1" if args.k1
+           else "K3", "nvidia_smi": cs.phase_device(), "rounds": args.rounds}
     t0 = time.perf_counter()
-    out.update(run_k3(cs, tree, args.rounds))
+    out.update(run_designs(cs, tree, args.rounds, args.k1))
     out["seconds"] = time.perf_counter() - t0
     line = json.dumps(out)
     print(line, flush=True)

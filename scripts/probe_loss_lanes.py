@@ -26,7 +26,15 @@ For the checkout at ``--tree`` (this one by default):
   outputs in each type (equal digests across trees and variants: equal
   bits) and its times in both types, and on the 8,192 against
   ``soa_kernels.plain_packed`` in float64 bit for bit; with ptxas's lines
-  of K5 at both sizes.
+  of K5 at both sizes;
+- with ``--k4``, the cold solve K4 alone at the cold loss's budget (10,
+  10), eps 1e-3, on its contact-rich sets (the QPs of the box cube's and
+  the elbow's fused rollouts near the ground: 8,192, 32,768, 65,536 and
+  262,144 at (6, 4), 8,192 and 65,536 at (7, 8)) and on the QPs the ICNN cube's (262,144)
+  and the ICNN elbow's (65,536) cold loss hands it at initial parameters,
+  with each set's share of QPs with contact, its digest and times in both
+  types (three rounds), float64 against ``plain_packed_cold`` bit for bit
+  on the 8,192 sets, and ptxas's K4 lines.
 
 The data, checks and timing are this checkout's ``chip_smoke.py``; the
 package, and so the kernels' sources, are the ``--tree``'s, built under its
@@ -34,7 +42,8 @@ package, and so the kernels' sources, are the ``--tree``'s, built under its
 tree's package under ``build/lane_probe/NAME/`` with the source edits of
 ``VARIANTS[NAME]``, designs the shipped kernels were measured against
 (the ``k5_*`` ones K5's at (7, 8), the ``k5_cube_*`` ones K5's at (6,
-4), measured with ``--solves``). To compare
+4), measured with ``--solves``; the ``k4_*`` ones K4's, measured with
+``--k4``). To compare
 two checkouts on one card, unpack the other into a directory
 ``.gitignore`` lists and run both in turns in one call:
 
@@ -42,6 +51,7 @@ two checkouts on one card, unpack the other into a directory
         --label parent --check
     python3 scripts/probe_loss_lanes.py --label change --check
     python3 scripts/probe_loss_lanes.py --solves --variant k5_lanes8
+    python3 scripts/probe_loss_lanes.py --k4 --variant k4_lanes2
 
 Needs one CUDA card and ``nvcc``. Prints one JSON line and appends it to
 ``chiprun_out/probe_loss_lanes.jsonl``.
@@ -71,6 +81,67 @@ K5_LANES = re.compile(r"template <int NV, int K> constexpr int kWarmLanes = "
 K5_BLOCK = "template <int L> constexpr int kBlock = L == 1 ? 32 : 64;"
 K5_SHARED = ('  static_assert(shared <= 48 * 1024, "a block\'s slots fit in '
              '48 KB");')
+
+
+#: The lines of the cold solve's sources that set K4's design: lanes a QP
+#: (the whole line), the batch from which the cube's runs fewer, and which
+#: of its loops leave at their fixed points; as edits.
+K4_LANES = re.compile(r"template <int NV, int K> constexpr int kColdLanes = "
+                      r"[^;]*;")
+K4_FEWER = "? 32768 : LLONG_MAX;"
+K4_IPM_EXITS = ("template <typename T> constexpr bool kColdIpmExits = "
+                "sizeof(T) == 8;")
+K4_ALL_EXITS = ("cold_hybrid_solve.cu", K4_IPM_EXITS,
+                "template <typename T> constexpr bool kColdIpmExits = true;")
+K4_NO_IPM_EXITS = ("cold_hybrid_solve.cu", K4_IPM_EXITS,
+                   "template <typename T> constexpr bool kColdIpmExits = "
+                   "false;")
+K4_NO_NEWTON_EXITS = ("cold_hybrid_solve.cu",
+                      "constexpr bool kColdNewtonExits = true;",
+                      "constexpr bool kColdNewtonExits = false;")
+
+
+def k4_design(elbow: int, cube: int) -> list:
+    """Edits that run K4 on ``elbow`` lanes a QP at (7, 8) and ``cube`` at
+    (6, 4) (the shipped kernel's batch rule kept), raising the kernel's
+    shared memory past 48 KB where the block needs it."""
+    return [("hybrid_solve.cuh", K4_LANES,
+             "template <int NV, int K> constexpr int kColdLanes = "
+             f"K > 4 ? {elbow} : {cube};"),
+            ("cold_hybrid_solve.cu", K5_SHARED,
+             "  if (shared > 48 * 1024 && cudaFuncSetAttribute(\n"
+             "          cold_hybrid_solve_kernel<T, NV, K, L>,\n"
+             "          cudaFuncAttributeMaxDynamicSharedMemorySize,\n"
+             "          (int)shared) != cudaSuccess)\n"
+             "    return (int)cudaGetLastError();")]
+
+
+#: K4 with each value of its problem pinned where it was loaded (an empty
+#: asm that the compiler must assume changes it), so that the solve keeps
+#: the values in registers or its own stack and cannot load them again from
+#: the inputs in global memory inside its loops.
+K4_PIN = ("hybrid_solve.cuh",
+          "  T gamma[3][KL];\n  const bool valid = cold_hybrid_solve<",
+          """#ifdef __CUDA_ARCH__
+  auto pin = [](T& x) {
+    if constexpr (sizeof(T) == 4) asm volatile("" : "+f"(x));
+    else asm volatile("" : "+d"(x));
+  };
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int j = 0; j < NV; ++j) pin(P.M[i][j]);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int c = 0; c < KL; ++c) {
+      pin(P.q[i][c]);
+#pragma unroll
+      for (int v = 0; v < NV; ++v) pin(P.J[i][v][c]);
+    }
+#endif
+  T gamma[3][KL];
+  const bool valid = cold_hybrid_solve<""")
 
 
 def k5_design(elbow: int, cube: int, threads: int,
@@ -115,6 +186,53 @@ VARIANTS = {
     "k5_cube_block128": k5_design(4, 4, 128),
     "k5_cube_lanes_always": [("warm_hybrid_solve.cu", "? 32768 : LLONG_MAX;",
                               "? LLONG_MAX : LLONG_MAX;")],
+    # K4's designs, each with its exits as measured. The shipped kernel
+    # leaves SAP-Newton at its fixed point in both types and the IPM in
+    # float64 only; ALL_EXITS (the PR's first design) leaves the IPM in
+    # float32 too. K4 on one thread a QP at both sizes and in both types
+    # (its design before lanes), on 2 lanes a QP at both sizes, on 8 at
+    # (7, 8), and at (6, 4) on 4 lanes at every batch in both types (the
+    # shipped kernel runs one thread a QP in float32 and 2 lanes in
+    # float64 there from kColdFewerFrom QPs on), each with ALL_EXITS.
+    "k4_one_thread": [*k4_design(1, 1), K4_ALL_EXITS],
+    "k4_lanes2": [*k4_design(2, 2), K4_ALL_EXITS],
+    "k4_lanes8": [*k4_design(8, 4), K4_ALL_EXITS],
+    "k4_cube_lanes_always": [("cold_hybrid_solve.cu", K4_FEWER,
+                              "? LLONG_MAX : LLONG_MAX;"), K4_ALL_EXITS],
+    # The shipped layout with ALL_EXITS, with no exits, with the IPM's
+    # alone, with SAP-Newton's alone in both types, and with the IPM's
+    # frozen-mu exit alone (before the iteration's step); 2 lanes a QP at
+    # both sizes without exits.
+    "k4_all_exits": [K4_ALL_EXITS],
+    "k4_no_exits": [K4_NO_IPM_EXITS, K4_NO_NEWTON_EXITS],
+    "k4_ipm_exit_only": [K4_ALL_EXITS, K4_NO_NEWTON_EXITS],
+    "k4_newton_exit_only": [K4_NO_IPM_EXITS],
+    "k4_frozen_exit_only": [
+        K4_ALL_EXITS, K4_NO_NEWTON_EXITS,
+        ("hybrid_solve.cuh",
+         "      if (g.warp_all(!(step_ok && !converged))) {",
+         "      if (false) {")],
+    "k4_lanes2_no_exits": [*k4_design(2, 2), K4_NO_IPM_EXITS,
+                           K4_NO_NEWTON_EXITS],
+    # ALL_EXITS with the problem pinned (K4_PIN): as shipped, on 2 lanes a
+    # QP, on 4 lanes at every batch at (6, 4); and the pin without exits.
+    "k4_pin": [K4_PIN, K4_ALL_EXITS],
+    "k4_pin_no_exits": [K4_PIN, K4_NO_IPM_EXITS, K4_NO_NEWTON_EXITS],
+    "k4_pin_lanes2": [K4_PIN, *k4_design(2, 2), K4_ALL_EXITS],
+    "k4_pin_cube_lanes_always": [K4_PIN, ("cold_hybrid_solve.cu", K4_FEWER,
+                                          "? LLONG_MAX : LLONG_MAX;"),
+                                 K4_ALL_EXITS],
+    # ALL_EXITS with each QP leaving the loops on its own, in place of a
+    # warp leaving them together once all its QPs are at their fixed
+    # points (the groups' warp_all).
+    "k4_exits_diverge": [
+        K4_ALL_EXITS,
+        ("hybrid_solve.cuh", "  __device__ bool warp_all(bool p) const { "
+         "return __all_sync(~0u, p); }",
+         "  __device__ bool warp_all(bool p) const { return p; }"),
+        ("hybrid_solve.cuh", "  __device__ static bool warp_all(bool p) { "
+         "return __all_sync(~0u, p); }",
+         "  __device__ static bool warp_all(bool p) { return p; }")],
     # One lane a contact at the elbow's size (8 lanes a sample).
     "lanes8": [("model_terms.cuh",
                 "constexpr int kFwdLanes = Z::K > 4 ? Z::K / 2 : 1;",
@@ -275,6 +393,72 @@ def solve_times(cs, elbow) -> dict:
     return out
 
 
+def k4_times(cs) -> dict:
+    """K4 on its contact-rich sets and on the ICNN models' cold loss QPs,
+    as the module's docstring lists: per set the share of QPs with
+    contact, the digest of the outputs and the times in each type; on the
+    8,192 sets, float64 against the plain version bit for bit. ptxas's
+    lines of K4 at both sizes."""
+    import torch
+    from dair_pll_tpu_torch import assets
+    from dair_pll_tpu_torch.multibody.learnable_system import (
+        MultibodyLearnableSystem)
+    from dair_pll_tpu_torch.ops import soa_kernels
+    kernel = soa_kernels.solve_contact_impulse_soa_cuda_packed
+    args = (cs.LOSS_EPS, *cs.COLD_BUDGET)
+    cube = MultibodyLearnableSystem.from_urdfs(
+        {"cube": assets.get_asset("cube")}, cs.DT)
+    elbow = cs.elbow_system()
+    out = {shape: cs.k4_ptxas(shape) for shape in ("nv6_k4", "nv7_k8")}
+
+    def rollout(system, states, n):
+        return cs.rollout_qps(system, system.initial_params(torch.float64),
+                              states(n))[:3]
+
+    def icnn(system, transitions, n):
+        return cs.cold_loss_qps(system, system.initial_params(torch.float32),
+                                *transitions(n, system.device))
+
+    cube_at = (lambda n: cube_states(cs, cube, n))
+    elbow_at = (lambda n: cs.states_near_ground(elbow, n, 4))
+    sets = (
+        ("rich_nv6_k4_8192", lambda: rollout(cube, cube_at, cs.B)),
+        ("rich_nv6_k4_32768", lambda: rollout(cube, cube_at, 32768)),
+        ("rich_nv6_k4_65536", lambda: rollout(cube, cube_at, 65536)),
+        ("rich_nv6_k4_262144", lambda: rollout(cube, cube_at, 262144)),
+        ("rich_nv7_k8_8192", lambda: rollout(elbow, elbow_at, cs.B)),
+        ("rich_nv7_k8_65536", lambda: rollout(elbow, elbow_at, 65536)),
+        ("icnn_nv6_k4_262144", lambda: icnn(
+            MultibodyLearnableSystem.from_urdfs(
+                {"cube": assets.get_asset("cube_mesh")}, cs.DT),
+            cs.train_transitions, cs.ICNN_TRAIN_B)),
+        ("icnn_nv7_k8_65536", lambda: icnn(
+            cs.elbow_system("elbow_mesh"), cs.elbow_train_transitions,
+            cs.ELBOW_ICNN_B)))
+    for name, make in sets:
+        qps = make()
+        entry = {"B": int(qps[0].shape[-1])}
+        for dtype in (torch.float32, torch.float64):
+            key = str(dtype).split(".")[1]
+            q = tuple(t.to(dtype) for t in qps)
+            with torch.no_grad():
+                got = kernel(*q, *args)
+                entry[f"{key}_digest"] = digest(got)
+                entry[f"{key}_contact_share"] = got[0].abs().amax(
+                    dim=(0, 1)).gt(0).float().mean().item()
+                if name.endswith("_8192") and dtype == torch.float64:
+                    entry["float64_equals_plain"] = all(
+                        torch.equal(a, b) for a, b in zip(
+                            got, soa_kernels.plain_packed_cold(*q, *args)))
+                entry["ms" if key == "float32" else "ms_float64"] = [
+                    cs.cuda_ms(lambda: kernel(*q, *args), 5)
+                    for _ in range(3)]
+        out[name] = entry
+        del qps, q, got
+        torch.cuda.empty_cache()
+    return out
+
+
 def cube_states(cs, cube, n: int):
     """The box cube's rollout states near the ground, as ``chip_smoke.py``
     makes them."""
@@ -383,6 +567,8 @@ def main() -> int:
                         help="hold the kernels against their plain versions")
     parser.add_argument("--solves", action="store_true",
                         help="time K5 and K4 instead of the loss kernels")
+    parser.add_argument("--k4", action="store_true",
+                        help="time the cold solve K4 alone")
     parser.add_argument("--variant", choices=sorted(VARIANTS),
                         help="measure the tree with this design's edits")
     args = parser.parse_args()
@@ -413,7 +599,9 @@ def main() -> int:
     out["build_seconds"] = time.perf_counter() - t0
     out["ptxas"] = {size: cs.loss_ptxas(size) for size in ("b1", "b2")}
 
-    if args.solves:
+    if args.k4:
+        out["k4"] = k4_times(cs)
+    elif args.solves:
         out["solves"] = solve_times(cs, cs.elbow_system())
     else:
         out.update(loss_times(cs, args.check))

@@ -605,3 +605,164 @@ def test_warm_solve_operation_counts(host, name, dtype):
     plain = host_adjoint.count_torch_operations(
         lambda: soa_kernels.plain_packed(*qps, ROLLOUT_EPS, *ROLLOUT_BUDGET))
     assert c["needed"] < plain
+
+
+#: K4's budget and regularization on the rollout's QPs: the cold loss's.
+COLD_QP_BUDGET, COLD_QP_EPS = (10, 10), 1e-3
+
+
+def _cold_qps(name: str, dtype):
+    """K4's packed QPs ``(m, jc, qc)`` at ``name``'s size in ``dtype``: the
+    rollout's QPs (``_rollout_qps``), then two that reach the solve's
+    exits: a contact Jacobian of zeros with the contacts separating (qc =
+    (0.5, 0, 0)), whose IPM freezes and whose SAP-Newton iterate w = 0 is
+    a fixed point from the start, and the same with qc = 0 (a Newton fixed
+    point whose IPM does not freeze in float64); last two whose solve is
+    not finite (a NaN and an infinity in qc)."""
+    m, jc, qc, _ = _rollout_qps(name)
+    jc_x, qc_x = jc[..., :4].clone(), qc[..., :4].clone()
+    jc_x[..., :2] = 0
+    qc_x[..., :2] = 0
+    qc_x[0, :, 0] = 0.5
+    qc_x[0, 0, 2] = float("nan")
+    qc_x[1, 0, 3] = float("inf")
+    return tuple(torch.cat((a, b), dim=-1).to(dtype).contiguous()
+                 for a, b in ((m, m[:, :4]), (jc, jc_x), (qc, qc_x)))
+
+
+@pytest.mark.parametrize("name", sorted(WARM_SHAPES))
+def test_cold_solve_lanes_match_plain_bit_for_bit(host, name):
+    """K4 at the cube's (6, 4) and the elbow's (7, 8) on the card's lanes a
+    QP (``cold_lanes``, a thread a lane, the last groups past the batch),
+    its loops' fixed-point exits on, against
+    ``soa_kernels.plain_packed_cold`` with the C library's float64 square
+    roots, on the rollout's QPs and on QPs that reach each exit or fail:
+    impulses and valid mask bit for bit."""
+    qps = _cold_qps(name, torch.float64)
+    lanes = host.cold_lanes(WARM_SHAPES[name])
+    assert lanes > 1 and WARM_SHAPES[name][1] % lanes == 0
+    got = host.cold_solve(*qps, COLD_QP_EPS, *COLD_QP_BUDGET, lanes=lanes,
+                          groups=qps[0].shape[-1] + 11)
+    with _library_math():
+        want = soa_kernels.plain_packed_cold(*qps, COLD_QP_EPS,
+                                             *COLD_QP_BUDGET)
+    for what, a, b in zip(("force", "valid"), got, want):
+        assert torch.equal(a, b), (
+            f"{what}: max abs difference "
+            f"{(a.double() - b.double()).abs().max().item():.3e}")
+    assert want[0].amax(dim=(0, 1)).gt(1e-6).float().mean() > 0.5
+    assert not bool(want[1][-2:].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(WARM_SHAPES))
+def test_cold_solve_lanes_equal_one_thread(host, name, dtype):
+    """K4 at (6, 4) and (7, 8) on the card's lanes a QP (4, and at (6, 4)
+    also the 2 of its large float64 batches) gives the one-thread body's
+    bits (``cold_solve_packed`` at L = 1), in ``dtype``, with the exits on
+    and with the exits on lanes against the one thread without them: with
+    exactly the batch's groups and with the last groups past its end,
+    which must write nothing."""
+    qps = _cold_qps(name, dtype)
+    n = qps[0].shape[-1]
+    lanes = [host.cold_lanes(WARM_SHAPES[name])] + [2] * (name == "cube")
+    one = host.cold_solve(*qps, COLD_QP_EPS, *COLD_QP_BUDGET)
+    plain_loops = host.cold_solve(*qps, COLD_QP_EPS, *COLD_QP_BUDGET,
+                                  exits=False)
+    for width in lanes:
+        for groups in (n, n + 11):
+            got = host.cold_solve(*qps, COLD_QP_EPS, *COLD_QP_BUDGET,
+                                  lanes=width, groups=groups)
+            for a, b, c in zip(one, got, plain_loops):
+                assert torch.equal(a, b) and torch.equal(a, c), (
+                    dtype, width, groups)
+    assert one[0].dtype == dtype and bool(one[1].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(WARM_SHAPES))
+def test_cold_solve_exits_keep_bits(host, name, dtype):
+    """K4's exits leave its IPM and SAP-Newton loops at exact fixed points:
+    with them on and off the body gives the same bits on every QP, on one
+    thread and on lanes; the constructed QPs reach both exits (an IPM that
+    freezes, a Newton iterate that repeats its bits), and a QP whose solve
+    is not finite never leaves SAP-Newton early (its iterate is NaN)."""
+    qps = _cold_qps(name, dtype)
+    n = qps[0].shape[-1]
+
+    def count(cols, exits=True):
+        return host.cold_solve_count(*(t[..., cols] for t in qps),
+                                     COLD_QP_EPS, *COLD_QP_BUDGET,
+                                     exits=exits)
+
+    lanes = host.cold_lanes(WARM_SHAPES[name])
+    for kw in ({}, {"lanes": lanes}):
+        on = host.cold_solve(*qps, COLD_QP_EPS, *COLD_QP_BUDGET, **kw)
+        off = host.cold_solve(*qps, COLD_QP_EPS, *COLD_QP_BUDGET,
+                              exits=False, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(on, off)), kw
+    frozen, fixed = count(slice(n - 4, n - 3)), count(slice(n - 3, n - 2))
+    assert frozen["ipm_fixed"] > 0 and frozen["newton_fixed"] > 0
+    assert fixed["newton_fixed"] == COLD_QP_BUDGET[1]
+    for b in (n - 2, n - 1):
+        assert count(slice(b, b + 1))["newton_fixed"] == 0, b
+    assert count(slice(0, n))["needed"] < count(slice(0, n), False)["needed"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(WARM_SHAPES))
+def test_cold_solve_operation_counts(host, name, dtype):
+    """K4's body at (6, 4) and (7, 8) (``cold_solve_packed``) counted on
+    ``Counted`` in ``dtype``'s arithmetic, the count its rows' bounds take
+    in ``chip_smoke.py``, with both loops' exits, SAP-Newton's alone (the
+    card's float32 kernel) and none: positive, ``needed`` at most
+    ``executed``, the same on a second run and on three threads (the fixed
+    points too), fewer with more exits, and below the plain version's
+    count."""
+    qps = tuple(t[..., :QP_B] for t in _cold_qps(name, dtype))
+    args = (COLD_QP_EPS, *COLD_QP_BUDGET)
+    counts = {}
+    for exits in (True, "newton", False):
+        c = host.cold_solve_count(*qps, *args, exits=exits)
+        assert 0 < c["needed"] <= c["executed"]
+        assert host.cold_solve_count(*qps, *args, exits=exits) == c
+        assert host.cold_solve_count(*qps, *args, threads=3,
+                                     exits=exits) == c
+        counts[exits] = c
+    assert counts[False]["ipm_fixed"] == counts[False]["newton_fixed"] == 0
+    assert counts["newton"]["ipm_fixed"] == 0
+    assert counts[True]["ipm_fixed"] > 0
+    assert counts[True]["needed"] <= counts["newton"]["needed"] \
+        <= counts[False]["needed"]
+    assert counts[True]["needed"] < counts[False]["needed"]
+    plain = host_adjoint.count_torch_operations(
+        lambda: soa_kernels.plain_packed_cold(*qps, *args))
+    assert counts[False]["needed"] < plain
+
+
+def test_cube_cold_body_exits_keep_bits(host):
+    """The box cube's K1 body (``cube_loss_cold``) with its solve's exits
+    on (as K1 runs it) and off gives the same bits, equal to
+    ``plain_loss_fwd`` with the C library's float64 square roots, on the
+    parity transitions and on the same lifted 1 m off the ground, which
+    reach both exits in float64 (an IPM that freezes, a Newton iterate
+    that repeats its bits)."""
+    model, pvec, xin, xp = _cube_inputs()
+    lifted = torch.zeros_like(xin)
+    lifted[6] = 1.0
+    xin, xp = torch.cat((xin, xin + lifted), 1), torch.cat((xp, xp + lifted),
+                                                           1)
+    on = host.cube_loss(pvec, xin, xp, DT, LOSS_EPS, *COLD_BUDGET)
+    off = host.cube_loss(pvec, xin, xp, DT, LOSS_EPS, *COLD_BUDGET,
+                         exits=False)
+    with _library_math():
+        want = lk.plain_loss_fwd(model, pvec, xin, xp, DT, LOSS_EPS,
+                                 *COLD_BUDGET)
+    for what, a, b, c in zip(("loss", "impulse", "valid"), on, off, want):
+        assert torch.equal(a, b) and torch.equal(a, c), what
+    c = host.cube_count("cold", pvec, xin, xp, None, DT, LOSS_EPS,
+                        *COLD_BUDGET)
+    assert c["ipm_fixed"] > 0 and c["newton_fixed"] > 0
+    assert c["needed"] < host.cube_count(
+        "cold", pvec, xin, xp, None, DT, LOSS_EPS, *COLD_BUDGET,
+        exits=False)["needed"]
