@@ -155,6 +155,36 @@ slower (PERF.md).
    plain versions over the whole batch would take minutes a kernel); the
    elbow's training round (as phase 10, traced); the polygon cube's
    training round at 262,144 with its kernels' times (also in float64).
+12. The experiment layer through the CLI's entry point
+   (``dair_pll_tpu_torch.examples.contactnets_simple.run``), after phase
+   11's host-bound phases and before the ICNN training's trace, in a fresh
+   ``build/experiment_smoke/``; videos off (``video_period=0``: the card's
+   machine has no matplotlib). ``experiment_card_vs_cpu``: 32 tosses of
+   20 states generated on the CPU, a seed and a warm epoch of the box cube
+   at batch 256 with float64 parameters, ``loss_dtype="float64"`` and
+   ``force_fused_loss`` (K1, K3, K2 in float64) on the card and on the
+   CPU, on copies of the storage: equal batch tables, each step's loss
+   within rtol 1e-8, the parameters after each epoch within rtol 1e-5,
+   atol 1e-9, the final evaluation's ``_mean`` statistics within rtol
+   1e-6, K1/K3/K2 launches equal to the steps and loss batches. ``experiment``: the CLI's recipe (256 tosses
+   of 80 states, batch 256, lr 1e-3) for 5 epochs, the learned system from
+   ``assets.wrong_init_urdf("cube")`` (from the truth the loss cannot
+   fall); per epoch the train loss, best valid loss, the seconds of
+   training, evaluation and logging, train slices per second and K1, K2,
+   K3, K5 launches, each held to what the steps, loss batches and
+   evaluations need; the final ``_mean`` statistics; the learned mass,
+   sides and friction beside the truth; a falling loss, finite
+   parameters, the checkpoint and the re-exported URDF; then the same
+   call again, which must generate nothing and resume. Full evaluations at
+   epochs 0 and 5 only (the CLI's default is every epoch; each costs about
+   21 s of vmapped rollouts). ``experiment_mesh_elbow``: the same checks for
+   ``--mesh`` (the ICNN cube, its warm loss on K5 and cold passes on K4;
+   meshes in the summary and the export) and ``--system elbow`` (the
+   generic K3/K2 and K1, from its wrong init), 2 epochs each, 1,024 tosses
+   (fused rollouts) at batch 2,048, no per-epoch evaluation. ``experiment_scale``: 8,192 tosses (the fused rollout on K5),
+   batch 16,384, 10 epochs (a warm reseed at epoch 9), a full evaluation
+   every 5 epochs, epoch 8 traced (device busy share, top kernels,
+   kernels per step).
 
 It prints, in this order: one JSON line per phase, the kernel table as
 one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
@@ -162,7 +192,9 @@ one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
 import os
 import statistics
@@ -3022,7 +3054,589 @@ def phase_polygon_train(system):
     return launches, timing
 
 
-def main() -> int:
+# -- the experiment layer (phase 12) ---------------------------------------------
+
+#: The experiment layer's phases: the CLI's own recipe (256 tosses of 80
+#: states, batch 256), the production batch (8,192 tosses, batch 16,384),
+#: and the card held against the CPU on 32 tosses of 20 states.
+EXPERIMENT_EPOCHS = 5
+#: Full evaluations in ``experiment`` at epochs 0 and 5 (the CLI's default
+#: is every epoch): each evaluates 10 tosses on the vmapped rollout, about
+#: 21 s on an H100 (``PERF.md`` §5), which the phases' time cannot hold
+#: six times.
+EXPERIMENT_EVAL_PERIOD = 5
+#: ``experiment_mesh_elbow``: 1,024 tosses (the fused rollout on K5 for
+#: generation and the final evaluation), batch 2,048 (the fused loss for
+#: the no-gradient passes: K4 for the ICNN cube, the generic K1 for the
+#: elbow), no per-epoch evaluation.
+MESH_ELBOW_TOSSES = 1024
+MESH_ELBOW_BATCH = 2048
+SCALE_TOSSES = 8192
+SCALE_BATCH = 16384
+SCALE_EPOCHS = 10
+SCALE_EVAL_PERIOD = 5
+SCALE_TRACED_EPOCH = 8
+MESH_ELBOW_EPOCHS = 2
+CARD_CPU_TOSSES = 32
+CARD_CPU_LENGTH = 20
+CARD_CPU_LOSS_RTOL = 1e-8
+CARD_CPU_PARAM_RTOL = 1e-5
+CARD_CPU_PARAM_ATOL = 1e-9
+CARD_CPU_MEAN_RTOL = 1e-6
+#: The box cube's true mass, side length and friction (the URDF's).
+CUBE_TRUTH = {"m": 0.37, "len": 0.1048, "mu": 0.15}
+EXPERIMENT_KERNELS = ("K1", "K2", "K3", "K4", "K5")
+
+
+def experiment_launches() -> dict:
+    launches = read_launches()
+    return {name: launches[name] for name in EXPERIMENT_KERNELS}
+
+
+def eval_k5(n_trajectories: int, n_slices: int, horizon: int) -> int:
+    """K5 launches of one system's evaluation: the rollouts take the fused
+    path from FUSED_ROLLOUT_MIN_BATCH trajectories (a launch a step), the
+    one-step slice losses from chunks of that many slices (a launch a
+    chunk)."""
+    from dair_pll_tpu_torch.multibody.learnable_system import (
+        FUSED_ROLLOUT_MIN_BATCH)
+    from dair_pll_tpu_torch.training.experiment import (
+        EVALUATION_SLICE_CHUNK)
+    chunk = min(EVALUATION_SLICE_CHUNK,
+                1 << max(0, n_slices - 1).bit_length())
+    chunks = -(-n_slices // chunk)
+    return ((horizon if n_trajectories >= FUSED_ROLLOUT_MIN_BATCH else 0) +
+            (chunks if chunk >= FUSED_ROLLOUT_MIN_BATCH else 0))
+
+
+class LaunchesAround:
+    """Counts the kernels' launches inside calls of a method (the
+    dataset generator's ``generate``), patched for the ``with`` block;
+    the counters restart from 0 after each call, so that the next
+    reading counts what follows."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name = owner, name
+        self.launches = {name: 0 for name in EXPERIMENT_KERNELS}
+        self.seconds = 0.0
+
+    def __enter__(self):
+        original = self.original = getattr(self.owner, self.name)
+
+        def counted(*args, **kwargs):
+            before = experiment_launches()
+            t0 = time.perf_counter()
+            out = original(*args, **kwargs)
+            self.seconds += time.perf_counter() - t0
+            after = experiment_launches()
+            for key in self.launches:
+                self.launches[key] += after[key] - before[key]
+            reset_launches()
+            return out
+
+        setattr(self.owner, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.original)
+
+
+def run_experiment(label: str, storage: str, traced_epoch=None,
+                   **options) -> dict:
+    """The CLI's ``run`` on the card with the given options (videos off:
+    the card's machine has no matplotlib), reading per epoch the train
+    loss, the best valid loss, the kernels' launches (training, the
+    no-gradient loss passes and that epoch's evaluation) and, from the
+    run's log, the seconds of training, evaluation and logging."""
+    import torch
+    from dair_pll_tpu_torch.data import generation
+    from dair_pll_tpu_torch.examples import contactnets_simple as cli
+    epochs, trace = [], {}
+
+    def callback(epoch, params, train_loss, best_valid):
+        torch.cuda.synchronize()
+        epochs.append({"epoch": epoch, "train_loss": train_loss,
+                       "best_valid": best_valid,
+                       "launches": experiment_launches(),
+                       "finite": all(bool(torch.isfinite(leaf).all())
+                                     for leaf in params.parameters())})
+        reset_launches()
+        if traced_epoch is not None and epoch == traced_epoch - 1:
+            trace["profiler"] = start_trace()
+            trace["t0"] = time.perf_counter()
+        elif "profiler" in trace and "result" not in trace:
+            trace["result"] = stop_trace(trace["profiler"],
+                                         time.perf_counter() - trace["t0"])
+
+    reset_launches()
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with LaunchesAround(generation.ExperimentDatasetGenerator,
+                        "generate") as gen, \
+            contextlib.redirect_stdout(printed):
+        out = cli.run(storage=storage, epoch_callback=callback,
+                      video_period=0, **options)
+    seconds = time.perf_counter() - t0
+    if f"generated {out['generated']} trajectories" not in \
+            printed.getvalue():
+        raise AssertionError(f"{label}: the CLI printed "
+                             f"{printed.getvalue()[:400]!r}")
+    final_launches = experiment_launches()
+    experiment = out["experiment"]
+    config = experiment.config
+    log_path = os.path.join(storage, "runs", config.run_name, "log.jsonl")
+    with open(log_path, encoding="utf-8") as handle:
+        log = {r["epoch"]: r for r in map(json.loads, handle)
+               if r["epoch"] >= 0}
+    train_set, valid_set, test_set = \
+        experiment.data_manager.get_trajectory_sets()
+    for entry in epochs:
+        record = log[entry["epoch"]]
+        entry.update({key: record[key] for key in (
+            "training_duration", "evaluation_duration",
+            "logging_duration")})
+        if entry["epoch"] > 0:
+            entry["train_slices_per_second"] = (
+                train_set.n_slices / record["training_duration"])
+    return {"label": label, "out": out, "epochs": epochs, "log": log,
+            "seconds": seconds, "generation": {
+                "generated": out["generated"], "seconds": gen.seconds,
+                "launches": gen.launches},
+            "final_launches": final_launches,
+            "sets": (train_set, valid_set, test_set),
+            "trace": trace.get("result")}
+
+
+def start_trace():
+    from torch.profiler import ProfilerActivity, profile
+    profiler = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+    profiler.__enter__()
+    return profiler
+
+
+def stop_trace(profiler, window_seconds: float) -> dict:
+    """Device busy share, kernels and the top kernels by device time of a
+    traced window."""
+    import collections
+    import torch
+    torch.cuda.synchronize()
+    profiler.__exit__(None, None, None)
+    per_name = collections.Counter()
+    kernels = 0
+    for event in profiler.events():
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            per_name[event.name] += event.time_range.elapsed_us()
+            kernels += 1
+    device_ms = sum(per_name.values()) / 1e3
+    by_kind = collections.Counter()
+    for name, us in per_name.items():
+        by_kind[kernel_kind(name)] += us / 1e3
+    return {"window_ms": window_seconds * 1e3, "device_ms": device_ms,
+            "device_kernels": kernels,
+            "device_busy_share": device_ms / (window_seconds * 1e3),
+            "device_ms_by_kind": by_kind,
+            "top_kernels_ms": [[name[:80], us / 1e3]
+                               for name, us in per_name.most_common(8)]}
+
+
+def expected_experiment_launches(run: dict, force_fused: bool,
+                                 warm_kernels: bool, icnn: bool) -> list:
+    """Per epoch, the launches the run's steps and passes need: K3 and K2
+    once a training step (the ICNN cube's warm loss runs K5 instead), K1
+    once a no-gradient loss batch on the fused path (from
+    FUSED_LOSS_MIN_BATCH slices a batch, or forced; the ICNN cube's cold
+    loss runs K4 instead), K5 by ``eval_k5`` for each evaluation."""
+    from dair_pll_tpu_torch.multibody.learnable_system import (
+        FUSED_LOSS_MIN_BATCH)
+    experiment = run["out"]["experiment"]
+    config = experiment.config
+    batch = int(config.optimizer_config.batch_size.value)
+    train_set, valid_set, _ = run["sets"]
+    steps = -(-train_set.n_slices // batch)
+    valid_batches = -(-valid_set.n_slices // batch)
+    fused_passes = force_fused or batch >= FUSED_LOSS_MIN_BATCH
+    period = max(1, config.full_evaluation_period)
+    last = config.optimizer_config.epochs
+    expected = []
+    for entry in run["epochs"]:
+        epoch = entry["epoch"]
+        passes = valid_batches + (steps if epoch == 0 else 0)
+        trained = steps if epoch > 0 else 0
+        fused = passes if fused_passes else 0
+        launches = {"K1": 0 if icnn else fused,
+                    "K3": trained if warm_kernels and not icnn else 0,
+                    "K2": trained if warm_kernels and not icnn else 0,
+                    "K4": fused if icnn else 0,
+                    "K5": trained if icnn else 0}
+        if config.full_evaluation_samples > 0 and (
+                epoch % period == 0 or epoch == last):
+            n = config.full_evaluation_samples
+            sampled = [experiment.data_manager.make_sampled_set(s, n)
+                       for s in (train_set, valid_set)]
+            trajectories = sum(len(s.trajectories) for s in sampled)
+            slices = sum(s.n_slices for s in sampled)
+            horizon = sampled[0].trajectories[0].shape[0] - 1
+            launches["K5"] += eval_k5(trajectories, slices, horizon)
+        expected.append(launches)
+    return expected
+
+
+def final_expected_k5(run: dict) -> int:
+    """K5 launches of the final evaluation: oracle and model over all
+    sets together."""
+    sets = run["sets"]
+    trajectories = sum(len(s.trajectories) for s in sets)
+    slices = sum(s.n_slices for s in sets)
+    horizon = sets[0].trajectories[0].shape[0] - 1
+    return 2 * eval_k5(trajectories, slices, horizon)
+
+
+def learned_physics(experiment, params) -> dict:
+    """The learned cube's mass, side lengths and friction, from the
+    system's logging summary."""
+    scalars = experiment.learned_system.summary(params, {}).scalars
+    return {"m": scalars["cube::body_m"],
+            "len": [scalars[f"cube::body_len_{a}"] for a in "xyz"],
+            "mu": scalars["cube::body_mu"]}
+
+
+def wrong_init(scratch: str, name: str) -> str:
+    """The path of the cube's or elbow's wrong-init URDF
+    (``assets.wrong_init_urdf``), written into ``scratch``."""
+    from dair_pll_tpu_torch import assets
+    path = os.path.join(scratch, f"{name}_wrong_init.urdf")
+    with open(path, "w", encoding="utf-8") as handle:
+        handle.write(assets.wrong_init_urdf(name))
+    return path
+
+
+def check_experiment(run: dict, expected: list, generation_k5: int,
+                     final_k5, cube_physics: bool) -> dict:
+    """The checks of an experiment phase; returns its report."""
+    import torch
+    out = run["out"]
+    epochs = run["epochs"]
+    got = [entry["launches"] for entry in epochs]
+    if got != expected:
+        raise AssertionError(f"{run['label']}: launches {got}, expected "
+                             f"{expected}")
+    if run["generation"]["launches"]["K5"] != generation_k5:
+        raise AssertionError(f"{run['label']}: generation launched K5 "
+                             f"{run['generation']['launches']['K5']} times, "
+                             f"expected {generation_k5}")
+    if final_k5 is not None and run["final_launches"]["K5"] != final_k5:
+        raise AssertionError(f"{run['label']}: final evaluation launched "
+                             f"K5 {run['final_launches']['K5']} times, "
+                             f"expected {final_k5}")
+    if not epochs[-1]["train_loss"] < epochs[0]["train_loss"]:
+        raise AssertionError(f"{run['label']}: train loss "
+                             f"{epochs[-1]['train_loss']} not below epoch "
+                             f"0's {epochs[0]['train_loss']}")
+    if not all(entry["finite"] for entry in epochs) or not all(
+            bool(torch.isfinite(leaf).all())
+            for leaf in out["best_params"].parameters()):
+        raise AssertionError(f"{run['label']}: non-finite parameters")
+    config = out["experiment"].config
+    run_dir = os.path.join(config.storage, "runs", config.run_name)
+    if not os.path.exists(os.path.join(run_dir, "checkpoint.npz")):
+        raise AssertionError(f"{run['label']}: no checkpoint")
+    urdfs = out["urdfs"]
+    if not urdfs or not all(os.path.exists(p) for p in urdfs.values()):
+        raise AssertionError(f"{run['label']}: no re-exported URDF")
+    means = {key: value for key, value in out["statistics"].items()
+             if key.endswith("_mean")}
+    report = {
+        "generated": run["generation"]["generated"],
+        "generation_seconds": run["generation"]["seconds"],
+        "generation_launches": run["generation"]["launches"],
+        "train_slices": run["sets"][0].n_slices,
+        "valid_slices": run["sets"][1].n_slices,
+        "epochs": [{key: entry[key] for key in (
+            "epoch", "train_loss", "best_valid", "training_duration",
+            "evaluation_duration", "logging_duration", "launches",
+            "train_slices_per_second") if key in entry}
+            for entry in epochs],
+        "final_evaluation_launches": run["final_launches"],
+        "means": means, "seconds": run["seconds"],
+        "urdfs": {name: os.path.basename(path)
+                  for name, path in urdfs.items()}}
+    if cube_physics:
+        report["learned"] = learned_physics(out["experiment"],
+                                            out["best_params"])
+        report["truth"] = CUBE_TRUTH
+    if run["trace"] is not None:
+        report["traced_epoch"] = run["trace"]
+    return report
+
+
+def rerun_resumes(label: str, storage: str, **options) -> dict:
+    """A second call of the same run must generate nothing and resume
+    from the finished checkpoint: no epoch runs again."""
+    from dair_pll_tpu_torch.examples import contactnets_simple as cli
+    epochs = []
+    buffer = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buffer):
+        out = cli.run(storage=storage, video_period=0,
+                      epoch_callback=lambda e, *a: epochs.append(e),
+                      **options)
+    seconds = time.perf_counter() - t0
+    text = buffer.getvalue()
+    if "generated 0 trajectories" not in text or epochs:
+        raise AssertionError(f"{label}: the rerun did not resume: "
+                             f"{text[:400]!r}, epochs {epochs}")
+    return {"rerun_seconds": seconds, "rerun_generated": out["generated"],
+            "rerun_printed": "generated 0 trajectories"}
+
+
+def phase_experiment_card_vs_cpu(scratch: str) -> dict:
+    """One seed and one warm epoch of the box cube on the card (K1, K3, K2
+    in float64: float64 parameters, ``loss_dtype="float64"``,
+    ``force_fused_loss``) and the same two epochs on the CPU, on copies of
+    one storage of 32 tosses of 20 states generated on the CPU: each
+    step's loss, the parameters after each epoch, the batch tables and the
+    final ``_mean`` statistics."""
+    import shutil
+    import numpy as np
+    import torch
+    from dair_pll_tpu_torch.examples import contactnets_simple as cli
+    from dair_pll_tpu_torch.training import experiment as texperiment
+    t0 = time.perf_counter()
+    card_dir = os.path.join(scratch, "card_vs_cpu_card")
+    cpu_dir = os.path.join(scratch, "card_vs_cpu_cpu")
+    cli.generate_tosses("cube", card_dir, CARD_CPU_TOSSES, CARD_CPU_LENGTH,
+                        device="cpu")
+    shutil.copytree(card_dir, cpu_dir)
+    # float64 parameters: with the float32 default, Adam's float32 update
+    # and the float32 rounding of the float64 gradients part the two
+    # devices by an ulp from the second step on (on an H100 the step
+    # losses came 6.4e-8 apart, PERF.md §6), and the float32 evaluation's
+    # one-step losses sit at rounding level (the means up to 4.4x apart).
+    # No per-epoch evaluation: the final one gives the statistics.
+    options = dict(n_pop=CARD_CPU_TOSSES, epochs=2, force_fused_loss=True,
+                   use_warm_loss=True, loss_dtype="float64",
+                   dtype=torch.float64, eval_samples=0,
+                   run_name="card_vs_cpu")
+    records = {}
+    original = texperiment.SupervisedLearningExperiment \
+        ._build_warm_train_epoch
+
+    def recording(self, optimizer, batch_size, seed):
+        epoch_fn = original(self, optimizer, batch_size, seed)
+
+        def recorded(params, optimizer, cache, past, future, batches):
+            losses = epoch_fn(params, optimizer, cache, past, future,
+                              batches)
+            records[active[0]].append({
+                "seed": seed, "batches": batches.cpu().numpy(),
+                "losses": losses.detach().cpu().double().numpy()})
+            return losses
+        return recorded
+
+    runs, active = {}, [None]
+    texperiment.SupervisedLearningExperiment._build_warm_train_epoch = \
+        recording
+    try:
+        for device, storage in (("cuda", card_dir), ("cpu", cpu_dir)):
+            records[device], active[0] = [], device
+            params_by_epoch = []
+            reset_launches()
+            with contextlib.redirect_stdout(io.StringIO()):
+                out = cli.run(
+                    storage=storage, device=device, video_period=0,
+                    epoch_callback=lambda e, p, *a: params_by_epoch.append(
+                        [leaf.detach().cpu().numpy().copy()
+                         for leaf in p.parameters()]),
+                    **options)
+            runs[device] = {"out": out, "params": params_by_epoch,
+                            "launches": experiment_launches()}
+    finally:
+        texperiment.SupervisedLearningExperiment._build_warm_train_epoch = \
+            original
+    card, cpu = records["cuda"], records["cpu"]
+    if [r["seed"] for r in card] != [True, False] or \
+            [r["seed"] for r in cpu] != [True, False]:
+        raise AssertionError(f"epochs: card {[r['seed'] for r in card]}, "
+                             f"cpu {[r['seed'] for r in cpu]}")
+    for a, b in zip(card, cpu):
+        if not np.array_equal(a["batches"], b["batches"]):
+            raise AssertionError("the card's and the CPU's batch tables "
+                                 "differ")
+    loss_rel = [float(np.max(np.abs(a["losses"] - b["losses"]) /
+                             np.abs(b["losses"]))) for a, b in zip(card, cpu)]
+    param_err = []
+    for a, b in zip(runs["cuda"]["params"], runs["cpu"]["params"]):
+        worst = 0.0
+        for leaf_a, leaf_b in zip(a, b):
+            # The error over the bar atol + rtol |cpu|: at most 1 passes.
+            leaf_b = leaf_b.astype(np.float64)
+            worst = max(worst, float(np.max(
+                np.abs(leaf_a.astype(np.float64) - leaf_b) /
+                (CARD_CPU_PARAM_ATOL + CARD_CPU_PARAM_RTOL *
+                 np.abs(leaf_b)))))
+        param_err.append(worst)
+    stats = {d: runs[d]["out"]["statistics"] for d in runs}
+    mean_rel = {}
+    for key, want in stats["cpu"].items():
+        if key.endswith("_mean"):
+            got = stats["cuda"][key]
+            mean_rel[key] = abs(got - want) / max(abs(want), 1e-300)
+    train_set = runs["cuda"]["out"]["experiment"].data_manager \
+        .get_trajectory_sets()[0]
+    batch = 256
+    steps = -(-train_set.n_slices // batch)
+    valid_set = runs["cuda"]["out"]["experiment"].data_manager \
+        .get_trajectory_sets()[1]
+    k1 = steps + 3 * (-(-valid_set.n_slices // batch))
+    step_errors = [(np.abs(a["losses"] - b["losses"]) /
+                    np.abs(b["losses"])).tolist() for a, b in zip(card, cpu)]
+    launches = runs["cuda"]["launches"]
+    report = {"phase": "experiment_card_vs_cpu",
+              "tosses": CARD_CPU_TOSSES, "states": CARD_CPU_LENGTH,
+              "steps_per_epoch": steps,
+              "max_step_loss_rel_err": loss_rel,
+              "step_loss_rel_err": step_errors,
+              "param_err_over_bar_per_epoch": param_err,
+              "max_mean_rel_err": max(mean_rel.values()),
+              "worst_means": sorted(mean_rel.items(),
+                                    key=lambda kv: -kv[1])[:4],
+              "launches": launches,
+              "expected_launches": {"K1": k1, "K3": 2 * steps,
+                                    "K2": 2 * steps},
+              "seconds": time.perf_counter() - t0}
+    emit(report)
+    failures = []
+    if max(loss_rel) > CARD_CPU_LOSS_RTOL:
+        failures.append(f"step losses differ by {max(loss_rel)}")
+    if max(param_err) > 1.0:
+        failures.append(f"parameters over the bar by {max(param_err)}")
+    if max(mean_rel.values()) > CARD_CPU_MEAN_RTOL:
+        failures.append(f"_mean statistics differ by "
+                        f"{max(mean_rel.values())}")
+    for name, want in report["expected_launches"].items():
+        if launches[name] != want:
+            failures.append(f"{name} launched {launches[name]} times, "
+                            f"expected {want}")
+    if failures:
+        raise AssertionError("experiment_card_vs_cpu: " +
+                             "; ".join(failures))
+    return report
+
+
+def phase_experiment(scratch: str) -> dict:
+    """The CLI's own recipe on the card: the box cube, 256 tosses of 80
+    states, batch 256, lr 1e-3, 5 epochs, evaluations at epochs 0 and 5,
+    from the wrong init; then the same call again, which must resume."""
+    storage = os.path.join(scratch, "experiment")
+    options = dict(epochs=EXPERIMENT_EPOCHS,
+                   eval_period=EXPERIMENT_EVAL_PERIOD,
+                   initial_urdf=wrong_init(scratch, "cube"))
+    run = run_experiment("experiment", storage, **options)
+    report = check_experiment(
+        run, expected_experiment_launches(run, False, True, False),
+        generation_k5=0, final_k5=final_expected_k5(run),
+        cube_physics=True)
+    report.update(rerun_resumes("experiment", storage, **options))
+    emit({"phase": "experiment", **report})
+    return report
+
+
+def phase_experiment_scale(scratch: str) -> dict:
+    """The production batch: 8,192 tosses (the simulation bench's count,
+    fused rollouts on K5), batch 16,384, 10 epochs (a warm reseed at
+    epoch 9), full evaluations every 5 epochs; one warm epoch traced."""
+    storage = os.path.join(scratch, "experiment_scale")
+    options = dict(epochs=SCALE_EPOCHS, n_pop=SCALE_TOSSES,
+                   batch_size=SCALE_BATCH, generation_batch=SCALE_TOSSES,
+                   eval_period=SCALE_EVAL_PERIOD,
+                   initial_urdf=wrong_init(scratch, "cube"))
+    run = run_experiment("experiment_scale", storage,
+                         traced_epoch=SCALE_TRACED_EPOCH, **options)
+    from dair_pll_tpu_torch.examples import contactnets_simple as cli
+    report = check_experiment(
+        run, expected_experiment_launches(run, False, True, False),
+        generation_k5=cli.TRAJECTORY_LENGTHS["cube"] - 1,
+        final_k5=final_expected_k5(run), cube_physics=True)
+    steps = -(-run["sets"][0].n_slices // SCALE_BATCH)
+    if run["trace"] is not None:
+        report["traced_epoch"]["steps"] = steps
+        report["traced_epoch"]["epoch"] = SCALE_TRACED_EPOCH
+        report["traced_epoch"]["device_kernels_per_step"] = (
+            run["trace"]["device_kernels"] / steps)
+    report.update(rerun_resumes("experiment_scale", storage, **options))
+    emit({"phase": "experiment_scale", **report})
+    return report
+
+
+def phase_experiment_mesh_elbow(scratch: str) -> dict:
+    """The CLI with ``--mesh`` (the ICNN cube: its warm loss on K5, its
+    cold no-gradient passes on K4, a mesh in the summary, the learned mesh
+    in the exported URDF) and with ``--system elbow`` (the generic K3/K2
+    and K1, from its wrong init, K5 at (7, 8) in its rollouts), 2 epochs
+    each, 1,024 tosses at batch 2,048."""
+    from dair_pll_tpu_torch.examples import contactnets_simple as cli
+    reports = {}
+    for label, options, icnn in (
+            ("mesh", dict(box=False), True),
+            ("elbow", dict(system="elbow",
+                           initial_urdf=wrong_init(scratch, "elbow")),
+             False)):
+        storage = os.path.join(scratch, f"experiment_{label}")
+        options = dict(options, epochs=MESH_ELBOW_EPOCHS,
+                       n_pop=MESH_ELBOW_TOSSES, batch_size=MESH_ELBOW_BATCH,
+                       generation_batch=MESH_ELBOW_TOSSES, eval_samples=0)
+        run = run_experiment(f"experiment_{label}", storage, **options)
+        system = options.get("system", "cube")
+        report = check_experiment(
+            run, expected_experiment_launches(run, False, True, icnn),
+            generation_k5=cli.TRAJECTORY_LENGTHS[system] - 1,
+            final_k5=final_expected_k5(run), cube_physics=False)
+        config = run["out"]["experiment"].config
+        run_dir = os.path.join(config.storage, "runs", config.run_name)
+        if icnn:
+            meshes = os.listdir(os.path.join(run_dir, "meshes"))
+            with open(next(iter(run["out"]["urdfs"].values())),
+                      encoding="utf-8") as handle:
+                urdf = handle.read()
+            if not meshes or ".obj" not in urdf:
+                raise AssertionError(f"mesh: summary meshes {meshes}, "
+                                     "URDF without the learned mesh")
+            report["summary_meshes"] = sorted(meshes)
+        report.update(rerun_resumes(f"experiment_{label}", storage,
+                                    **options))
+        reports[label] = report
+    emit({"phase": "experiment_mesh_elbow", **reports})
+    return reports
+
+
+def experiment_launch_summary(report: dict, kernel: str) -> dict:
+    """One kernel's launches in an experiment phase: by the dataset's
+    generation, per epoch (training, loss passes, that epoch's
+    evaluation) and by the final evaluation."""
+    return {"generation": report["generation_launches"][kernel],
+            "per_epoch": [entry["launches"][kernel]
+                          for entry in report["epochs"]],
+            "final_evaluation": report["final_evaluation_launches"][kernel]}
+
+
+def run_experiment_phases(run) -> dict:
+    """Phase 12's four phases, in their order, in a fresh directory of the
+    checkout."""
+    import shutil
+    scratch = os.path.join(HERE, "build", "experiment_smoke")
+    shutil.rmtree(scratch, ignore_errors=True)
+    os.makedirs(scratch)
+    run("experiment_card_vs_cpu", phase_experiment_card_vs_cpu, scratch)
+    reports = {"experiment": run("experiment", phase_experiment, scratch)}
+    reports.update(run("experiment_mesh_elbow", phase_experiment_mesh_elbow,
+                       scratch))
+    reports["experiment_scale"] = run("experiment_scale",
+                                      phase_experiment_scale, scratch)
+    return reports
+
+
+def main(argv=None) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3054,6 +3668,14 @@ def main() -> int:
 
     smi = run("device", phase_device)
     run("build", build_kernels)
+    if "--only-experiments" in (sys.argv[1:] if argv is None else argv):
+        # A shorter run for work on the experiment layer: its phases
+        # alone, without the kernel table or the final line.
+        run_experiment_phases(run)
+        sampler.stop()
+        emit({"phase": "seconds", **seconds_of})
+        print(smi, flush=True)
+        return 0
     system = MultibodyLearnableSystem.from_urdfs(
         {"cube": assets.get_asset("cube")}, DT)
     x0_64 = torch.tensor(
@@ -3104,6 +3726,10 @@ def main() -> int:
                                             "max_abs_err_float64")}}
     del icnn_elbow, x0_icnn_elbow
     torch.cuda.empty_cache()
+
+    # The experiment layer through the CLI's entry points (host-bound but
+    # for the production batch's, whose traced epoch comes last).
+    experiments = run_experiment_phases(run)
     icnn_launches = run("icnn_train", phase_icnn_train, icnn_system, x_icnn,
                         xp_icnn)
     del x_icnn, xp_icnn
@@ -3177,6 +3803,9 @@ def main() -> int:
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
         **{name: k[name] for name in own_count},
+        "experiment_launches": {
+            phase: experiment_launch_summary(experiments[phase], "K5")
+            for phase in ("experiment", "experiment_scale", "mesh")},
         "library_ms": None,
     }]
     for name, entry, line in (
@@ -3202,6 +3831,9 @@ def main() -> int:
             **{key: loss_times[name][key]
                for key in ("bound_ms_float64", "exits")
                if key in loss_times[name]},
+            "experiment_launches": {
+                phase: experiment_launch_summary(experiments[phase], name)
+                for phase in ("experiment", "experiment_scale")},
             "library_ms": None,
         })
     table.append({
@@ -3219,6 +3851,8 @@ def main() -> int:
         "bound_by": k4["bound_by"],
         **{name: k4[name] for name in own_count},
         **contact_rich("nv6_k4"),
+        "experiment_launches": {
+            "mesh": experiment_launch_summary(experiments["mesh"], "K4")},
         "library_ms": None,
     })
     table.append({
@@ -3260,6 +3894,8 @@ def main() -> int:
             "bound_by": entry["bound_by"],
             **{name: entry[name] for name in own_count if name in entry},
             **(contact_rich("nv7_k8") if key == "K4" else {}),
+            **({"experiment_launches": {"elbow": experiment_launch_summary(
+                experiments["elbow"], "K5")}} if key == "K5" else {}),
             "library_ms": None,
         })
     for size, model_name, launches_of, times in (
@@ -3287,6 +3923,10 @@ def main() -> int:
                 "plain_ms": times[name]["plain_ms"],
                 "bound_ms": times[name]["bound_ms"],
                 "bound_by": times[name]["bound_by"],
+                **({"experiment_launches": {
+                    "elbow": experiment_launch_summary(experiments["elbow"],
+                                                       name)}}
+                   if model_name == "elbow" else {}),
                 "library_ms": None,
             })
     emit({"kernels": table})

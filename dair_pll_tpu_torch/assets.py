@@ -65,23 +65,26 @@ def _box_link(name: str, size, mass: float, inertia: float, mu: float,
   </link>"""
 
 
-def cube_urdf(mesh_file: Optional[str] = None) -> str:
+def cube_urdf(mesh_file: Optional[str] = None, edge: float = CUBE_EDGE,
+              inertia: float = CUBE_INERTIA, mu: float = CUBE_MU) -> str:
     """Cube-toss system URDF (box or mesh collision geometry)."""
-    link = _box_link("body", (CUBE_EDGE,) * 3, CUBE_MASS, CUBE_INERTIA,
-                     CUBE_MU, mesh_file=mesh_file)
+    link = _box_link("body", (edge,) * 3, CUBE_MASS, inertia, mu,
+                     mesh_file=mesh_file)
     return ('<?xml version="1.0"?>\n'
             '<robot name="cube" xmlns:drake="https://drake.mit.edu/">\n'
             f"{link}\n</robot>\n")
 
 
-def elbow_urdf(mesh_file: Optional[str] = None) -> str:
+def elbow_urdf(mesh_file: Optional[str] = None, box=ELBOW_BOX,
+               mass: float = ELBOW_MASS, inertia: float = ELBOW_INERTIA,
+               mu: float = ELBOW_MU) -> str:
     """Two-link articulated elbow URDF with a continuous hinge joint and
     mutually collision-filtered links."""
-    link1 = _box_link("elbow_1", ELBOW_BOX, ELBOW_MASS, ELBOW_INERTIA,
-                      ELBOW_MU, color="0 1 0 1.0", mesh_file=mesh_file)
-    link2 = _box_link("elbow_2", ELBOW_BOX, ELBOW_MASS, ELBOW_INERTIA,
-                      ELBOW_MU, origin_xyz="0.035 0 0",
-                      color="0 0 1 1.0", mesh_file=mesh_file)
+    link1 = _box_link("elbow_1", box, mass, inertia, mu, color="0 1 0 1.0",
+                      mesh_file=mesh_file)
+    link2 = _box_link("elbow_2", box, mass, inertia, mu,
+                      origin_xyz="0.035 0 0", color="0 0 1 1.0",
+                      mesh_file=mesh_file)
     return f"""<?xml version="1.0"?>
 <robot name="elbow" xmlns:drake="https://drake.mit.edu/">
 {link1}
@@ -99,6 +102,23 @@ def elbow_urdf(mesh_file: Optional[str] = None) -> str:
   </drake:collision_filter_group>
 </robot>
 """
+
+
+def wrong_init_urdf(name: str) -> str:
+    """The box cube's or elbow's URDF with wrong parameters, for learning
+    runs that start away from the truth (the JAX package's wrong-init
+    protocol of ``scripts/elbow_recovery.py``): friction 2x, inertia 1.5x,
+    boxes 20% small, and the elbow's masses 1.5x (the cube's mass stays:
+    training pins the first body's inertial scale, which the ContactNets
+    loss cannot observe)."""
+    if name == "cube":
+        return cube_urdf(edge=0.8 * CUBE_EDGE, inertia=1.5 * CUBE_INERTIA,
+                         mu=2.0 * CUBE_MU)
+    if name == "elbow":
+        return elbow_urdf(box=tuple(0.8 * s for s in ELBOW_BOX),
+                          mass=1.5 * ELBOW_MASS,
+                          inertia=1.5 * ELBOW_INERTIA, mu=2.0 * ELBOW_MU)
+    raise ValueError(f"no wrong-init URDF for {name!r}")
 
 
 def _cube_obj() -> str:

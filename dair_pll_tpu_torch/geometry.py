@@ -173,6 +173,32 @@ def default_geometry_params(spec: CollisionGeometrySpec,
 
 
 # -- support queries ------------------------------------------------------------
+def geometry_scalars(spec: CollisionGeometrySpec, params) -> dict:
+    """Logging scalars of a geometry (reference ``geometry.py:245-252,
+    405-412, 454-456``)."""
+    axes = ["x", "y", "z"]
+
+    def host(value) -> np.ndarray:
+        return torch.as_tensor(value).detach().cpu().double().numpy()
+
+    if spec.geom_type == "box":
+        half = np.abs(host(params["half_lengths"])).reshape(-1)
+        return {f"len_{a}": 2.0 * float(v) for a, v in zip(axes, half)}
+    if spec.geom_type == "sphere":
+        return {"radius": float(np.abs(host(params["radius"])))}
+    if spec.geom_type == "cylinder":
+        return {"radius": float(np.abs(host(params["radius"]))),
+                "length": 2.0 * float(np.abs(host(params["half_length"])))}
+    if spec.geom_type == "polygon":
+        vertices = host(params["vertices"])
+        out = {}
+        for axis_i, axis in enumerate(axes):
+            for v_i in range(vertices.shape[0]):
+                out[f"v{v_i}_{axis}"] = float(vertices[v_i, axis_i])
+        return out
+    return {}
+
+
 def _unit(directions: Tensor) -> Tensor:
     return directions / torch.linalg.norm(directions, dim=-1, keepdim=True)
 

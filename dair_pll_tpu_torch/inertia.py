@@ -15,7 +15,7 @@ All conversions broadcast over leading batch dims.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -142,3 +142,20 @@ def pi_cm_to_urdf(pi_cm) -> Tuple[str, str, List[str]]:
     com = " ".join(str(float(c / pi_cm[0])) for c in pi_cm[1:4])
     inertia = [str(float(v)) for v in pi_cm[4:]]
     return mass, com, inertia
+
+
+INERTIA_SCALARS = ["I_xx", "I_yy", "I_zz", "I_xy", "I_xz", "I_yz"]
+AXES = ["x", "y", "z"]
+
+
+def pi_cm_to_scalars(pi_cm) -> Dict[str, float]:
+    """One ``(10,)`` ``pi_cm`` vector to logging scalars: mass, centre of
+    mass and inertia about it (reference ``inertia.py:444-458``)."""
+    pi_cm = np.asarray(pi_cm, dtype=np.float64)
+    mass = float(pi_cm[0])
+    scalars = {"m": mass}
+    for axis, value in zip(AXES, pi_cm[1:4]):
+        scalars[f"com_{axis}"] = float(value) / mass
+    for name, value in zip(INERTIA_SCALARS, pi_cm[4:]):
+        scalars[name] = float(value)
+    return scalars

@@ -59,7 +59,7 @@ from dair_pll_tpu_torch.ops.socp_solver import mask_failures
 from dair_pll_tpu_torch.ops.soa_loss_kernels import (
     fused_contactnets_loss_kernel, fused_contactnets_loss_kernel_warm)
 from dair_pll_tpu_torch.ops.tensor import broadcast_lorentz, small_matvec
-from dair_pll_tpu_torch.system import System
+from dair_pll_tpu_torch.system import System, SystemSummary
 
 DYNAMICS_EPSILON = 1e-4    # dynamics QP regularization
 CONTACT_FILTER_EPS = 1e6   # phi activation threshold
@@ -504,3 +504,12 @@ class MultibodyLearnableSystem(System):
                 *args, list(force_prev.unbind(0)))
             force = torch.stack(force)
         return loss.reshape(batch_shape), force
+
+    # -- logging ---------------------------------------------------------------
+    def summary(self, params: MultibodyParams,
+                statistics: Dict) -> SystemSummary:
+        """Physical-parameter scalars and learned meshes
+        (``summaries.multibody_summary``)."""
+        del statistics
+        from dair_pll_tpu_torch.summaries import multibody_summary
+        return multibody_summary(self.model, params)

@@ -181,6 +181,17 @@ class MultibodyParams:
         """Inertial parameters in ``pi_cm`` format, ``(n_bodies, 10)``."""
         return inertia_mod.theta_to_pi_cm(self.theta)
 
+    def friction_coefficients(self) -> torch.Tensor:
+        """Non-negative friction coefficients."""
+        return torch.abs(self.friction)
+
+    def map(self, fn) -> "MultibodyParams":
+        """The parameters with ``fn`` applied to every leaf tensor, in the
+        same structure."""
+        return MultibodyParams(theta=fn(self.theta),
+                               friction=fn(self.friction),
+                               geometry=_tree_map(fn, self.geometry))
+
     def parameters(self) -> List[torch.Tensor]:
         """The leaf tensors in a fixed order, for a ``torch.optim``
         optimizer: ``theta``, ``friction``, then each geometry's leaves in
@@ -202,6 +213,18 @@ def _tree_leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [leaf for item in tree for leaf in _tree_leaves(item)]
     return [tree]
+
+
+def _tree_map(fn, tree):
+    """``fn`` on the tensors of nested dictionaries, lists and tuples
+    (``None`` kept)."""
+    if tree is None:
+        return None
+    if isinstance(tree, Mapping):
+        return {key: _tree_map(fn, value) for key, value in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, item) for item in tree)
+    return fn(tree)
 
 
 def params_from_numpy(model: MultibodyModel, theta, friction,
@@ -267,3 +290,34 @@ def params_from_numpy(model: MultibodyModel, theta, friction,
         geometry_out.append(convert(expected, entry, f"geometry {spec.name}"))
     return MultibodyParams(theta=tensor(theta), friction=tensor(friction),
                            geometry=tuple(geometry_out))
+
+
+def params_from_leaves(model: MultibodyModel, leaves: Sequence,
+                       dtype=torch.float64, device=None) -> MultibodyParams:
+    """The inverse of :meth:`MultibodyParams.parameters`: arrays in that
+    order (the order of JAX's ``tree_leaves`` of its parameters, so also a
+    JAX run's flattened parameters) back into the model's structure, read
+    by :func:`params_from_numpy`, which checks every shape."""
+    leaves = list(leaves)
+    template = model.initial_params(torch.float64)
+    position = iter(range(2, len(leaves)))
+
+    def fill(tree):
+        if tree is None:
+            return None
+        if isinstance(tree, Mapping):
+            return {key: fill(tree[key]) for key in sorted(tree)}
+        if isinstance(tree, (list, tuple)):
+            return [fill(item) for item in tree]
+        index = next(position, None)
+        if index is None:
+            raise ValueError(f"{len(leaves)} leaves; the model has more")
+        return leaves[index]
+
+    if len(leaves) < 2:
+        raise ValueError(f"{len(leaves)} leaves; the model has more")
+    geometry = [fill(entry) for entry in template.geometry]
+    if next(position, None) is not None:
+        raise ValueError(f"{len(leaves)} leaves; the model has fewer")
+    return params_from_numpy(model, leaves[0], leaves[1], geometry,
+                             dtype=dtype, device=device)

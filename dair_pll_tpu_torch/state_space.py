@@ -3,11 +3,12 @@ r"""Lie group/algebra state spaces (PyTorch).
 Counterpart of the spaces of ``dair_pll_tpu/state_space.py``: each space
 models configurations on a Lie group :math:`G` and velocities on its
 algebra; operations broadcast over leading batch dims, the state index
-last. The noisers and samplers wait for the data layer.
+last. The white noiser and the samplers draw from an explicit
+``torch.Generator`` where the JAX package takes a PRNG key.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -300,3 +301,135 @@ class ProductSpace(StateSpace):
                                                       ComparisonCallable]:
         return self._wrap_sub_comparisons(
             lambda space: space.auxiliary_pointwise_comparisons())
+
+
+class WhiteNoiser:
+    r"""Zero-mean noise on the Lie algebra of a state space, drawn on
+    :math:`\mathbb R^{2 n_v}` and applied with :meth:`StateSpace.shift_state`.
+
+    Attributes:
+        space: the state space to perturb.
+        kind: ``"gaussian"`` (unit standard deviation) or ``"uniform"`` (on
+          ``[-1, 1]``).
+    """
+
+    def __init__(self, space: StateSpace, kind: str = "gaussian") -> None:
+        if kind not in ("gaussian", "uniform"):
+            raise ValueError(f"unknown noise kind {kind!r}")
+        self.space = space
+        self.kind = kind
+
+    @property
+    def variance_factor(self) -> float:
+        """Per-coordinate variance of the unit-scale noise."""
+        return 1.0 / 3.0 if self.kind == "uniform" else 1.0
+
+    def unit_noise(self, generator: torch.Generator, shape, like: Tensor
+                    ) -> Tensor:
+        # Drawn on the generator's device, then moved next to ``like``.
+        device = generator.device
+        if self.kind == "uniform":
+            noise = 2.0 * torch.rand(shape, generator=generator,
+                                     dtype=like.dtype, device=device) - 1.0
+        else:
+            noise = torch.randn(shape, generator=generator, dtype=like.dtype,
+                                device=device)
+        return noise.to(like.device)
+
+    def noise(self, generator: torch.Generator, x: Tensor, ranges: Tensor,
+              independent: bool = True) -> Tensor:
+        """Perturbs the states ``x (*, n_x)`` by noise scaled per coordinate
+        by ``ranges (2 n_v,)``; with ``independent=False`` one draw is
+        applied to every state."""
+        dx_shape = x.shape[:-1] + (2 * self.space.n_v,)
+        noise_shape = dx_shape if independent else (2 * self.space.n_v,)
+        ranges = torch.as_tensor(ranges, dtype=x.dtype, device=x.device)
+        noise = self.unit_noise(generator, noise_shape, x) * ranges
+        return self.space.shift_state(x, noise.expand(dx_shape))
+
+    def covariance(self, ranges: Tensor) -> Tensor:
+        """Lie-algebra covariance implied by ``ranges``."""
+        return torch.diag(self.variance_factor * ranges * ranges)
+
+
+class StateSpaceSampler:
+    """Distribution over a state space; draws from a ``torch.Generator``."""
+
+    def __init__(self, space: StateSpace) -> None:
+        self.space = space
+
+    def get_sample(self, generator: torch.Generator,
+                   dtype=torch.float32) -> Tensor:
+        """One ``(n_x,)`` state."""
+        return self.get_samples(generator, 1, dtype)[0]
+
+    def get_samples(self, generator: torch.Generator, n: int,
+                    dtype=torch.float32) -> Tensor:
+        """``(n, n_x)`` independent states."""
+        raise NotImplementedError
+
+    def covariance(self, dtype=torch.float32) -> Tensor:
+        """Lie-algebra covariance of the distribution."""
+        raise NotImplementedError
+
+
+class ConstantSampler(StateSpaceSampler):
+    """Samples a fixed state; zero covariance."""
+
+    def __init__(self, space: StateSpace, x_0: Tensor) -> None:
+        super().__init__(space)
+        self.x_0 = torch.as_tensor(x_0)
+
+    def get_samples(self, generator: torch.Generator, n: int,
+                    dtype=torch.float32) -> Tensor:
+        del generator
+        return self.x_0.to(dtype).expand(n, self.space.n_x).clone()
+
+    def covariance(self, dtype=torch.float32) -> Tensor:
+        n = 2 * self.space.n_v
+        return torch.zeros((n, n), dtype=dtype)
+
+
+class ZeroSampler(ConstantSampler):
+    """Samples the group identity."""
+
+    def __init__(self, space: StateSpace) -> None:
+        super().__init__(space, space.zero_state(torch.float64))
+
+
+class CenteredSampler(StateSpaceSampler):
+    """Samples ``x_0`` perturbed by white noise of per-coordinate scale
+    ``ranges``; ``kind`` selects gaussian or uniform unit noise."""
+
+    def __init__(self, space: StateSpace, ranges, kind: str = "gaussian",
+                 x_0: Optional[Tensor] = None) -> None:
+        super().__init__(space)
+        if x_0 is None:
+            x_0 = space.zero_state(torch.float64)
+        self.x_0 = space.project_state(torch.as_tensor(x_0))
+        self.ranges = torch.as_tensor(ranges)
+        self.noiser = WhiteNoiser(space, kind)
+
+    def get_samples(self, generator: torch.Generator, n: int,
+                    dtype=torch.float32) -> Tensor:
+        x_0 = self.x_0.to(dtype).expand(n, self.space.n_x)
+        return self.noiser.noise(generator, x_0, self.ranges.to(dtype))
+
+    def covariance(self, dtype=torch.float32) -> Tensor:
+        return self.noiser.covariance(self.ranges.to(dtype))
+
+
+class UniformSampler(CenteredSampler):
+    """Centered sampler with uniform unit noise."""
+
+    def __init__(self, space: StateSpace, ranges,
+                 x_0: Optional[Tensor] = None) -> None:
+        super().__init__(space, ranges, "uniform", x_0)
+
+
+class GaussianSampler(CenteredSampler):
+    """Centered sampler with gaussian unit noise."""
+
+    def __init__(self, space: StateSpace, ranges,
+                 x_0: Optional[Tensor] = None) -> None:
+        super().__init__(space, ranges, "gaussian", x_0)

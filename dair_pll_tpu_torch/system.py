@@ -12,10 +12,11 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 from torch import Tensor
 
 from dair_pll_tpu_torch.integrator import Integrator
-from dair_pll_tpu_torch.state_space import StateSpace
+from dair_pll_tpu_torch.state_space import StateSpace, StateSpaceSampler
 
 
 @dataclasses.dataclass
@@ -41,6 +42,9 @@ class System:
 
     space: StateSpace
     integrator: Integrator
+    #: Whether the system steps on the host, one trajectory at a time (the
+    #: JAX package's MuJoCo oracle); no system of the port does yet.
+    host_stepped: bool = False
 
     def __init__(self, space: StateSpace, integrator: Integrator) -> None:
         self.space = space
@@ -73,6 +77,12 @@ class System:
         flat = x_0.reshape(-1, x_0.shape[-1])
         rollout = self.simulate(params, flat, steps)
         return rollout.reshape(x_0.shape[:-1] + rollout.shape[1:])
+
+    def sample_initial_condition(self, sampler: StateSpaceSampler,
+                                 generator: torch.Generator,
+                                 dtype=torch.float32) -> Tensor:
+        """Draws one initial state from a sampler."""
+        return sampler.get_sample(generator, dtype)
 
     def summary(self, params: Any, statistics: Dict) -> SystemSummary:
         """Evaluation summary; empty by default."""

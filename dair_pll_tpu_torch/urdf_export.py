@@ -55,7 +55,7 @@ def _fill_inertial(link: ET.Element, pi_cm: np.ndarray) -> None:
         inertia_el.set(key, value)
 
 
-def _icnn_support_fn(spec, geom_params):
+def icnn_support_fn(spec, geom_params):
     """Support-point function of a deep-support geometry for
     :func:`~dair_pll_tpu_torch.mesh_extraction.extract_mesh`: numpy
     directions in, numpy points out. The directions are rounded to float32,
@@ -108,7 +108,7 @@ def _fill_collision_geometry(link: ET.Element, spec, geom_params, mu: float,
             def support_fn(directions):
                 return vertices[np.argmax(directions @ vertices.T, axis=-1)]
         else:
-            support_fn = _icnn_support_fn(spec, geom_params)
+            support_fn = icnn_support_fn(spec, geom_params)
         obj_path = os.path.join(output_dir, f"{mesh_name}.obj")
         with open(obj_path, "w", encoding="utf-8") as handle:
             handle.write(mesh_to_obj(extract_mesh(support_fn)))

@@ -137,8 +137,8 @@ def test_small_batch_default_path_runs_vmapped(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port leaves ``jax`` and
-    ``dair_pll_tpu`` out of ``sys.modules``."""
+    """Importing every module of the port leaves ``jax``,
+    ``dair_pll_tpu`` and ``click`` out of ``sys.modules``."""
     code = (
         "import pkgutil, importlib, sys, dair_pll_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
@@ -148,7 +148,7 @@ def test_port_imports_no_jax():
         "assert len(names) >= 31, names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'dair_pll_tpu' or\n"
-        "             m.startswith('dair_pll_tpu.'))\n"
+        "             m.startswith('dair_pll_tpu.') or m == 'click')\n"
         "print('LEAKED', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
