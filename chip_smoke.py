@@ -175,16 +175,40 @@ slower (PERF.md).
    evaluations need; the final ``_mean`` statistics; the learned mass,
    sides and friction beside the truth; a falling loss, finite
    parameters, the checkpoint and the re-exported URDF; then the same
-   call again, which must generate nothing and resume. Full evaluations at
-   epochs 0 and 5 only (the CLI's default is every epoch; each costs about
-   21 s of vmapped rollouts). ``experiment_mesh_elbow``: the same checks for
+   call again, which must generate nothing and resume. No per-epoch
+   evaluation, only the final one (the CLI's default is every epoch; each
+   costs about 21 s of vmapped rollouts, which the script's time limit
+   cannot hold beside phase 13).
+   ``experiment_mesh_elbow``: the same checks for
    ``--mesh`` (the ICNN cube, its warm loss on K5 and cold passes on K4;
    meshes in the summary and the export) and ``--system elbow`` (the
    generic K3/K2 and K1, from its wrong init), 2 epochs each, 1,024 tosses
    (fused rollouts) at batch 2,048, no per-epoch evaluation. ``experiment_scale``: 8,192 tosses (the fused rollout on K5),
-   batch 16,384, 10 epochs (a warm reseed at epoch 9), a full evaluation
-   every 5 epochs, epoch 8 traced (device busy share, top kernels,
+   batch 16,384, 10 epochs (a warm reseed at epoch 9), epoch 8 traced (device busy share, top kernels,
    kernels per step).
+13. The baselines and the estimators, after phase 12 and before the ICNN
+   training's trace, in a fresh ``build/baseline_smoke/``:
+   ``baselines_card_vs_cpu`` (32 tosses of 20 states made on the CPU; one
+   epoch at batch 256 in float64 of the deep MLP, the recurrent deep model
+   with a history of 4 and the residual cube, on the card and on the CPU
+   on copies of the storage: equal batch tables, each step's loss within
+   rtol 1e-8, the parameters within rtol 1e-5, atol 1e-9; the manifold
+   UKF and the JUKF filtering a linear system, states and covariances
+   within rtol 1e-9); ``deep_baseline``
+   (``examples/deep_learnable_baseline.py``'s recipe: 1,024 cube tosses of
+   80 states on the fused rollout, K5 79 launches; the MLP and the
+   recurrent model, hidden 128, 2 layers, batch 256, 3 epochs each, the
+   final evaluation beside the cube on K5; per epoch the seconds and train
+   slices/s; a falling loss, finite parameters, K5 launches equal to what
+   generation and evaluation need, a rerun that resumes);
+   ``residual_physics`` (``examples/residual_physics_cube.py``'s recipe:
+   64 dragged tosses of 60 states on the vmapped integrator, the residual
+   cube, hidden 64, 2 layers, scale 0.1, batch 256, 6 epochs, the final
+   evaluation; seconds per epoch and
+   ``residual_weight_norm``; a falling loss from the first trained epoch,
+   both halves' leaves moved, no kernel). ``--only-baselines`` runs these
+   three alone after the build. The MuJoCo paths are not driven: the
+   card's machine has no ``mujoco``.
 
 It prints, in this order: one JSON line per phase, the kernel table as
 one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
@@ -3060,11 +3084,13 @@ def phase_polygon_train(system):
 #: states, batch 256), the production batch (8,192 tosses, batch 16,384),
 #: and the card held against the CPU on 32 tosses of 20 states.
 EXPERIMENT_EPOCHS = 5
-#: Full evaluations in ``experiment`` at epochs 0 and 5 (the CLI's default
-#: is every epoch): each evaluates 10 tosses on the vmapped rollout, about
-#: 21 s on an H100 (``PERF.md`` §5), which the phases' time cannot hold
-#: six times.
-EXPERIMENT_EVAL_PERIOD = 5
+#: Per-epoch evaluations (the CLI's default is every epoch of 5 train and
+#: 5 valid tosses): ``experiment`` runs none, only the final one, as each
+#: of 10 tosses on the vmapped integrator costs 17.6-28.8 s on an H100
+#: (``PERF.md`` §5); ``experiment_scale`` evaluates every 5 epochs
+#: 1,024 train and 1,024 valid tosses, which take the fused rollout (K5).
+SCALE_EVAL_PERIOD = 5
+SCALE_EVAL_SAMPLES = 1024
 #: ``experiment_mesh_elbow``: 1,024 tosses (the fused rollout on K5 for
 #: generation and the final evaluation), batch 2,048 (the fused loss for
 #: the no-gradient passes: K4 for the ICNN cube, the generic K1 for the
@@ -3074,7 +3100,6 @@ MESH_ELBOW_BATCH = 2048
 SCALE_TOSSES = 8192
 SCALE_BATCH = 16384
 SCALE_EPOCHS = 10
-SCALE_EVAL_PERIOD = 5
 SCALE_TRACED_EPOCH = 8
 MESH_ELBOW_EPOCHS = 2
 CARD_CPU_TOSSES = 32
@@ -3141,17 +3166,26 @@ class LaunchesAround:
         setattr(self.owner, self.name, self.original)
 
 
-def run_experiment(label: str, storage: str, traced_epoch=None,
-                   **options) -> dict:
-    """The CLI's ``run`` on the card with the given options (videos off:
-    the card's machine has no matplotlib), reading per epoch the train
-    loss, the best valid loss, the kernels' launches (training, the
-    no-gradient loss passes and that epoch's evaluation) and, from the
-    run's log, the seconds of training, evaluation and logging."""
+def cli_run():
+    """The CLI's ``run`` with videos off (the card's machine has no
+    matplotlib)."""
+    from dair_pll_tpu_torch.examples import contactnets_simple as cli
+    return functools.partial(cli.run, video_period=0)
+
+
+def run_experiment(label: str, storage: str, run_fn=None,
+                   traced_epoch=None, **options) -> dict:
+    """An experiment's ``run`` on the card with the given options: the
+    CLI's (``cli_run``) or an example's (``run_fn``), reading per epoch
+    the train loss, the best valid loss, finite parameters, the kernels'
+    launches (training, the no-gradient loss passes and that epoch's
+    evaluation) and, from the run's log, the seconds of training,
+    evaluation and logging; then the last reported epoch's parameters and
+    the final evaluation's launches."""
     import torch
     from dair_pll_tpu_torch.data import generation
-    from dair_pll_tpu_torch.examples import contactnets_simple as cli
-    epochs, trace = [], {}
+    run_fn = run_fn or cli_run()
+    epochs, trace, last = [], {}, {}
 
     def callback(epoch, params, train_loss, best_valid):
         torch.cuda.synchronize()
@@ -3160,6 +3194,8 @@ def run_experiment(label: str, storage: str, traced_epoch=None,
                        "launches": experiment_launches(),
                        "finite": all(bool(torch.isfinite(leaf).all())
                                      for leaf in params.parameters())})
+        last["params"] = [leaf.detach().cpu().clone()
+                          for leaf in params.parameters()]
         reset_launches()
         if traced_epoch is not None and epoch == traced_epoch - 1:
             trace["profiler"] = start_trace()
@@ -3174,12 +3210,12 @@ def run_experiment(label: str, storage: str, traced_epoch=None,
     with LaunchesAround(generation.ExperimentDatasetGenerator,
                         "generate") as gen, \
             contextlib.redirect_stdout(printed):
-        out = cli.run(storage=storage, epoch_callback=callback,
-                      video_period=0, **options)
+        out = run_fn(storage=storage, epoch_callback=callback, **options)
+    torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    if f"generated {out['generated']} trajectories" not in \
-            printed.getvalue():
-        raise AssertionError(f"{label}: the CLI printed "
+    if "generated" in out and f"generated {out['generated']} " \
+            "trajectories" not in printed.getvalue():
+        raise AssertionError(f"{label}: the run printed "
                              f"{printed.getvalue()[:400]!r}")
     final_launches = experiment_launches()
     experiment = out["experiment"]
@@ -3199,8 +3235,9 @@ def run_experiment(label: str, storage: str, traced_epoch=None,
             entry["train_slices_per_second"] = (
                 train_set.n_slices / record["training_duration"])
     return {"label": label, "out": out, "epochs": epochs, "log": log,
+            "last_params": last.get("params"),
             "seconds": seconds, "generation": {
-                "generated": out["generated"], "seconds": gen.seconds,
+                "generated": out.get("generated"), "seconds": gen.seconds,
                 "launches": gen.launches},
             "final_launches": final_launches,
             "sets": (train_set, valid_set, test_set),
@@ -3311,6 +3348,27 @@ def wrong_init(scratch: str, name: str) -> str:
     return path
 
 
+def epoch_table(run: dict) -> list:
+    """The run's per-epoch readings for a report."""
+    return [{key: entry[key] for key in (
+        "epoch", "train_loss", "best_valid", "training_duration",
+        "evaluation_duration", "logging_duration", "launches",
+        "train_slices_per_second") if key in entry}
+        for entry in run["epochs"]]
+
+
+def check_falling(run: dict) -> None:
+    """The last epoch's train loss below epoch 0's; every epoch's
+    parameters finite."""
+    epochs = run["epochs"]
+    if not epochs[-1]["train_loss"] < epochs[0]["train_loss"]:
+        raise AssertionError(f"{run['label']}: train loss "
+                             f"{epochs[-1]['train_loss']} not below epoch "
+                             f"0's {epochs[0]['train_loss']}")
+    if not all(entry["finite"] for entry in epochs):
+        raise AssertionError(f"{run['label']}: non-finite parameters")
+
+
 def check_experiment(run: dict, expected: list, generation_k5: int,
                      final_k5, cube_physics: bool) -> dict:
     """The checks of an experiment phase; returns its report."""
@@ -3329,13 +3387,9 @@ def check_experiment(run: dict, expected: list, generation_k5: int,
         raise AssertionError(f"{run['label']}: final evaluation launched "
                              f"K5 {run['final_launches']['K5']} times, "
                              f"expected {final_k5}")
-    if not epochs[-1]["train_loss"] < epochs[0]["train_loss"]:
-        raise AssertionError(f"{run['label']}: train loss "
-                             f"{epochs[-1]['train_loss']} not below epoch "
-                             f"0's {epochs[0]['train_loss']}")
-    if not all(entry["finite"] for entry in epochs) or not all(
-            bool(torch.isfinite(leaf).all())
-            for leaf in out["best_params"].parameters()):
+    check_falling(run)
+    if not all(bool(torch.isfinite(leaf).all())
+               for leaf in out["best_params"].parameters()):
         raise AssertionError(f"{run['label']}: non-finite parameters")
     config = out["experiment"].config
     run_dir = os.path.join(config.storage, "runs", config.run_name)
@@ -3352,11 +3406,7 @@ def check_experiment(run: dict, expected: list, generation_k5: int,
         "generation_launches": run["generation"]["launches"],
         "train_slices": run["sets"][0].n_slices,
         "valid_slices": run["sets"][1].n_slices,
-        "epochs": [{key: entry[key] for key in (
-            "epoch", "train_loss", "best_valid", "training_duration",
-            "evaluation_duration", "logging_duration", "launches",
-            "train_slices_per_second") if key in entry}
-            for entry in epochs],
+        "epochs": epoch_table(run),
         "final_evaluation_launches": run["final_launches"],
         "means": means, "seconds": run["seconds"],
         "urdfs": {name: os.path.basename(path)
@@ -3370,24 +3420,77 @@ def check_experiment(run: dict, expected: list, generation_k5: int,
     return report
 
 
-def rerun_resumes(label: str, storage: str, **options) -> dict:
-    """A second call of the same run must generate nothing and resume
-    from the finished checkpoint: no epoch runs again."""
-    from dair_pll_tpu_torch.examples import contactnets_simple as cli
+def rerun_resumes(label: str, storage: str, run_fn=None,
+                  **options) -> dict:
+    """A second call of the same run (``run_experiment``'s) must resume
+    from the finished checkpoint, no epoch running again, and generate
+    nothing."""
     epochs = []
     buffer = io.StringIO()
+    reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buffer):
-        out = cli.run(storage=storage, video_period=0,
-                      epoch_callback=lambda e, *a: epochs.append(e),
-                      **options)
+        out = (run_fn or cli_run())(
+            storage=storage, epoch_callback=lambda e, *a: epochs.append(e),
+            **options)
     seconds = time.perf_counter() - t0
     text = buffer.getvalue()
-    if "generated 0 trajectories" not in text or epochs:
+    if epochs or ("generated" in out and
+                  "generated 0 trajectories" not in text):
         raise AssertionError(f"{label}: the rerun did not resume: "
                              f"{text[:400]!r}, epochs {epochs}")
-    return {"rerun_seconds": seconds, "rerun_generated": out["generated"],
-            "rerun_printed": "generated 0 trajectories"}
+    return {"rerun_seconds": seconds, "rerun_generated": out.get("generated"),
+            "rerun_launches": experiment_launches()}
+
+
+class EpochRecorder:
+    """Records every training epoch's batch table and step losses: the
+    experiment's method ``method`` that makes the epoch function
+    (``"_build_train_epoch"``, or ``"_build_warm_train_epoch"``, whose
+    ``seed`` keyword goes into each record) patched for the ``with``
+    block."""
+
+    def __init__(self, method: str):
+        self.method = method
+        self.records = []
+
+    def __enter__(self):
+        from dair_pll_tpu_torch.training import experiment as texperiment
+        self.cls = texperiment.SupervisedLearningExperiment
+        self.original = original = getattr(self.cls, self.method)
+        records = self.records
+
+        def recording(experiment, *args, **kwargs):
+            built = original(experiment, *args, **kwargs)
+            epoch_fn = built[0] if isinstance(built, tuple) else built
+
+            def recorded(*epoch_args):
+                losses = epoch_fn(*epoch_args)
+                records.append({
+                    **kwargs, "batches": epoch_args[-1].cpu().numpy(),
+                    "losses": losses.detach().cpu().double().numpy()})
+                return losses
+            return (recorded, *built[1:]) if isinstance(built, tuple) \
+                else recorded
+
+        setattr(self.cls, self.method, recording)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.method, self.original)
+
+
+def param_err_over_bar(a, b) -> float:
+    """The largest ``|a - b| / (atol + rtol |b|)`` over the leaves, at
+    CARD_CPU_PARAM_ATOL and CARD_CPU_PARAM_RTOL: at most 1 passes."""
+    import numpy as np
+    worst = 0.0
+    for leaf_a, leaf_b in zip(a, b):
+        leaf_b = np.asarray(leaf_b, np.float64)
+        worst = max(worst, float(np.max(
+            np.abs(np.asarray(leaf_a, np.float64) - leaf_b) /
+            (CARD_CPU_PARAM_ATOL + CARD_CPU_PARAM_RTOL * np.abs(leaf_b)))))
+    return worst
 
 
 def phase_experiment_card_vs_cpu(scratch: str) -> dict:
@@ -3401,7 +3504,6 @@ def phase_experiment_card_vs_cpu(scratch: str) -> dict:
     import numpy as np
     import torch
     from dair_pll_tpu_torch.examples import contactnets_simple as cli
-    from dair_pll_tpu_torch.training import experiment as texperiment
     t0 = time.perf_counter()
     card_dir = os.path.join(scratch, "card_vs_cpu_card")
     cpu_dir = os.path.join(scratch, "card_vs_cpu_cpu")
@@ -3418,43 +3520,22 @@ def phase_experiment_card_vs_cpu(scratch: str) -> dict:
                    use_warm_loss=True, loss_dtype="float64",
                    dtype=torch.float64, eval_samples=0,
                    run_name="card_vs_cpu")
-    records = {}
-    original = texperiment.SupervisedLearningExperiment \
-        ._build_warm_train_epoch
-
-    def recording(self, optimizer, batch_size, seed):
-        epoch_fn = original(self, optimizer, batch_size, seed)
-
-        def recorded(params, optimizer, cache, past, future, batches):
-            losses = epoch_fn(params, optimizer, cache, past, future,
-                              batches)
-            records[active[0]].append({
-                "seed": seed, "batches": batches.cpu().numpy(),
-                "losses": losses.detach().cpu().double().numpy()})
-            return losses
-        return recorded
-
-    runs, active = {}, [None]
-    texperiment.SupervisedLearningExperiment._build_warm_train_epoch = \
-        recording
-    try:
-        for device, storage in (("cuda", card_dir), ("cpu", cpu_dir)):
-            records[device], active[0] = [], device
-            params_by_epoch = []
-            reset_launches()
-            with contextlib.redirect_stdout(io.StringIO()):
-                out = cli.run(
-                    storage=storage, device=device, video_period=0,
-                    epoch_callback=lambda e, p, *a: params_by_epoch.append(
-                        [leaf.detach().cpu().numpy().copy()
-                         for leaf in p.parameters()]),
-                    **options)
-            runs[device] = {"out": out, "params": params_by_epoch,
-                            "launches": experiment_launches()}
-    finally:
-        texperiment.SupervisedLearningExperiment._build_warm_train_epoch = \
-            original
-    card, cpu = records["cuda"], records["cpu"]
+    runs = {}
+    for device, storage in (("cuda", card_dir), ("cpu", cpu_dir)):
+        params_by_epoch = []
+        reset_launches()
+        with EpochRecorder("_build_warm_train_epoch") as recorder, \
+                contextlib.redirect_stdout(io.StringIO()):
+            out = cli_run()(
+                storage=storage, device=device,
+                epoch_callback=lambda e, p, *a: params_by_epoch.append(
+                    [leaf.detach().cpu().numpy().copy()
+                     for leaf in p.parameters()]),
+                **options)
+        runs[device] = {"out": out, "params": params_by_epoch,
+                        "records": recorder.records,
+                        "launches": experiment_launches()}
+    card, cpu = runs["cuda"]["records"], runs["cpu"]["records"]
     if [r["seed"] for r in card] != [True, False] or \
             [r["seed"] for r in cpu] != [True, False]:
         raise AssertionError(f"epochs: card {[r['seed'] for r in card]}, "
@@ -3465,17 +3546,8 @@ def phase_experiment_card_vs_cpu(scratch: str) -> dict:
                                  "differ")
     loss_rel = [float(np.max(np.abs(a["losses"] - b["losses"]) /
                              np.abs(b["losses"]))) for a, b in zip(card, cpu)]
-    param_err = []
-    for a, b in zip(runs["cuda"]["params"], runs["cpu"]["params"]):
-        worst = 0.0
-        for leaf_a, leaf_b in zip(a, b):
-            # The error over the bar atol + rtol |cpu|: at most 1 passes.
-            leaf_b = leaf_b.astype(np.float64)
-            worst = max(worst, float(np.max(
-                np.abs(leaf_a.astype(np.float64) - leaf_b) /
-                (CARD_CPU_PARAM_ATOL + CARD_CPU_PARAM_RTOL *
-                 np.abs(leaf_b)))))
-        param_err.append(worst)
+    param_err = [param_err_over_bar(a, b) for a, b in
+                 zip(runs["cuda"]["params"], runs["cpu"]["params"])]
     stats = {d: runs[d]["out"]["statistics"] for d in runs}
     mean_rel = {}
     for key, want in stats["cpu"].items():
@@ -3526,11 +3598,10 @@ def phase_experiment_card_vs_cpu(scratch: str) -> dict:
 
 def phase_experiment(scratch: str) -> dict:
     """The CLI's own recipe on the card: the box cube, 256 tosses of 80
-    states, batch 256, lr 1e-3, 5 epochs, evaluations at epochs 0 and 5,
-    from the wrong init; then the same call again, which must resume."""
+    states, batch 256, lr 1e-3, 5 epochs, the final evaluation only, from
+    the wrong init; then the same call again, which must resume."""
     storage = os.path.join(scratch, "experiment")
-    options = dict(epochs=EXPERIMENT_EPOCHS,
-                   eval_period=EXPERIMENT_EVAL_PERIOD,
+    options = dict(epochs=EXPERIMENT_EPOCHS, eval_samples=0,
                    initial_urdf=wrong_init(scratch, "cube"))
     run = run_experiment("experiment", storage, **options)
     report = check_experiment(
@@ -3545,11 +3616,14 @@ def phase_experiment(scratch: str) -> dict:
 def phase_experiment_scale(scratch: str) -> dict:
     """The production batch: 8,192 tosses (the simulation bench's count,
     fused rollouts on K5), batch 16,384, 10 epochs (a warm reseed at
-    epoch 9), full evaluations every 5 epochs; one warm epoch traced."""
+    epoch 9), evaluations of SCALE_EVAL_SAMPLES train and valid tosses
+    every SCALE_EVAL_PERIOD epochs (the monitored valid loss), the final
+    evaluation; one warm epoch traced."""
     storage = os.path.join(scratch, "experiment_scale")
     options = dict(epochs=SCALE_EPOCHS, n_pop=SCALE_TOSSES,
                    batch_size=SCALE_BATCH, generation_batch=SCALE_TOSSES,
                    eval_period=SCALE_EVAL_PERIOD,
+                   eval_samples=SCALE_EVAL_SAMPLES,
                    initial_urdf=wrong_init(scratch, "cube"))
     run = run_experiment("experiment_scale", storage,
                          traced_epoch=SCALE_TRACED_EPOCH, **options)
@@ -3636,6 +3710,364 @@ def run_experiment_phases(run) -> dict:
     return reports
 
 
+# -- the baselines and the estimators (phase 13) ---------------------------------
+
+#: The deep baseline's recipe (``examples/deep_learnable_baseline.py``):
+#: hidden 128, 2 layers, batch 256, lr 1e-3, on 1,024 cube tosses of 80
+#: states (generated on the fused rollout, K5 every step). The example
+#: runs 200 epochs; 3 here.
+DEEP_TOSSES = 1024
+DEEP_LENGTH = 80
+DEEP_EPOCHS = 3
+#: The recurrent model's history: its GRU warms up over 3 states.
+DEEP_HISTORY = 4
+#: The residual recipe (``examples/residual_physics_cube.py``): 64 dragged
+#: tosses, hidden 64, 2 layers, scale 0.1, batch 256, lr 1e-3. The
+#: example runs 30 epochs on tosses of 60 states with evaluations of 8
+#: trajectories every 15; here 6 epochs (4 steps each) on tosses of 30
+#: states (the flight and the first contacts) and the final evaluation
+#: only: its rollouts, and the data's, step the vmapped integrator at
+#: about 0.4 s a step on an H100 (``PERF.md`` §5).
+RESIDUAL_TOSSES = 64
+RESIDUAL_LENGTH = 30
+RESIDUAL_EPOCHS = 6
+#: ``baselines_card_vs_cpu``: one epoch at batch 256 of each model, on 32
+#: tosses of 20 states (CARD_CPU_TOSSES, CARD_CPU_LENGTH), float64, with
+#: phase 12's bars; the filters at rtol 1e-9.
+FILTER_RTOL = 1e-9
+FILTER_STEPS = 5
+
+
+def baseline_experiments(storage: str, device: str, model: str):
+    """The deep (``"mlp"``, ``"recurrent"``) or residual experiment of the
+    examples on ``storage``: one epoch at batch 256, float64, no per-epoch
+    evaluation."""
+    import torch
+    from dair_pll_tpu_torch.examples import deep_learnable_baseline as deep
+    from dair_pll_tpu_torch.examples import residual_physics_cube as residual
+    options = dict(epochs=1, device=device, dtype=torch.float64,
+                   run_name=f"{model}_{device}")
+    if model == "residual":
+        return residual.build_experiment(storage=storage, eval_samples=0,
+                                         **options)
+    history = DEEP_HISTORY if model == "recurrent" else 1
+    return deep.build_experiment(model, storage, t_history=history,
+                                 full_evaluation_samples=0, **options)
+
+
+def filter_card_vs_cpu() -> dict:
+    """The manifold UKF and the JUKF filtering the linear systems of the
+    JAX package's filter tests for FILTER_STEPS steps in float64, on the
+    card and on the CPU; the largest relative differences of the states
+    and covariances."""
+    import numpy as np
+    import torch
+    from dair_pll_tpu_torch.jukf import JUKF
+    from dair_pll_tpu_torch.ukf import ManifoldUKF
+    rng = np.random.default_rng(11)
+    ys = rng.standard_normal((FILTER_STEPS, 3))
+    d = 3
+    A_np = np.diag([1.0, 0.95, 1.05]) + 0.1 * np.triu(np.ones((d, d)), 1)
+    out = {}
+    for device in ("cuda", "cpu"):
+        A = torch.as_tensor(A_np, device=device)
+        Q = 0.01 * torch.eye(d, dtype=torch.float64, device=device)
+        R = 0.1 * torch.eye(d, dtype=torch.float64, device=device)
+
+        def f(state, omega, w, dt):
+            return state @ A.T + w
+
+        def add(x, xi):
+            return x + xi
+
+        def sub(x1, x2):
+            return x2 - x1
+
+        ukf = ManifoldUKF(f=f, h=lambda x: x, phi=add, phi_inv=sub, Q=Q, R=R,
+                          alpha=(1.0, 1.0, 1.0), d=d)
+        jukf = JUKF(f=f, h=lambda x: x, phi=add, Q=Q, alpha=(1.0,) * 5, d=d,
+                    red_idxs=tuple(range(d)), red_phi=add, red_phi_inv=sub,
+                    up_idxs=tuple(range(d)), up_phi=add)
+        start = torch.tensor([1.0, -0.5, 0.2], dtype=torch.float64,
+                             device=device)
+        eye = torch.eye(d, dtype=torch.float64, device=device)
+        states, Ps = {}, {}
+        for name, filt in (("ukf", ukf), ("jukf", jukf)):
+            state, P, seq_s, seq_P = start, eye, [], []
+            for y in ys:
+                y = torch.as_tensor(y, device=device)
+                if name == "ukf":
+                    state, P = filt.step(state, P, None, y, 0.1)
+                else:
+                    state, P = filt.step(state, P, None, y, R, 0.1)
+                seq_s.append(state.cpu().numpy())
+                seq_P.append(P.cpu().numpy())
+            states[name], Ps[name] = np.stack(seq_s), np.stack(seq_P)
+        out[device] = (states, Ps)
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+    return {name: {"state_rel_err": rel(out["cuda"][0][name],
+                                        out["cpu"][0][name]),
+                   "cov_rel_err": rel(out["cuda"][1][name],
+                                      out["cpu"][1][name])}
+            for name in ("ukf", "jukf")}
+
+
+def phase_baselines_card_vs_cpu(scratch: str) -> dict:
+    """One epoch of the deep MLP, the recurrent deep model (history
+    DEEP_HISTORY) and the residual cube at batch 256 in float64, on the
+    card and on the CPU, each on its own copy of one storage of 32 tosses
+    of 20 states made on the CPU: equal batch tables, each step's loss
+    within CARD_CPU_LOSS_RTOL, the parameters after the epoch within
+    phase 12's bars; then the UKF and the JUKF, card against CPU."""
+    import shutil
+    import numpy as np
+    from dair_pll_tpu_torch.examples import contactnets_simple as cli
+    t0 = time.perf_counter()
+    source = os.path.join(scratch, "baselines_source")
+    cli.generate_tosses("cube", source, CARD_CPU_TOSSES, CARD_CPU_LENGTH,
+                        device="cpu")
+    report = {"phase": "baselines_card_vs_cpu", "tosses": CARD_CPU_TOSSES,
+              "states": CARD_CPU_LENGTH, "models": {}}
+    failures = []
+    for model in ("mlp", "recurrent", "residual"):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            storage = os.path.join(scratch, f"baselines_{model}_{device}")
+            shutil.copytree(source, storage)
+            experiment = baseline_experiments(storage, device, model)
+            params_by_epoch = []
+            reset_launches()
+            t1 = time.perf_counter()
+            with EpochRecorder("_build_train_epoch") as recorder, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                experiment.train(lambda e, p, *a: params_by_epoch.append(
+                    [leaf.detach().cpu().numpy().copy()
+                     for leaf in p.parameters()]))
+            runs[device] = {"records": recorder.records,
+                            "params": params_by_epoch,
+                            "seconds": time.perf_counter() - t1,
+                            "launches": read_launches()}
+        card, cpu = runs["cuda"]["records"], runs["cpu"]["records"]
+        if len(card) != 1 or len(cpu) != 1 or not np.array_equal(
+                card[0]["batches"], cpu[0]["batches"]):
+            failures.append(f"{model}: the batch tables differ")
+            continue
+        a, b = card[0]["losses"], cpu[0]["losses"]
+        loss_rel = float(np.max(np.abs(a - b) / np.abs(b)))
+        param_err = param_err_over_bar(runs["cuda"]["params"][-1],
+                                       runs["cpu"]["params"][-1])
+        report["models"][model] = {
+            "steps": int(len(a)), "step_loss_rel_err": (
+                np.abs(a - b) / np.abs(b)).tolist(),
+            "max_step_loss_rel_err": loss_rel,
+            "param_err_over_bar": param_err,
+            "seconds": {d: runs[d]["seconds"] for d in runs},
+            "launches": runs["cuda"]["launches"]}
+        if loss_rel > CARD_CPU_LOSS_RTOL:
+            failures.append(f"{model}: step losses differ by {loss_rel}")
+        if param_err > 1.0:
+            failures.append(f"{model}: parameters over the bar by "
+                            f"{param_err}")
+    filters = filter_card_vs_cpu()
+    report["filters"] = filters
+    for name, errors in filters.items():
+        for key, value in errors.items():
+            if not value <= FILTER_RTOL:
+                failures.append(f"{name}: {key} {value}")
+    report["seconds"] = time.perf_counter() - t0
+    emit(report)
+    if failures:
+        raise AssertionError("baselines_card_vs_cpu: " + "; ".join(failures))
+    return report
+
+
+def phase_deep_baseline(scratch: str) -> dict:
+    """The deep baseline's recipe on the card: 1,024 cube tosses of 80
+    states from ``contactnets_simple.generate_tosses`` (the fused rollout,
+    K5 every step), then the MLP (history 1) and the recurrent model
+    (history DEEP_HISTORY), hidden 128, 2 layers, batch 256, DEEP_EPOCHS
+    epochs each, no per-epoch evaluation, and the final evaluation beside
+    the ground-truth cube (its rollouts on K5); each run again, which must
+    resume."""
+    import torch
+    from dair_pll_tpu_torch.examples import contactnets_simple as cli
+    from dair_pll_tpu_torch.examples import deep_learnable_baseline as deep
+    storage = os.path.join(scratch, "deep_baseline")
+    reset_launches()
+    t0 = time.perf_counter()
+    generated = cli.generate_tosses("cube", storage, DEEP_TOSSES,
+                                    DEEP_LENGTH,
+                                    generation_batch=DEEP_TOSSES)
+    torch.cuda.synchronize()
+    generation = {"generated": generated,
+                  "seconds": time.perf_counter() - t0,
+                  "launches": experiment_launches()}
+    if generation["launches"]["K5"] != DEEP_LENGTH - 1:
+        raise AssertionError(f"deep_baseline: generation launched K5 "
+                             f"{generation['launches']['K5']} times, "
+                             f"expected {DEEP_LENGTH - 1}")
+    report = {"phase": "deep_baseline", "generation": generation}
+    idle = {name: 0 for name in EXPERIMENT_KERNELS}
+    for kind in ("mlp", "recurrent"):
+        history = DEEP_HISTORY if kind == "recurrent" else 1
+        options = dict(model_kind=kind, epochs=DEEP_EPOCHS,
+                       t_history=history, full_evaluation_samples=0)
+        run = run_experiment(f"deep_{kind}", storage, deep.run, **options)
+        check_falling(run)
+        train_set, valid_set, test_set = run["sets"]
+        trajectories = sum(len(s.trajectories) for s in run["sets"])
+        slices = sum(s.n_slices for s in run["sets"])
+        horizon = train_set.trajectories[0].shape[0] - history
+        # Training and its loss passes are matmuls; the final evaluation
+        # rolls the ground-truth cube out on K5 (the model's rollouts are
+        # the deep system's own).
+        final = dict(idle, K5=eval_k5(trajectories, slices, horizon))
+        per_epoch = [entry["launches"] for entry in run["epochs"]]
+        if run["generation"]["launches"] != idle or \
+                any(launches != idle for launches in per_epoch) or \
+                run["final_launches"] != final:
+            raise AssertionError(
+                f"deep_{kind}: launches {per_epoch} a epoch, "
+                f"{run['final_launches']} in the final evaluation, "
+                f"expected none and {final}")
+        if not all(bool(torch.isfinite(leaf).all())
+                   for leaf in run["out"]["best_params"].parameters()):
+            raise AssertionError(f"deep_{kind}: non-finite parameters")
+        report[kind] = {
+            "t_history": history, "train_slices": train_set.n_slices,
+            "epochs": epoch_table(run),
+            "launches": run["final_launches"], "seconds": run["seconds"],
+            "means": {key: value for key, value in
+                      run["out"]["statistics"].items()
+                      if key.endswith("_mean")},
+            **rerun_resumes(f"deep_{kind}", storage, deep.run, **options)}
+    emit(report)
+    return report
+
+
+def leaves_moved(before, after) -> list:
+    import torch
+    return [not torch.equal(a.detach().cpu(), b.detach().cpu())
+            for a, b in zip(before, after)]
+
+
+def without_residual(params):
+    """The residual cube's parameters with the residual's output layer
+    zeroed: its structured half alone, on the same integrator."""
+    import torch
+    from dair_pll_tpu_torch.params import ParamTree
+    residual = params["residual"]
+    *hidden, output = residual["net"]
+    return ParamTree({**params, "residual": {**residual, "net": [
+        *hidden, {key: torch.zeros_like(value)
+                  for key, value in output.items()}]}})
+
+
+def residual_gain(experiment, params) -> dict:
+    """Per set (train, valid), the mean one-step prediction loss of the
+    residual cube at ``params``, that of its structured half alone
+    (``without_residual``) and their ratio."""
+    import torch
+    system = experiment.learned_system
+    gain = {}
+    for name, trajectory_set in zip(
+            ("train", "valid"),
+            experiment.data_manager.get_trajectory_sets()):
+        past = experiment._on_device(trajectory_set.slices_past,
+                                     experiment.dtype)
+        future = experiment._on_device(trajectory_set.slices_future,
+                                       experiment.dtype)
+        with torch.no_grad():
+            full, alone = (float(torch.mean(experiment.prediction_loss(
+                system, p, past, future)))
+                for p in (params, without_residual(params)))
+        gain[name] = {"loss": full, "structured_alone": alone,
+                      "ratio": full / alone}
+    return gain
+
+
+def phase_residual_physics(scratch: str) -> dict:
+    """The residual recipe on the card: RESIDUAL_TOSSES tosses of
+    RESIDUAL_LENGTH states of the dragged cube (the vmapped integrator, no
+    kernel), the residual cube trained RESIDUAL_EPOCHS epochs at batch
+    256, the final evaluation. Checks: a falling train loss; the
+    structured and the residual leaves moved from their initial values;
+    at the last reported epoch the residual lowers the one-step loss of
+    its own structured half (``residual_gain``) on the train and the valid
+    slices; no kernel launched."""
+    from dair_pll_tpu_torch.examples import residual_physics_cube as residual
+    from dair_pll_tpu_torch.params import tree_from_leaves
+    storage = os.path.join(scratch, "residual_physics")
+    run = run_experiment("residual_physics", storage, residual.run,
+                         epochs=RESIDUAL_EPOCHS, n_pop=RESIDUAL_TOSSES,
+                         trajectory_length=RESIDUAL_LENGTH, eval_samples=0)
+    out = run["out"]
+    experiment = out["experiment"]
+    # A fresh build draws the same initial values (the live ones trained
+    # in place).
+    _, initial = experiment.get_learned_system()
+    trained = tree_from_leaves(initial, run["last_params"])
+    moved = leaves_moved(initial.parameters(), trained.parameters())
+    # Leaves in key order: the residual's, then the structured half's.
+    n_structured = len(initial["structured"].parameters())
+    residual_moved = moved[:-n_structured]
+    structured_moved = moved[-n_structured:]
+    # The train loss mixes both halves' changes and is an average over an
+    # epoch of moving parameters; the paired losses on fixed slices read
+    # the residual's part: the trained residual against its own
+    # structured half alone, where the initial residual raises it.
+    gain = {"initial": residual_gain(experiment, initial),
+            "trained": residual_gain(experiment, trained)}
+    failures = []
+    losses = [entry["train_loss"] for entry in run["epochs"]]
+    if not losses[-1] < losses[0]:
+        failures.append(f"train loss did not fall: {losses}")
+    if not all(entry["finite"] for entry in run["epochs"]):
+        failures.append("non-finite parameters")
+    if not any(structured_moved) or not any(residual_moved):
+        failures.append(f"leaves moved: structured {structured_moved}, "
+                        f"residual {residual_moved}")
+    for name, reading in gain["trained"].items():
+        if not reading["ratio"] < 1.0:
+            failures.append(f"the trained residual does not lower the "
+                            f"{name} loss: {reading}")
+    launched = [run["generation"]["launches"], run["final_launches"],
+                *(entry["launches"] for entry in run["epochs"])]
+    if any(any(launches.values()) for launches in launched):
+        failures.append(f"kernels launched {launched}; its path runs none")
+    report = {"phase": "residual_physics", "generated": out["generated"],
+              "generation_seconds": run["generation"]["seconds"],
+              "train_slices": run["sets"][0].n_slices,
+              "epochs": epoch_table(run),
+              "residual_weight_norm": [run["log"][e]["residual_weight_norm"]
+                                       for e in sorted(run["log"])],
+              "residual_gain": gain,
+              "structured_leaves_moved": structured_moved,
+              "residual_leaves_moved": residual_moved,
+              "seconds": run["seconds"],
+              "means": {key: value for key, value in
+                        out["statistics"].items() if key.endswith("_mean")}}
+    emit(report)
+    if failures:
+        raise AssertionError("residual_physics: " + "; ".join(failures))
+    return report
+
+
+def run_baseline_phases(run) -> dict:
+    """Phase 13's three phases, in their order, in a fresh directory of the
+    checkout."""
+    import shutil
+    scratch = os.path.join(HERE, "build", "baseline_smoke")
+    shutil.rmtree(scratch, ignore_errors=True)
+    os.makedirs(scratch)
+    run("baselines_card_vs_cpu", phase_baselines_card_vs_cpu, scratch)
+    deep = run("deep_baseline", phase_deep_baseline, scratch)
+    run("residual_physics", phase_residual_physics, scratch)
+    return deep
+
+
 def main(argv=None) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3668,10 +4100,14 @@ def main(argv=None) -> int:
 
     smi = run("device", phase_device)
     run("build", build_kernels)
-    if "--only-experiments" in (sys.argv[1:] if argv is None else argv):
-        # A shorter run for work on the experiment layer: its phases
-        # alone, without the kernel table or the final line.
-        run_experiment_phases(run)
+    flags = sys.argv[1:] if argv is None else argv
+    if "--only-experiments" in flags or "--only-baselines" in flags:
+        # A shorter run for work on the experiment layer or the baselines:
+        # their phases alone, without the kernel table or the final line.
+        if "--only-experiments" in flags:
+            run_experiment_phases(run)
+        if "--only-baselines" in flags:
+            run_baseline_phases(run)
         sampler.stop()
         emit({"phase": "seconds", **seconds_of})
         print(smi, flush=True)
@@ -3730,6 +4166,7 @@ def main(argv=None) -> int:
     # The experiment layer through the CLI's entry points (host-bound but
     # for the production batch's, whose traced epoch comes last).
     experiments = run_experiment_phases(run)
+    deep_baseline = run_baseline_phases(run)
     icnn_launches = run("icnn_train", phase_icnn_train, icnn_system, x_icnn,
                         xp_icnn)
     del x_icnn, xp_icnn
@@ -3806,6 +4243,11 @@ def main(argv=None) -> int:
         "experiment_launches": {
             phase: experiment_launch_summary(experiments[phase], "K5")
             for phase in ("experiment", "experiment_scale", "mesh")},
+        "baseline_launches": {
+            "deep_baseline": {
+                "generation": deep_baseline["generation"]["launches"]["K5"],
+                **{kind: deep_baseline[kind]["launches"]["K5"]
+                   for kind in ("mlp", "recurrent")}}},
         "library_ms": None,
     }]
     for name, entry, line in (

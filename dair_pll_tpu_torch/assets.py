@@ -136,6 +136,33 @@ def _cube_obj() -> str:
     return "\n".join(lines) + "\n"
 
 
+def cube_mjcf_template() -> str:
+    """MJCF template of the cube-toss cross-validation oracle, with
+    ``$solrefarg1``, ``$solrefarg2`` and ``$dt`` placeholders that
+    :class:`~dair_pll_tpu_torch.mujoco_system.MuJoCoSystem` fills (role of
+    the reference's ``assets/cube_mujoco.xml``); the cube's constants
+    above."""
+    half = CUBE_EDGE / 2
+    return f"""<mujoco model="cube_toss">
+  <option timestep="$dt">
+    <flag refsafe="disable"/>
+  </option>
+  <worldbody>
+    <geom name="floor" pos="0 0 0" size="5 5 0.1" type="plane"
+          solref="$solrefarg1 $solrefarg2" friction="{CUBE_MU} 0.005 0.0001"/>
+    <body name="cube" pos="0 0 0">
+      <inertial pos="0 0 0" mass="{CUBE_MASS}"
+                fullinertia="{CUBE_INERTIA} {CUBE_INERTIA} {CUBE_INERTIA} 0 0 0"/>
+      <freejoint name="cube_free"/>
+      <geom name="cube_geom" type="box" size="{half} {half} {half}"
+            solref="$solrefarg1 $solrefarg2"
+            friction="{CUBE_MU} 0.005 0.0001"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+
+
 def _write_atomic(path: str, content: str) -> None:
     """Atomic same-directory write (temp file + ``os.replace``): the
     asset cache is shared across processes (multi-process training,
@@ -170,6 +197,10 @@ def write_assets(directory: str) -> Dict[str, str]:
         path = os.path.join(directory, f"{name}.urdf")
         _write_atomic(path, content)
         paths[name] = path
+
+    mjcf_path = os.path.join(directory, "cube_mujoco.xml")
+    _write_atomic(mjcf_path, cube_mjcf_template())
+    paths["cube_mjcf"] = mjcf_path
     return paths
 
 
@@ -177,7 +208,8 @@ def get_asset(name: str, cache_dir: Optional[str] = None) -> str:
     """Returns the path of a named asset, generating it if needed.
 
     Args:
-        name: "cube", "cube_mesh", "elbow", or "elbow_mesh".
+        name: "cube", "cube_mesh", "elbow", "elbow_mesh", "cube_obj" or
+          "cube_mjcf" (the MuJoCo oracle's template).
         cache_dir: where to generate (default: ``assets_generated/``
           inside this package).
     """

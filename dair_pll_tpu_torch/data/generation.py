@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dair_pll_tpu_torch.params import dtype_device
 from dair_pll_tpu_torch.state_space import StateSpaceSampler, WhiteNoiser
 from dair_pll_tpu_torch.system import System
 from dair_pll_tpu_torch.utils import file_utils
@@ -67,8 +68,10 @@ class DataGenerationConfig:
 class ExperimentDatasetGenerator:
     """Generates and stores simulated trajectories for an experiment.
 
-    The sampled states take the dtype of ``params.theta`` and move to the
-    system's device; ``params`` must lie there already.
+    The sampled states take the dtype of the parameters and move to their
+    device; ``params`` must lie on the system's device already. A
+    host-stepped system (the MuJoCo oracle, ``params`` ``None``) takes
+    float64 states on the CPU and returns numpy rollouts.
     """
 
     def __init__(self, system: System, sampler: StateSpaceSampler,
@@ -95,8 +98,10 @@ class ExperimentDatasetGenerator:
         """
         config = self.config
         space = self.system.space
-        device = self.params.theta.device
-        dtype = self.params.theta.dtype
+        if self.system.host_stepped:
+            dtype, device = torch.float64, torch.device("cpu")
+        else:
+            dtype, device = dtype_device(self.params)
         existing = len(file_utils.list_trajectories(
             file_utils.trajectory_dir(storage,
                                       file_utils.GROUND_TRUTH_SUBDIR)))
@@ -107,9 +112,9 @@ class ExperimentDatasetGenerator:
         while index < config.n_pop:
             x_0 = self.sampler.get_samples(generator, batch_size, dtype)
             with torch.no_grad():
-                ground_truth = self.system.simulate_batch(
+                ground_truth = torch.as_tensor(self.system.simulate_batch(
                     self.params, x_0.to(device),
-                    config.trajectory_length - 1)
+                    config.trajectory_length - 1), device=device)
                 noised = self.make_noised_trajectories(generator,
                                                        ground_truth)
             ground_truth = ground_truth.cpu().numpy()

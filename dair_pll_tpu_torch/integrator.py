@@ -56,6 +56,18 @@ class Integrator:
         self.dt = dt
         self.kind = kind
 
+    def out_size(self) -> int:
+        """Final dimension of the partial step's output for this kind."""
+        space = self.space
+        return {
+            "state": space.n_x,
+            "delta_state": 2 * space.n_v,
+            "velocity": space.n_v,
+            "delta_velocity": space.n_v,
+            "configuration": space.n_q,
+            "delta_configuration": space.n_v,
+        }[self.kind]
+
     def step(self, params: Any, x: Tensor, carry: Tensor
              ) -> Tuple[Tensor, Tensor]:
         """One time step of states ``(*, n_x)``."""

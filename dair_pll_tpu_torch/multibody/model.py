@@ -27,6 +27,7 @@ from dair_pll_tpu_torch import inertia as inertia_mod
 from dair_pll_tpu_torch import state_space as space_mod
 from dair_pll_tpu_torch.geometry import (CollisionGeometrySpec,
                                          default_geometry_params)
+from dair_pll_tpu_torch.params import tree_from_numpy, tree_leaves, tree_map
 
 GROUND_FRICTION = 1.0
 GRAVITY = 9.81
@@ -190,7 +191,7 @@ class MultibodyParams:
         same structure."""
         return MultibodyParams(theta=fn(self.theta),
                                friction=fn(self.friction),
-                               geometry=_tree_map(fn, self.geometry))
+                               geometry=tree_map(fn, self.geometry))
 
     def parameters(self) -> List[torch.Tensor]:
         """The leaf tensors in a fixed order, for a ``torch.optim``
@@ -198,33 +199,7 @@ class MultibodyParams:
         geometry order, in the order of JAX's ``tree_leaves`` (dictionary
         keys sorted, lists in order), so that leaf lists compare one to
         one with the JAX package's."""
-        return [self.theta, self.friction, *_tree_leaves(self.geometry)]
-
-
-def _tree_leaves(tree) -> List[torch.Tensor]:
-    """The tensors of nested dictionaries, lists and tuples (``None``
-    skipped), dictionary keys sorted, as ``jax.tree_util.tree_leaves``
-    orders them."""
-    if tree is None:
-        return []
-    if isinstance(tree, Mapping):
-        return [leaf for key in sorted(tree)
-                for leaf in _tree_leaves(tree[key])]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for item in tree for leaf in _tree_leaves(item)]
-    return [tree]
-
-
-def _tree_map(fn, tree):
-    """``fn`` on the tensors of nested dictionaries, lists and tuples
-    (``None`` kept)."""
-    if tree is None:
-        return None
-    if isinstance(tree, Mapping):
-        return {key: _tree_map(fn, value) for key, value in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, item) for item in tree)
-    return fn(tree)
+        return [self.theta, self.friction, *tree_leaves(self.geometry)]
 
 
 def params_from_numpy(model: MultibodyModel, theta, friction,
@@ -242,82 +217,9 @@ def params_from_numpy(model: MultibodyModel, theta, friction,
     Returns the port's :class:`MultibodyParams` on ``device`` in
     ``dtype``.
     """
-    theta = np.asarray(theta, dtype=np.float64)
-    friction = np.asarray(friction, dtype=np.float64)
-    if theta.shape != (model.n_bodies, 10):
-        raise ValueError(f"theta has shape {theta.shape}, expected "
-                         f"{(model.n_bodies, 10)}")
-    if friction.shape != (len(model.geometries),):
-        raise ValueError(f"friction has shape {friction.shape}, expected "
-                         f"{(len(model.geometries),)}")
-    if len(geometry) != len(model.geometries):
-        raise ValueError(f"{len(geometry)} geometry entries for "
-                         f"{len(model.geometries)} geometries")
-
-    def tensor(value):
-        # A copy: the caller's arrays may be read-only views of JAX
-        # buffers.
-        return torch.as_tensor(np.array(value, dtype=np.float64),
-                               dtype=dtype, device=device)
-
-    def convert(expected, given, where: str):
-        """``given`` in the structure of ``expected``, as tensors."""
-        if isinstance(expected, Mapping):
-            if not isinstance(given, Mapping) or set(given) != set(expected):
-                raise ValueError(f"{where} needs keys {sorted(expected)}")
-            return {key: convert(ref, given[key], f"{where} {key}")
-                    for key, ref in expected.items()}
-        if isinstance(expected, list):
-            if not isinstance(given, (list, tuple)) or \
-                    len(given) != len(expected):
-                raise ValueError(f"{where} needs a list of {len(expected)}")
-            return [convert(ref, item, f"{where}[{i}]")
-                    for i, (ref, item) in enumerate(zip(expected, given))]
-        value = tensor(given)
-        if value.shape != expected.shape:
-            raise ValueError(f"{where} has shape {tuple(value.shape)}, "
-                             f"expected {tuple(expected.shape)}")
-        return value
-
-    geometry_out = []
-    for spec, entry in zip(model.geometries, geometry):
-        expected = default_geometry_params(spec, torch.float64)
-        if expected is None:
-            if entry:
-                raise ValueError(f"geometry {spec.name} takes no parameters")
-            geometry_out.append(None)
-            continue
-        geometry_out.append(convert(expected, entry, f"geometry {spec.name}"))
-    return MultibodyParams(theta=tensor(theta), friction=tensor(friction),
-                           geometry=tuple(geometry_out))
-
-
-def params_from_leaves(model: MultibodyModel, leaves: Sequence,
-                       dtype=torch.float64, device=None) -> MultibodyParams:
-    """The inverse of :meth:`MultibodyParams.parameters`: arrays in that
-    order (the order of JAX's ``tree_leaves`` of its parameters, so also a
-    JAX run's flattened parameters) back into the model's structure, read
-    by :func:`params_from_numpy`, which checks every shape."""
-    leaves = list(leaves)
-    template = model.initial_params(torch.float64)
-    position = iter(range(2, len(leaves)))
-
-    def fill(tree):
-        if tree is None:
-            return None
-        if isinstance(tree, Mapping):
-            return {key: fill(tree[key]) for key in sorted(tree)}
-        if isinstance(tree, (list, tuple)):
-            return [fill(item) for item in tree]
-        index = next(position, None)
-        if index is None:
-            raise ValueError(f"{len(leaves)} leaves; the model has more")
-        return leaves[index]
-
-    if len(leaves) < 2:
-        raise ValueError(f"{len(leaves)} leaves; the model has more")
-    geometry = [fill(entry) for entry in template.geometry]
-    if next(position, None) is not None:
-        raise ValueError(f"{len(leaves)} leaves; the model has fewer")
-    return params_from_numpy(model, leaves[0], leaves[1], geometry,
-                             dtype=dtype, device=device)
+    template = model.initial_params(dtype, device)
+    return MultibodyParams(
+        theta=tree_from_numpy(template.theta, theta, "theta"),
+        friction=tree_from_numpy(template.friction, friction, "friction"),
+        geometry=tree_from_numpy(template.geometry, tuple(geometry),
+                                 "geometry"))

@@ -42,8 +42,9 @@ class System:
 
     space: StateSpace
     integrator: Integrator
-    #: Whether the system steps on the host, one trajectory at a time (the
-    #: JAX package's MuJoCo oracle); no system of the port does yet.
+    #: Whether the system steps on the host, one trajectory at a time, on
+    #: numpy states (the MuJoCo oracle): the experiment then rolls it out
+    #: sequentially.
     host_stepped: bool = False
 
     def __init__(self, space: StateSpace, integrator: Integrator) -> None:

@@ -22,7 +22,8 @@ Counterpart of ``dair_pll_tpu/training/experiment.py`` (reference
   ``{set}_{system}_{variable}(_mean)`` of the reference
   (``experiment.py:685-796``); rollouts run through the system's
   ``simulate_batch`` without gradients (the fused rollout on K5 from 1,024
-  trajectories, the vmapped integrator below).
+  trajectories, the vmapped integrator below); a host-stepped system (the
+  MuJoCo oracle) rolls out one trajectory at a time on the host.
 * **Checkpoint/resume** restores the split, parameters, optimizer state,
   epoch counters and run id (reference ``experiment.py:490-557``).
 
@@ -42,6 +43,7 @@ from torch import Tensor
 from dair_pll_tpu_torch.data.management import (ExperimentDataManager,
                                                 TrajectorySet)
 from dair_pll_tpu_torch.multibody.learnable_system import resolve_device
+from dair_pll_tpu_torch.params import dtype_device, tree_from_leaves
 from dair_pll_tpu_torch.system import System
 from dair_pll_tpu_torch.training.config import (
     OptimizerConfig, SupervisedLearningExperimentConfig)
@@ -209,13 +211,6 @@ def snapshot(params: Any) -> Any:
     return params.map(lambda leaf: leaf.detach().clone())
 
 
-def _host_stepped(system: System) -> None:
-    if system.host_stepped:
-        raise NotImplementedError(
-            "host-stepped systems (the MuJoCo oracle) wait for the port "
-            "(ROADMAP.md Queue 1 item 5)")
-
-
 class SupervisedLearningExperiment:
     """Trains a learnable system on trajectory data.
 
@@ -263,10 +258,12 @@ class SupervisedLearningExperiment:
     def params_from_leaves(self, init_params: Any, leaves: Sequence) -> Any:
         """Stored numpy leaves (a checkpoint's) in the structure, dtype and
         device of ``init_params``."""
-        from dair_pll_tpu_torch.multibody.model import params_from_leaves
-        return params_from_leaves(self.learned_system.model, leaves,
-                                  dtype=init_params.theta.dtype,
-                                  device=init_params.theta.device)
+        return tree_from_leaves(init_params, leaves)
+
+    def _params_dtype(self, params: Any) -> torch.dtype:
+        """The dtype of a system's parameters (the experiment's for a host
+        simulator's ``None``)."""
+        return dtype_device(params, self.dtype)[0]
 
     # -- losses ---------------------------------------------------------------
     @staticmethod
@@ -507,7 +504,7 @@ class SupervisedLearningExperiment:
         rng = np.random.default_rng(713 + state.epoch)
 
         params = state.current_params
-        dtype = params.theta.dtype
+        dtype = self._params_dtype(params)
         train_set, valid_set, _ = self.data_manager.get_trajectory_sets()
         # The manager assigns trajectories lazily on first scan; record the
         # realized split so resume restores the identical partition.
@@ -752,7 +749,6 @@ class SupervisedLearningExperiment:
         (for a ``MultibodyLearnableSystem`` the fused rollout on K5 from
         ``FUSED_ROLLOUT_MIN_BATCH`` trajectories, the vmapped integrator
         below), or ``simulate`` when the system carries a hidden state."""
-        _host_stepped(system)
         with torch.no_grad():
             x_0, carry = system.preprocess_initial_condition(
                 params, x_hist, system.initial_carry(x_hist[..., -1, :]))
@@ -762,6 +758,21 @@ class SupervisedLearningExperiment:
                 trajectory = system.simulate(params, x_0, steps,
                                              carry_0=carry)
         return trajectory[..., 1:, :]
+
+    @staticmethod
+    def _host_rollouts(system: System, params: Any, x_hist: np.ndarray,
+                       steps: int) -> np.ndarray:
+        """Predicted states ``(B, steps, n_x)`` of a host-stepped system
+        (the MuJoCo oracle): one history at a time, on the host, as the
+        JAX package rolls out the reference's ``max_batch_dim = 0``
+        systems."""
+        rows = []
+        for hist in np.asarray(x_hist):
+            x_0, carry = system.preprocess_initial_condition(
+                params, hist, system.initial_carry(torch.as_tensor(hist[-1])))
+            rows.append(np.asarray(system.simulate(
+                params, x_0, steps, carry_0=carry))[1:])
+        return np.stack(rows)
 
     def trajectory_predict(self, system: System, params: Any,
                            trajectories, t_skip: int):
@@ -782,10 +793,14 @@ class SupervisedLearningExperiment:
             padded[i, T:] = trajectory[-1]  # repeat last state (masked out)
             lengths[i] = T
 
-        x_hist = self._on_device(padded[:, :t_begin],
-                                 params.theta.dtype)
-        predictions = self._rollout(system, params, x_hist,
-                                    horizon).cpu().numpy()
+        if system.host_stepped:
+            predictions = self._host_rollouts(system, params,
+                                              padded[:, :t_begin], horizon)
+        else:
+            x_hist = self._on_device(padded[:, :t_begin],
+                                     self._params_dtype(params))
+            predictions = self._rollout(system, params, x_hist,
+                                        horizon).cpu().numpy()
         targets = padded[:, t_begin:]
         masks = (np.arange(horizon)[None, :] <
                  (lengths - t_begin)[:, None])
@@ -818,7 +833,14 @@ class SupervisedLearningExperiment:
         """Per-slice prediction losses in chunks of at most
         ``EVALUATION_SLICE_CHUNK`` rollouts (padded, as in the JAX
         package, to whole chunks of a power of two), without
-        gradients."""
+        gradients. A host-stepped system rolls out each slice on the host
+        (the JAX package's ``_host_slice_losses``)."""
+        if system.host_stepped:
+            x_predicted = torch.as_tensor(self._host_rollouts(
+                system, params, past.cpu().numpy(), future.shape[-2]))
+            return self._velocity_loss(
+                system.space, x_predicted,
+                future.cpu().to(x_predicted.dtype)).numpy()
         n = past.shape[0]
         chunk = min(EVALUATION_SLICE_CHUNK,
                     1 << max(0, (n - 1)).bit_length())
@@ -876,7 +898,7 @@ class SupervisedLearningExperiment:
         trajectories = [t for s in sets.values() for t in s.trajectories]
 
         for system_name, (system, params) in systems.items():
-            dtype = params.theta.dtype
+            dtype = self._params_dtype(params)
             losses = self._slice_losses(system, params, all_past.to(dtype),
                                         all_future.to(dtype))
             predictions, targets, masks = self.trajectory_predict(

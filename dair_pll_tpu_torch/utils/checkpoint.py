@@ -7,9 +7,9 @@ loss, the run id and the finished flag) pickled as one file whose arrays
 are host numpy arrays, written atomically with SIGINT ignored, as the
 reference's ``experiment.py:671-679`` writes it.
 
-Parameters are stored as the list of their leaves in
-:meth:`MultibodyParams.parameters` order (JAX's ``tree_leaves`` order) and
-read back by :func:`~dair_pll_tpu_torch.multibody.model.params_from_leaves`.
+Parameters are stored as the list of their leaves in ``parameters()``
+order (JAX's ``tree_leaves`` order) and read back by
+:func:`~dair_pll_tpu_torch.params.tree_from_leaves`.
 The optimizer state is the ``torch.optim`` state dict with every tensor
 moved to numpy. A checkpoint holds only builtins and numpy arrays, so it
 unpickles without either package's classes.

@@ -30,7 +30,7 @@ from dair_pll_tpu_torch.data.management import (ExperimentDataManager,
                                                 slice_trajectories)
 from dair_pll_tpu_torch.multibody.learnable_system import (
     MultibodyLearnableSystem)
-from dair_pll_tpu_torch.multibody.model import params_from_leaves
+from dair_pll_tpu_torch.params import tree_from_leaves
 from dair_pll_tpu_torch.training.multibody_experiment import (
     MultibodyLearnableExperiment)
 from dair_pll_tpu_torch.utils import file_utils
@@ -80,7 +80,8 @@ def test_evaluate_systems_on_sets_matches_jax(storage, monkeypatch):
         j_sets[name] = JTrajectorySet(chosen, rows, past, future)
     leaves = [leaf.astype(np.float64) for leaf in jax_leaves(j_init)]
     j_params = jax_params_from_leaves(j_init, leaves)
-    params = params_from_leaves(texp.learned_system.model, leaves)
+    params = tree_from_leaves(
+        texp.learned_system.model.initial_params(torch.float64), leaves)
     stats = texp.evaluate_systems_on_sets(
         {"model": (texp.learned_system, params)}, sets)
     j_stats = jexp.evaluate_systems_on_sets(
@@ -108,8 +109,8 @@ def jmanagement_slice(trajectories):
 def test_jax_checkpoint_params_give_jax_loss(tmp_path):
     """A JAX run's stored ``best_params``, flattened with
     ``jax.tree_util.tree_leaves``, carried into the port by
-    ``params_from_leaves`` (``params_from_numpy``), give the JAX loss; the
-    ICNN cube's nested parameters carry leaf for leaf."""
+    ``tree_from_leaves``, give the JAX loss; the ICNN cube's nested
+    parameters carry leaf for leaf."""
     jmodel = jbuild({"cube": jget_asset("cube")})
     j_init = jmodel.initial_params(jnp.float64)
     rng = np.random.default_rng(8)
@@ -125,7 +126,8 @@ def test_jax_checkpoint_params_give_jax_loss(tmp_path):
 
     system = MultibodyLearnableSystem.from_urdfs(
         {"cube": get_asset("cube")}, DT, device="cpu")
-    params = params_from_leaves(system.model, stored)
+    params = tree_from_leaves(system.model.initial_params(torch.float64),
+                              stored)
     jsystem = JSystem(jmodel, DT)
     data = rng.standard_normal((6, 13)) * 0.1
     data[:, 0] += 1.0
@@ -149,12 +151,13 @@ def test_jax_checkpoint_params_give_jax_loss(tmp_path):
     mesh_leaves = jax_leaves(jmesh.initial_params(jnp.float64))
     tmesh = MultibodyLearnableSystem.from_urdfs(
         {"cube": get_asset("cube_mesh")}, DT, device="cpu").model
-    carried = params_from_leaves(tmesh, mesh_leaves).parameters()
+    template = tmesh.initial_params(torch.float64)
+    carried = tree_from_leaves(template, mesh_leaves).parameters()
     assert len(carried) == len(mesh_leaves)
     for leaf, ref in zip(carried, mesh_leaves):
         np.testing.assert_array_equal(leaf.numpy(), ref)
     with pytest.raises(ValueError):
-        params_from_leaves(tmesh, mesh_leaves[:-1])
+        tree_from_leaves(template, mesh_leaves[:-1])
 
 
 

@@ -138,17 +138,19 @@ def test_small_batch_default_path_runs_vmapped(monkeypatch):
 
 def test_port_imports_no_jax():
     """Importing every module of the port leaves ``jax``,
-    ``dair_pll_tpu`` and ``click`` out of ``sys.modules``."""
+    ``dair_pll_tpu``, ``click`` and ``mujoco`` out of ``sys.modules``
+    (the MuJoCo systems import ``mujoco`` when one is built)."""
     code = (
         "import pkgutil, importlib, sys, dair_pll_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    dair_pll_tpu_torch.__path__, 'dair_pll_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "assert len(names) >= 31, names\n"
+        "assert len(names) >= 62, names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'dair_pll_tpu' or\n"
-        "             m.startswith('dair_pll_tpu.') or m == 'click')\n"
+        "             m.startswith('dair_pll_tpu.') or m == 'click' or\n"
+        "             m == 'mujoco' or m.startswith('mujoco.'))\n"
         "print('LEAKED', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -40,7 +40,7 @@ from dair_pll_tpu_torch.data.management import ExperimentDataManager
 from dair_pll_tpu_torch.hyperparameter import Float
 from dair_pll_tpu_torch.multibody.learnable_system import (
     MultibodyLearnableSystem)
-from dair_pll_tpu_torch.multibody.model import params_from_leaves
+from dair_pll_tpu_torch.params import tree_from_leaves
 from dair_pll_tpu_torch.training import experiment as texperiment
 from dair_pll_tpu_torch.training.config import OptimizerConfig
 from dair_pll_tpu_torch.training.multibody_experiment import (
@@ -208,7 +208,8 @@ def test_epoch_matches_jax(storage, loss_name):
             jnp.asarray(batch[None]))
         j_losses.append(float(loss))
 
-    params = params_from_leaves(texp.learned_system.model, start)
+    params = tree_from_leaves(
+        texp.learned_system.model.initial_params(torch.float64), start)
     for leaf in params.parameters():
         leaf.requires_grad_(True)
     optimizer = texperiment.build_optimizer(texp.config.optimizer_config,
