@@ -23,7 +23,14 @@
 // problem is spread over a group of G lanes of a warp, G the smallest of
 // 8, 16 and 32 that holds its n = 3k rows (kGroupLanes: 4 problems a warp
 // at k <= 2, 2 at k <= 5, 1 at k <= 10). Lane i of a group owns row i of Q,
-// kept in registers for the whole solve; lanes past n hold zeros.
+// kept in registers for the whole solve; lanes past n hold zeros. Beyond
+// k = 10 a problem takes a whole warp and each lane owns R rows (kLaneRows:
+// the power of two that makes 32 R hold the 3k rows), rows lane, lane +
+// 32, ..., read from device memory straight into registers; a lane first
+// sums its own R values by halves (r with r + R/2), then the warp's
+// butterfly adds the lanes, which is the plain version's halving sum over
+// 32 R rows (`cone_kernels._warp_sum` pads to that width). Every k builds
+// at first use (ops/soa_kernels.py), one instantiation per k and type.
 //
 // - The matvec is each lane's own sum over the columns, in column order.
 //   The iterate reaches every lane of its group through shared memory:
@@ -50,11 +57,13 @@
 // can time it with shuffles in place of shared memory, and at one warp a
 // problem (the design this replaces), beside the shipped one.
 //
-// Build: ops/soa_kernels.py compiles every source of this directory into
-// one library, without fast math and without fused multiply-adds
+// Build: ops/soa_kernels.py compiles each k's instantiation at first use
+// (DEFINE_APGD_ENTRY), without fast math and without fused multiply-adds
 // (-fmad=false), so that every product and sum rounds as in the plain
 // version. Maxima are written as `x < c ? c : x`, which keeps a NaN as
 // torch.clamp does.
+
+#pragma once
 
 #include <cuda_runtime.h>
 
@@ -65,16 +74,25 @@ constexpr int kWarpsPerBlock = 4;
 constexpr int kPowerIterations = 12;
 
 // Lanes a problem of k cones: the smallest of 8, 16 and 32 that holds its
-// 3k rows.
+// 3k rows; 32 beyond k = 10.
 template <int K>
 constexpr int kGroupLanes = 3 * K <= 8 ? 8 : (3 * K <= 16 ? 16 : 32);
+
+// Rows a lane owns: the smallest power of two R with 32 R >= 3k (1 up to
+// k = 10, 2 up to 21, 4 up to 42, ...).
+constexpr int lane_rows(int n) {
+  int r = 1;
+  while (32 * r < n) r *= 2;
+  return r;
+}
+template <int K> constexpr int kLaneRows = lane_rows(3 * K);
 
 template <typename T>
 __device__ __forceinline__ T clamp_below(T x, T c) {
   return x < c ? c : x;
 }
 
-// The sum of v over the G lanes of a group, left in every lane of it.
+// The sum over a group of G lanes by a butterfly: every lane gets the sum.
 template <int G, typename T>
 __device__ __forceinline__ T group_sum(T v) {
 #pragma unroll
@@ -83,12 +101,26 @@ __device__ __forceinline__ T group_sum(T v) {
   return v;
 }
 
-// Values a shared row of the iterate holds: n padded to 16 bytes.
+// The sum of the R values each lane holds over the group: each lane's by
+// halves (r with r + R/2 first), then the butterfly; the halving sum over
+// 32 R rows, row r G + lane the lane's value r.
+template <int G, int R, typename T>
+__device__ __forceinline__ T rows_sum(const T (&v)[R]) {
+  T h[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) h[r] = v[r];
+#pragma unroll
+  for (int w = R / 2; w > 0; w >>= 1)
+#pragma unroll
+    for (int r = 0; r < w; ++r) h[r] = h[r] + h[r + w];
+  return group_sum<G>(h[0]);
+}
+
+// Values of one shared row of n entries, padded to 16 bytes.
 template <typename T, int N>
 constexpr int kRowValues =
     (N * (int)sizeof(T) + 15) / 16 * 16 / (int)sizeof(T);
 
-// Sixteen bytes of shared memory into registers.
 __device__ __forceinline__ void load16(const float* s, float* out) {
   const float4 v = *reinterpret_cast<const float4*>(s);
   out[0] = v.x;
@@ -102,13 +134,12 @@ __device__ __forceinline__ void load16(const double* s, double* out) {
   out[1] = v.y;
 }
 
-// How a group's lanes see each other's entries of a vector that each holds
-// one entry of, through the group's two rows of shared memory:
-// publish(v, row) hands this lane's entry over (every lane of the warp
-// calls it), then all(out) gives every entry and entry(j) the j-th.
+// The iterate's exchange through shared memory: a group's two rows of
+// slots. publish writes the lanes' entries to a row and meets the warp at
+// __syncwarp; all reads the row whole, entry one value of it.
 template <typename T, int K, int G>
 struct SharedExchange {
-  static constexpr int N = 3 * K, kRow = kRowValues<T, N>;
+  static constexpr int N = 3 * K, R = kLaneRows<K>, kRow = kRowValues<T, N>;
   // Shared values a group needs.
   static constexpr int kSlots = 2 * kRow;
   T* slots_;
@@ -118,6 +149,15 @@ struct SharedExchange {
   __device__ void publish(T v, int row) {
     T* r = slots_ + row * kRow;
     if (lane_ < N) r[lane_] = v;
+    __syncwarp(kFullMask);
+    row_ = r;
+  }
+  // A lane's R rows (lane + s G) at once.
+  __device__ void publish_rows(const T (&v)[R], int row) {
+    T* r = slots_ + row * kRow;
+#pragma unroll
+    for (int s = 0; s < R; ++s)
+      if (s * G + lane_ < N) r[s * G + lane_] = v[s];
     __syncwarp(kFullMask);
     row_ = r;
   }
@@ -132,57 +172,79 @@ struct SharedExchange {
   __device__ T entry(int j) const { return row_[j]; }
 };
 
-// (Q v)_lane = sum_j Q[lane][j] v[j], columns in order; v published to
-// `row` of the exchange.
-template <typename T, int N, typename X>
-__device__ __forceinline__ T matvec(const T (&q_row)[N], T v, X& ex,
-                                    int row) {
-  ex.publish(v, row);
+template <int R, typename T, typename X>
+__device__ __forceinline__ void publish(X& ex, const T (&v)[R], int row) {
+  if constexpr (R == 1)
+    ex.publish(v[0], row);
+  else
+    ex.publish_rows(v, row);
+}
+
+// Each owned row's dot product with the group's vector v, over the
+// columns in order.
+template <typename T, int N, int R, typename X>
+__device__ __forceinline__ void matvec(const T (&q_rows)[R][N],
+                                       const T (&v)[R], X& ex, int row,
+                                       T (&out)[R]) {
+  publish<R>(ex, v, row);
   T all[N];
   ex.all(all);
-  T acc = q_row[0] * all[0];
 #pragma unroll
-  for (int j = 1; j < N; ++j) acc = acc + q_row[j] * all[j];
-  return acc;
-}
-
-// Projection onto the cones of the stacked vector held one entry a lane
-// (z on this lane), published to `row` of the exchange.
-template <typename T, int K, typename X>
-__device__ __forceinline__ T project(T z, int lane, X& ex, int row) {
-  constexpr int N = 3 * K;
-  ex.publish(z, row);
-  const int cone = lane < K ? lane : (lane < N ? (lane - K) >> 1 : 0);
-  const T n = ex.entry(cone);
-  const T tx = ex.entry(K + 2 * cone);
-  const T ty = ex.entry(K + 2 * cone + 1);
-  const T s = sqrt(clamp_below(tx * tx + ty * ty, T(1e-30)));
-  const bool inside = s <= n;
-  const bool polar = s <= -n;
-  const T h = T(0.5) * (n + s);
-  if (lane < K) return inside ? n : (polar ? T(0) : h);
-  if (lane < N) {
-    const T scale = inside ? T(1) : (polar ? T(0) : h / s);
-    return z * scale;
+  for (int s = 0; s < R; ++s) {
+    T acc = q_rows[s][0] * all[0];
+#pragma unroll
+    for (int j = 1; j < N; ++j) acc = acc + q_rows[s][j] * all[j];
+    out[s] = acc;
   }
-  return T(0);
 }
 
-// Problems a warp and a block, and the shared values a block needs: each
-// group's Q and its exchange's slots.
+// The projection onto the k cones, for each owned row i = s G + lane: a
+// normal entry (i < k) or a tangent entry of cone (i - k) / 2; rows past n
+// give zero.
+template <typename T, int K, int G, int R, typename X>
+__device__ __forceinline__ void project(const T (&z)[R], int lane, X& ex,
+                                        int row, T (&out)[R]) {
+  constexpr int N = 3 * K;
+  publish<R>(ex, z, row);
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const int i = s * G + lane;
+    const int cone = i < K ? i : (i < N ? (i - K) >> 1 : 0);
+    const T n = ex.entry(cone);
+    const T tx = ex.entry(K + 2 * cone);
+    const T ty = ex.entry(K + 2 * cone + 1);
+    const T sn = sqrt(clamp_below(tx * tx + ty * ty, T(1e-30)));
+    const bool inside = sn <= n;
+    const bool polar = sn <= -n;
+    const T h = T(0.5) * (n + sn);
+    if (i < K) {
+      out[s] = inside ? n : (polar ? T(0) : h);
+    } else if (i < N) {
+      const T scale = inside ? T(1) : (polar ? T(0) : h / sn);
+      out[s] = z[s] * scale;
+    } else {
+      out[s] = T(0);
+    }
+  }
+}
+
 template <int G> constexpr int kGroupsPerWarp = 32 / G;
+// Q's values a group stages in shared memory: its n^2 at one row a lane;
+// none at several (each lane reads its rows from device memory).
+template <int K>
+constexpr int kStageValues = kLaneRows<K> == 1 ? 9 * K * K : 0;
 template <typename T, int K, int G, template <typename, int, int> class X>
 constexpr int kBlockShared =
-    kWarpsPerBlock * kGroupsPerWarp<G> * (9 * K * K + X<T, K, G>::kSlots);
+    kWarpsPerBlock * kGroupsPerWarp<G> * (kStageValues<K> + X<T, K, G>::kSlots);
 
-// Thread t of a block is lane t % G of group t / G; the warp's groups are
-// consecutive problems.
 template <typename T, int K, int G, template <typename, int, int> class X>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock) apgd_cone_solve_kernel(
     const T* __restrict__ Q, const T* __restrict__ q, T* __restrict__ x_out,
     long long B, int iterations) {
-  constexpr int N = 3 * K, NN = N * N, P = kGroupsPerWarp<G>;
-  static_assert(N <= G && 32 % G == 0, "a problem's rows fit its group");
+  constexpr int N = 3 * K, NN = N * N, P = kGroupsPerWarp<G>,
+                R = kLaneRows<K>;
+  static_assert(N <= G * R && 32 % G == 0 && (R == 1 || G == 32),
+                "a problem's rows fit its group");
   __shared__ __align__(16) T shared[kBlockShared<T, K, G, X>];
   const int warp = threadIdx.x >> 5, in_warp = threadIdx.x & 31;
   const int lane = in_warp % G, group = in_warp / G;
@@ -191,53 +253,87 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock) apgd_cone_solve_kernel(
   const bool store = mine < B;
   const long long b = store ? mine : B - 1;
 
-  // The warp's groups' Q, read whole and in order, then row by row.
-  T* stage = shared + warp * P * NN;
-  for (int e = in_warp; e < P * NN; e += 32) {
-    const long long p = first + e / NN;
-    stage[e] = Q[(p < B ? p : B - 1) * NN + e % NN];
-  }
-  __syncwarp(kFullMask);
-  const bool active = lane < N;
-  T row[N];
+  T row[R][N];
+  if constexpr (R == 1) {
+    // The warp's groups' Q, read whole and in order, then row by row.
+    T* stage = shared + warp * P * NN;
+    for (int e = in_warp; e < P * NN; e += 32) {
+      const long long p = first + e / NN;
+      stage[e] = Q[(p < B ? p : B - 1) * NN + e % NN];
+    }
+    __syncwarp(kFullMask);
 #pragma unroll
-  for (int j = 0; j < N; ++j)
-    row[j] = active ? stage[group * NN + lane * N + j] : T(0);
-  const T qi = active ? q[b * N + lane] : T(0);
-  X<T, K, G> ex(shared + kWarpsPerBlock * P * NN +
+    for (int j = 0; j < N; ++j)
+      row[0][j] = lane < N ? stage[group * NN + lane * N + j] : T(0);
+  } else {
+#pragma unroll
+    for (int s = 0; s < R; ++s)
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        row[s][j] = s * G + lane < N ? Q[b * NN + (s * G + lane) * N + j]
+                                     : T(0);
+  }
+  T qi[R];
+#pragma unroll
+  for (int s = 0; s < R; ++s)
+    qi[s] = s * G + lane < N ? q[b * N + s * G + lane] : T(0);
+  X<T, K, G> ex(shared + kWarpsPerBlock * P * kStageValues<K> +
                     (warp * P + group) * X<T, K, G>::kSlots,
                 lane);
 
   // Lipschitz estimate by power iteration. The exchange's rows alternate;
   // the FISTA loop's matvec takes row 1 and its projection row 0, so that
   // no row is written before the last reads of it have met a __syncwarp.
-  T v = active ? T(1) / sqrt(T(N)) : T(0);
+  T v[R], w[R], sq[R];
+#pragma unroll
+  for (int s = 0; s < R; ++s)
+    v[s] = s * G + lane < N ? T(1) / sqrt(T(N)) : T(0);
   for (int it = 0; it < kPowerIterations; ++it) {
-    const T w = matvec<T, N>(row, v, ex, it & 1);
-    const T norm = sqrt(clamp_below(group_sum<G>(w * w), T(1e-30)));
-    v = w / norm;
+    matvec<T, N, R>(row, v, ex, it & 1, w);
+#pragma unroll
+    for (int s = 0; s < R; ++s) sq[s] = w[s] * w[s];
+    const T norm = sqrt(clamp_below(rows_sum<G, R>(sq), T(1e-30)));
+#pragma unroll
+    for (int s = 0; s < R; ++s) v[s] = w[s] / norm;
   }
-  const T lam =
-      group_sum<G>(v * matvec<T, N>(row, v, ex, kPowerIterations & 1));
+  matvec<T, N, R>(row, v, ex, kPowerIterations & 1, w);
+#pragma unroll
+  for (int s = 0; s < R; ++s) sq[s] = v[s] * w[s];
+  const T lam = rows_sum<G, R>(sq);
   const T inv_L = T(1) / (T(1.1) * clamp_below(lam, T(1e-12)));
 
-  T x = T(0), y = T(0), t = T(1);
+  T x[R], y[R], z[R], x_new[R], step[R];
+#pragma unroll
+  for (int s = 0; s < R; ++s) x[s] = y[s] = T(0);
+  T t = T(1);
   for (int it = 0; it < iterations; ++it) {
-    const T grad = matvec<T, N>(row, y, ex, 1) + qi;
-    const T x_new = project<T, K>(y - inv_L * grad, lane, ex, 0);
+    matvec<T, N, R>(row, y, ex, 1, w);
+#pragma unroll
+    for (int s = 0; s < R; ++s) z[s] = y[s] - inv_L * (w[s] + qi[s]);
+    project<T, K, G, R>(z, lane, ex, 0, x_new);
     T t_new = T(0.5) * (T(1) + sqrt(T(1) + T(4) * t * t));
     T momentum = (t - T(1)) / t_new;
-    const T step = x_new - x;
-    const bool restart = group_sum<G>((y - x_new) * step) > T(0);
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      step[s] = x_new[s] - x[s];
+      sq[s] = (y[s] - x_new[s]) * step[s];
+    }
+    const bool restart = rows_sum<G, R>(sq) > T(0);
     if (restart) {
       t_new = T(1);
       momentum = T(0);
     }
-    y = x_new + momentum * step;
-    x = x_new;
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      y[s] = x_new[s] + momentum * step[s];
+      x[s] = x_new[s];
+    }
     t = t_new;
   }
-  if (store && active) x_out[b * N + lane] = x;
+  if (store)
+#pragma unroll
+    for (int s = 0; s < R; ++s)
+      if (s * G + lane < N) x_out[b * N + s * G + lane] = x[s];
 }
 
 template <typename T, int K, int G, template <typename, int, int> class X>
@@ -253,47 +349,15 @@ int launch_design(const void* Q, const void* q, void* x, long long B,
   return (int)cudaGetLastError();
 }
 
-// The shipped design at each k: packed groups, the iterate through shared
-// memory (scripts/probe_apgd.py, PERF.md).
-template <typename T, int K>
-int launch_k(const void* Q, const void* q, void* x, long long B,
-             int iterations, cudaStream_t stream) {
-  return launch_design<T, K, kGroupLanes<K>, SharedExchange>(
-      Q, q, x, B, iterations, stream);
-}
-
-template <typename T>
-int launch(const void* Q, const void* q, void* x, long long B, int k,
-           int iterations, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  switch (k) {
-    case 1: return launch_k<T, 1>(Q, q, x, B, iterations, stream);
-    case 2: return launch_k<T, 2>(Q, q, x, B, iterations, stream);
-    case 3: return launch_k<T, 3>(Q, q, x, B, iterations, stream);
-    case 4: return launch_k<T, 4>(Q, q, x, B, iterations, stream);
-    case 5: return launch_k<T, 5>(Q, q, x, B, iterations, stream);
-    case 6: return launch_k<T, 6>(Q, q, x, B, iterations, stream);
-    case 7: return launch_k<T, 7>(Q, q, x, B, iterations, stream);
-    case 8: return launch_k<T, 8>(Q, q, x, B, iterations, stream);
-    case 9: return launch_k<T, 9>(Q, q, x, B, iterations, stream);
-    case 10: return launch_k<T, 10>(Q, q, x, B, iterations, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
-// Plain C entry points (bound with ctypes). Q (B, 3k, 3k) and q (B, 3k),
-// contiguous, 1 <= k <= 10 -> x (B, 3k). Returns cudaGetLastError() after
-// the launch (cudaErrorInvalidValue for another k).
-extern "C" int apgd_cone_solve_f32(const void* Q, const void* q, void* x,
-                                   long long B, int k, int iterations,
-                                   void* stream) {
-  return launch<float>(Q, q, x, B, k, iterations, stream);
-}
-
-extern "C" int apgd_cone_solve_f64(const void* Q, const void* q, void* x,
-                                   long long B, int k, int iterations,
-                                   void* stream) {
-  return launch<double>(Q, q, x, B, k, iterations, stream);
-}
+// The plain C entry point of k cones in type T (bound with ctypes):
+// apgd_cone_solve_k<K>_<SUFFIX>. Tensors are contiguous: Q (B, 3k, 3k), q
+// (B, 3k) -> x (B, 3k). Returns cudaGetLastError() after the launch.
+#define DEFINE_APGD_ENTRY(K, T, SUFFIX)                                       \
+  extern "C" int apgd_cone_solve_k##K##_##SUFFIX(                            \
+      const void* Q, const void* q, void* x, long long B, int iterations,    \
+      void* stream) {                                                        \
+    return launch_design<T, K, kGroupLanes<K>, SharedExchange>(              \
+        Q, q, x, B, iterations, (cudaStream_t)stream);                       \
+  }

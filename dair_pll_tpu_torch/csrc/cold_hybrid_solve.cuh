@@ -21,7 +21,7 @@
 // and the cone state in 255 registers and spills (at (7, 8) 2,312 B of
 // stack in f32), so it is bound by latency instead.
 //
-// The design is K5's (warm_hybrid_solve.cu): a QP on kColdLanes lanes of a
+// The design is K5's (warm_hybrid_solve.cuh): a QP on kColdLanes lanes of a
 // warp, the lanes' sums over contacts exchanged through shared memory and
 // folded in contact order, so the results are one thread's bit for bit.
 // SAP-Newton leaves its loop at its exact fixed point, and in float64 the
@@ -63,6 +63,8 @@
 //
 // Every design gave the same bits in both types on every set, float64
 // equal to the plain version.
+
+#pragma once
 
 #include <climits>
 
@@ -147,8 +149,9 @@ int launch(const void* M, const void* Jc, const void* qc, void* force,
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes), one per (n_v, k) and type: the
-// cube's (6, 4) and the elbow's (7, 8). Tensors are contiguous and
+// The plain C entry point (bound with ctypes) of one (n_v, k) and type,
+// which ops/soa_kernels.py instantiates at first use for each size it meets
+// (the cube's (6, 4), the elbow's (7, 8), a ball's (6, 1), ...). Tensors are contiguous and
 // batch-minor: M (n_v * n_v, B), Jc (3, n_v, k, B), qc (3, k, B) -> force
 // (3, k, B), valid (B,) as bytes. Returns cudaGetLastError() after the
 // launch.
@@ -161,7 +164,3 @@ int launch(const void* M, const void* Jc, const void* qc, void* force,
                             newton_iterations, stream);                      \
   }
 
-DEFINE_ENTRY(6, 4, float, f32)
-DEFINE_ENTRY(6, 4, double, f64)
-DEFINE_ENTRY(7, 8, float, f32)
-DEFINE_ENTRY(7, 8, double, f64)

@@ -69,6 +69,11 @@
 // values in the solve (the Newton matrix factored in place, the line
 // search's candidates streamed) 1-2% in float32 and none in float64, with
 // the same registers and stack, so the solve stays as it is.
+//
+// Build: ops/soa_kernels.py compiles this source at first use into a
+// library of its own (the instantiation "contactnets_loss_cube"), as every
+// other kernel's.
+#pragma once
 
 #include "cube_adjoint.cuh"
 

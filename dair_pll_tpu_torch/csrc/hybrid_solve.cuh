@@ -1,7 +1,7 @@
 // Device functions of the hybrid cone solve (NT interior point + SAP-Newton),
-// shared by the warm and cold hybrid solve kernels (warm_hybrid_solve.cu,
-// cold_hybrid_solve.cu) and the ContactNets loss kernels (contactnets_loss.cu,
-// model_loss.cuh). Each mirrors its plain PyTorch counterpart in
+// shared by the warm and cold hybrid solve kernels (warm_hybrid_solve.cuh,
+// cold_hybrid_solve.cuh) and the ContactNets loss kernels
+// (contactnets_loss.cuh, model_loss.cuh). Each mirrors its plain PyTorch counterpart in
 // dair_pll_tpu_torch/ops/soa_solver.py in the same operation order.
 //
 // A sample's K contacts are spread over a group of L lanes (the group type G,
@@ -1315,14 +1315,18 @@ __device__ __forceinline__ void cold_solve_packed(
 // and at the cube's k = 4 (one contact a lane; one thread and 2 lanes were
 // slower there). scripts/probe_loss_lanes.py --solves, PERF.md. Large
 // float32 batches at the cube's size run one thread a QP instead
-// (kWarmSoloFrom, warm_hybrid_solve.cu).
-template <int NV, int K> constexpr int kWarmLanes = 4;
+// (kWarmSoloFrom, warm_hybrid_solve.cuh).
+// Other sizes split their contacts evenly over 4 or 2 lanes, or run one
+// thread a QP where k is odd.
+template <int NV, int K>
+constexpr int kWarmLanes = K % 4 == 0 ? 4 : (K % 2 == 0 ? 2 : 1);
 
 // Lanes a QP of K4 at a size: 4, as K5 (two contacts a lane at the elbow's
 // k = 8, one at the cube's k = 4; 1, 2 and 8 lanes were slower on an H100
 // at the elbow's 65,536 contact-rich QPs and the cube's 8,192). Large
 // batches at the cube's size run fewer (kColdFewerFrom,
-// cold_hybrid_solve.cu). scripts/probe_loss_lanes.py --k4, PERF.md.
-template <int NV, int K> constexpr int kColdLanes = 4;
+// cold_hybrid_solve.cuh). scripts/probe_loss_lanes.py --k4, PERF.md.
+// Other sizes as K5's (kWarmLanes).
+template <int NV, int K> constexpr int kColdLanes = kWarmLanes<NV, K>;
 
 }  // namespace

@@ -203,7 +203,8 @@ __device__ void contact_terms_vjp(const ModelDesc<Z>& desc, const S* p,
   }
 #pragma unroll
   for (int c = 0; c < Z::KQ; ++c) {
-    const int k = pp * Z::KQ + c;
+    if (c >= Z::kq(pp)) continue;
+    const int k = Z::first(pp) + c;
     S w_A[3], off_A[3], off_B[3];
     Recompute<S>::run([&] { witness_offsets<S, Z>(t, c, w_A, off_A, off_B); });
     // J_rel along u and vp: (Jv_B - Jv_A) x - off_B x Jw_B x + off_A x
@@ -294,9 +295,18 @@ __device__ void contact_terms_vjp(const ModelDesc<Z>& desc, const S* p,
       }
     }
     // The witness is the vertex the sort picked: a box's corner (signed
-    // half lengths) or a polygon's vertex.
+    // half lengths) or a polygon's vertex; a sphere's is its radius along
+    // the support direction dir = -R_AB[2] (wit = dir * radius).
     const int m = t.vertex[c];
-    if (gb.kind == kGeomBox) {
+    if (gb.kind == kGeomSphere) {
+      const S radius = p[gb.shape_index];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        g_p[gb.shape_index] =
+            g_p[gb.shape_index] + wit_bar[i] * (-t.R_AB[2][i]);
+        R_AB_bar[2][i] = R_AB_bar[2][i] - wit_bar[i] * radius;
+      }
+    } else if (gb.kind == kGeomBox) {
 #pragma unroll
       for (int i = 0; i < 3; ++i)
         g_p[gb.shape_index + i] =

@@ -13,10 +13,11 @@
 //      with respect to the derived scalars (summed over the batch) and the
 //      states.
 //
-// The box cube keeps its own kernels (contactnets_loss.cu). Each source
-// model_loss_*.cu instantiates these for one ModelSize, so that the sizes
-// build in parallel; the wrappers are in ops/soa_loss_kernels.py, which
-// builds the model descriptor. The TPU kernels read a model's derived
+// The box cube keeps its own kernels (contactnets_loss.cuh). The wrappers
+// in ops/soa_loss_kernels.py instantiate these at first use for each
+// ModelSize they meet (DEFINE_MODEL_FWD_ENTRY, DEFINE_MODEL_BWD_ENTRIES; the
+// forward and the backward of each type a library of their own, so that
+// they build in parallel), and build the model descriptor. The TPU kernels read a model's derived
 // scalars from SMEM; here each block stages them in shared memory.
 //
 // K2 is one reverse-mode sweep per sample (model_loss_vjp,

@@ -5,9 +5,10 @@
 // dair_pll_tpu_torch/multibody/soa_terms.py's soa_loss_parts and
 // soa_loss_assemble: kinematic trees of free, revolute, prismatic and fixed
 // joints, plane-versus-convex contact pairs whose convex is a box, a polygon
-// (up to kMaxVertices vertices) or a sphere, and actuation of revolute and
+// (of any vertex count) or a sphere, and actuation of revolute and
 // prismatic joints. The sizes are template parameters (ModelSize: bodies,
-// configuration and velocity dimension, contact pairs, witnesses per pair),
+// configuration and velocity dimension, derived scalars, polygon vertices,
+// each pair's witnesses),
 // so every loop over bodies, pairs, witnesses and velocity rows unrolls;
 // the model itself is a small descriptor (ModelDesc) that the wrapper builds
 // once from the MultibodyModel and passes by value. Branches on the
@@ -158,7 +159,7 @@ constexpr int kJointFree = 0, kJointRevolute = 1, kJointPrismatic = 2,
               kJointFixed = 3;
 constexpr int kGeomPlane = 0, kGeomBox = 1, kGeomPolygon = 2,
               kGeomSphere = 3;
-constexpr int kMaxVertices = 8;  // vertices of a polygon
+constexpr int kBoxVertices = 8;
 
 // A body and its inboard joint: q_off and v_off its coordinates' place in
 // q and v, u_index its actuator's row of u (-1 for none); R_PJ, p_PJ the
@@ -176,13 +177,39 @@ struct GeomDesc {
 };
 
 // Sizes of an instantiation: NB bodies, NQ/NV configuration and velocity
-// dimensions, NPAIR plane-convex pairs of KQ witnesses each (K contacts,
-// pair-major); NU the most actuators, PMAX the most derived scalars.
-template <int NB_, int NQ_, int NV_, int NPAIR_, int KQ_> struct ModelSize {
-  static constexpr int NB = NB_, NQ = NQ_, NV = NV_, NPAIR = NPAIR_,
-                       KQ = KQ_, K = NPAIR_ * KQ_, NU = NB_,
-                       NX = NQ_ + NV_,
-                       PMAX = 11 * NB_ + 1 + 3 * kMaxVertices * NPAIR_;
+// dimensions, PMAX the most derived scalars, NVERT the vertices a convex's
+// sort takes (a box's 8, or a polygon's count if larger), and one witness
+// count for each plane-convex pair (NPAIR pairs, K contacts in all,
+// pair-major: pair pp's witnesses are contacts first(pp) ..
+// first(pp) + kq(pp) - 1; KQ the most witnesses of a pair); NU the most
+// actuators. ops/soa_loss_kernels.py builds one instantiation per size at
+// first use (generic_size names it).
+template <int NB_, int NQ_, int NV_, int PMAX_, int NVERT_, int... KQS>
+struct ModelSize {
+  static_assert(sizeof...(KQS) > 0 && NVERT_ >= kBoxVertices,
+                "one pair or more; a box's vertices fit the sort");
+  // Witnesses of pair pp, and its first contact (pp a compile-time
+  // constant once the loops over pairs unroll).
+  __host__ __device__ static constexpr int kq(int pp) {
+    constexpr int counts[] = {KQS...};
+    return counts[pp];
+  }
+  __host__ __device__ static constexpr int first(int pp) {
+    constexpr int counts[] = {KQS...};
+    int k = 0;
+    for (int i = 0; i < pp; ++i) k += counts[i];
+    return k;
+  }
+  __host__ __device__ static constexpr int most() {
+    constexpr int counts[] = {KQS...};
+    int m = 0;
+    for (int c : counts) m = c > m ? c : m;
+    return m;
+  }
+  static constexpr int NB = NB_, NQ = NQ_, NV = NV_,
+                       NPAIR = (int)sizeof...(KQS), K = (KQS + ...),
+                       KQ = most(), NU = NB_, NX = NQ_ + NV_, PMAX = PMAX_,
+                       NVERT = NVERT_;
 };
 
 template <typename Z> struct ModelDesc {
@@ -436,20 +463,22 @@ __device__ void support_points(const GeomDesc& g, const T* p,
                                const T (&dir)[3], T (&w)[Z::KQ][3],
                                int (&vertex)[Z::KQ]) {
   using B = base_t<T>;
-  if constexpr (Z::KQ == 1) {
-    if (g.kind == kGeomSphere) {
-      const T radius = p[g.shape_index];
+  constexpr int NVERT = Z::NVERT;
+  if (g.kind == kGeomSphere) {
+    const T radius = p[g.shape_index];
 #pragma unroll
-      for (int i = 0; i < 3; ++i) w[0][i] = dir[i] * radius;
-      vertex[0] = 0;
-      return;
+    for (int c = 0; c < Z::KQ; ++c) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) w[c][i] = dir[i] * radius;
+      vertex[c] = 0;
     }
+    return;
   }
-  T key[kMaxVertices], pay[3][kMaxVertices];
-  int index[kMaxVertices];
-  const int n = g.kind == kGeomBox ? 8 : g.n_vertices;
+  T key[NVERT], pay[3][NVERT];
+  int index[NVERT];
+  const int n = g.kind == kGeomBox ? kBoxVertices : g.n_vertices;
 #pragma unroll
-  for (int m = 0; m < kMaxVertices; ++m) {
+  for (int m = 0; m < NVERT; ++m) {
     T vert[3];
     if (g.kind == kGeomBox) {
       // _UNIT_BOX_VERTICES: signs (x, y, z) counting in binary, - before +.
@@ -467,7 +496,7 @@ __device__ void support_points(const GeomDesc& g, const T* p,
     for (int i = 0; i < 3; ++i) pay[i][m] = vert[i];
   }
 #pragma unroll
-  for (int i = 1; i < kMaxVertices; ++i)
+  for (int i = 1; i < NVERT; ++i)
     if (i < n) {
 #pragma unroll
       for (int j = i; j > 0; --j) {
@@ -576,7 +605,8 @@ __device__ void contact_terms(const ModelDesc<Z>& desc,
     pair_terms<T, Z>(desc, p, F, pp, t);
 #pragma unroll
     for (int c = 0; c < Z::KQ; ++c) {
-      const int k = pp * Z::KQ + c;
+      if (c >= Z::kq(pp)) continue;
+      const int k = Z::first(pp) + c;
       T w_A[3], off_A[3], off_B[3];
       witness_offsets<T, Z>(t, c, w_A, off_A, off_B);
       phi[k] = w_A[2];
@@ -888,8 +918,11 @@ __device__ __forceinline__ void model_parts_at(const ModelDesc<Z>& desc,
 // Lanes a sample in the card's K1 and K3 at a size: two contacts a lane
 // (the elbow's k = 8 on 4 lanes); one thread a sample at k = 4, where the
 // lanes' repeated whole-sample work costs more than the one thread's
-// spills (PERF.md §6).
-template <typename Z> constexpr int kFwdLanes = Z::K > 4 ? Z::K / 2 : 1;
+// spills (PERF.md §6), and wherever two contacts a lane do not make a
+// group that divides a warp (odd k; k / 2 not a power of two).
+template <typename Z>
+constexpr int kFwdLanes =
+    Z::K > 4 && Z::K % 2 == 0 && 32 % (Z::K / 2) == 0 ? Z::K / 2 : 1;
 
 // What the solve and the assembly of a sample need, on one lane of its
 // group: the problem with the lane's contacts' columns (M whole), dv, and

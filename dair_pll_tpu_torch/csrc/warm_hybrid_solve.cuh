@@ -52,12 +52,14 @@
 // Blocks of 32, 64 or 128 threads on 4 lanes lay within each other's
 // spread at both sizes. Every design gave the same bits.
 //
-// Build: ops/soa_kernels.py compiles every source of this directory into one
-// library (no fast math: the solver relies on isfinite, NaN comparisons and
+// Build: ops/soa_kernels.py compiles one instantiation per (n_v, k) and type
+// at first use (no fast math: the solver relies on isfinite, NaN comparisons and
 // the |f| > 1e3 mask; no fused multiply-adds, -fmad=false, so that every
 // product and sum rounds as in the plain version, whose one-ulp differences
 // the line search would amplify). The device functions live in
 // hybrid_solve.cuh, shared with the ContactNets loss kernels.
+
+#pragma once
 
 #include <climits>
 
@@ -140,8 +142,9 @@ int launch(const void* M, const void* Jc, const void* qc, const void* w0,
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes), one per (n_v, k) and type: the
-// cube's (6, 4) and the elbow's (7, 8). Tensors are contiguous and
+// The plain C entry point (bound with ctypes) of one (n_v, k) and type,
+// which ops/soa_kernels.py instantiates at first use for each size it meets
+// (the cube's (6, 4), the elbow's (7, 8), a ball's (6, 1), ...). Tensors are contiguous and
 // batch-minor: M (n_v * n_v, B), Jc (3, n_v, k, B), qc (3, k, B), w0 (n_v,
 // B) -> force (3, k, B), w (n_v, B), valid (B,) as bytes. Returns
 // cudaGetLastError() after the launch.
@@ -154,7 +157,3 @@ int launch(const void* M, const void* Jc, const void* qc, const void* w0,
                             ipm_iterations, newton_iterations, stream);      \
   }
 
-DEFINE_ENTRY(6, 4, float, f32)
-DEFINE_ENTRY(6, 4, double, f64)
-DEFINE_ENTRY(7, 8, float, f32)
-DEFINE_ENTRY(7, 8, double, f64)

@@ -18,6 +18,11 @@ the CPU. Usage::
         --system cube --source simulation
     python -m dair_pll_tpu_torch.examples.contactnets_simple \\
         --device cpu --epochs 2 --n-pop 8
+    torchrun --nproc-per-node 4 -m \\
+        dair_pll_tpu_torch.examples.contactnets_simple \\
+        --shard-training --shard-evaluation
+
+(the last on four cards: each minibatch splits over the four processes).
 """
 from __future__ import annotations
 
@@ -88,31 +93,17 @@ def generate_tosses(system: str, storage: str, n_pop: int,
                               batch_size=min(generation_batch, n_pop))
 
 
-def run(system: str = "cube", source: str = "simulation",
-        contactnets: bool = True, box: bool = True,
-        real_data_dir: Optional[str] = None, storage: str = "./storage",
-        run_name: Optional[str] = None, epochs: int = EPOCHS,
-        n_pop: int = N_POP, eval_period: int = 1, eval_samples: int = 5,
-        use_wandb: bool = False, device: Optional[str] = None,
-        generation_batch: int = GENERATION_BATCH,
-        epoch_callback: Callable = default_epoch_callback,
-        batch_size: int = BATCH_SIZE, initial_urdf: Optional[str] = None,
-        dtype=torch.float32, **experiment_options) -> Dict:
-    """Runs the ContactNets system-identification experiment end to end:
-    data generation (or import), training with evaluation and checkpoints,
-    the final evaluation, and the learned URDFs' export.
-
-    ``initial_urdf`` is the URDF the learned system starts from (default:
-    the ground truth's, as in the JAX package's CLI), ``dtype`` the
-    parameters' (float32, as in the JAX package). ``experiment_options``
-    are further fields of
-    ``SupervisedLearningExperimentConfig`` (e.g. ``video_period``) or of
-    ``MultibodyLearnableSystemConfig`` (e.g. ``use_warm_loss``).
-
-    Returns:
-        ``{"experiment", "best_params", "statistics", "generated",
-        "urdfs"}``.
-    """
+def build_experiment(system: str = "cube", contactnets: bool = True,
+                     box: bool = True, storage: str = "./storage",
+                     run_name: str = "run", epochs: int = EPOCHS,
+                     eval_period: int = 1, eval_samples: int = 5,
+                     use_wandb: bool = False, device: Optional[str] = None,
+                     batch_size: int = BATCH_SIZE,
+                     initial_urdf: Optional[str] = None,
+                     dtype=torch.float32, **experiment_options):
+    """The CLI's experiment on ``storage`` (its data generated or
+    imported already): the ``MultibodyLearnableExperiment`` of the
+    options :func:`run` takes."""
     import dataclasses
 
     from dair_pll_tpu_torch.assets import get_asset
@@ -124,35 +115,13 @@ def run(system: str = "cube", source: str = "simulation",
     from dair_pll_tpu_torch.training.multibody_experiment import (
         MultibodyLearnableExperiment, MultibodyLearnableSystemConfig,
         MultibodyLosses, MultibodySystemConfig)
-    from dair_pll_tpu_torch.utils import file_utils
 
     learnable_fields = {f.name for f in dataclasses.fields(
         MultibodyLearnableSystemConfig)}
     learnable_options = {key: experiment_options.pop(key)
                          for key in list(experiment_options)
                          if key in learnable_fields}
-
     urdf = get_asset(system if box else f"{system}_mesh")
-    run_name = run_name or (
-        f"{system}_{source}_"
-        f"{'contactnets' if contactnets else 'prediction'}_"
-        f"{'box' if box else 'mesh'}")
-
-    generated = 0
-    if source == "real":
-        if system != "cube":
-            raise ValueError("real data is available for the cube")
-        if not real_data_dir:
-            raise ValueError("--real-data-dir is required with --source "
-                             "real")
-        count = file_utils.import_data_to_storage(storage, real_data_dir)
-        print(f"imported {count} real trajectories", flush=True)
-    else:
-        generated = generate_tosses(system, storage, n_pop,
-                                    TRAJECTORY_LENGTHS[system], box, device,
-                                    generation_batch)
-        print(f"generated {generated} trajectories", flush=True)
-
     config = SupervisedLearningExperimentConfig(
         data_config=DataConfig(
             dt=DT, train_fraction=0.5, valid_fraction=0.25,
@@ -171,11 +140,72 @@ def run(system: str = "cube", source: str = "simulation",
         storage=storage, run_name=run_name, run_wandb=use_wandb,
         **experiment_options,
     )
+    return MultibodyLearnableExperiment(config, device=device, dtype=dtype)
 
-    experiment = MultibodyLearnableExperiment(config, device=device,
-                                              dtype=dtype)
+
+def run(system: str = "cube", source: str = "simulation",
+        contactnets: bool = True, box: bool = True,
+        real_data_dir: Optional[str] = None, storage: str = "./storage",
+        run_name: Optional[str] = None, epochs: int = EPOCHS,
+        n_pop: int = N_POP, eval_period: int = 1, eval_samples: int = 5,
+        use_wandb: bool = False, device: Optional[str] = None,
+        generation_batch: int = GENERATION_BATCH,
+        epoch_callback: Callable = default_epoch_callback,
+        batch_size: int = BATCH_SIZE, initial_urdf: Optional[str] = None,
+        dtype=torch.float32, **experiment_options) -> Dict:
+    """Runs the ContactNets system-identification experiment end to end:
+    data generation (or import), training with evaluation and checkpoints,
+    the final evaluation, and the learned URDFs' export.
+
+    ``initial_urdf`` is the URDF the learned system starts from (default:
+    the ground truth's, as in the JAX package's CLI), ``dtype`` the
+    parameters' (float32, as in the JAX package). ``experiment_options``
+    are further fields of
+    ``SupervisedLearningExperimentConfig`` (e.g. ``video_period``,
+    ``shard_training``, ``shard_evaluation``) or of
+    ``MultibodyLearnableSystemConfig`` (e.g. ``use_warm_loss``).
+
+    In a process group (``parallel/multiprocess.initialize``) every rank
+    calls ``run``: rank 0 generates the data and writes the run's files,
+    the others wait for its data and write nothing.
+
+    Returns:
+        ``{"experiment", "best_params", "statistics", "generated",
+        "urdfs"}``.
+    """
+    from dair_pll_tpu_torch.parallel import sharding
+    from dair_pll_tpu_torch.utils import file_utils
+
+    run_name = run_name or (
+        f"{system}_{source}_"
+        f"{'contactnets' if contactnets else 'prediction'}_"
+        f"{'box' if box else 'mesh'}")
+
+    generated = 0
+    if sharding.rank() == 0:
+        if source == "real":
+            if system != "cube":
+                raise ValueError("real data is available for the cube")
+            if not real_data_dir:
+                raise ValueError("--real-data-dir is required with "
+                                 "--source real")
+            count = file_utils.import_data_to_storage(storage,
+                                                      real_data_dir)
+            print(f"imported {count} real trajectories", flush=True)
+        else:
+            generated = generate_tosses(system, storage, n_pop,
+                                        TRAJECTORY_LENGTHS[system], box,
+                                        device, generation_batch)
+            print(f"generated {generated} trajectories", flush=True)
+    sharding.barrier()
+
+    experiment = build_experiment(
+        system, contactnets, box, storage, run_name, epochs, eval_period,
+        eval_samples, use_wandb, device, batch_size, initial_urdf, dtype,
+        **experiment_options)
     best_params, stats = experiment.generate_results(epoch_callback)
-    urdfs = experiment.generate_updated_urdfs(best_params)
+    urdfs = experiment.generate_updated_urdfs(best_params) \
+        if experiment.writer else {}
 
     print("\nfinal statistics:", flush=True)
     for key in sorted(stats):
@@ -222,11 +252,26 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card; "
                              "'cpu' runs on the CPU)")
+    parser.add_argument("--shard-training", action="store_true",
+                        help="split every minibatch over the ranks of "
+                             "torchrun's process group")
+    parser.add_argument("--shard-evaluation", action="store_true",
+                        help="split the evaluation rollouts over the "
+                             "ranks")
     return parser.parse_args(argv)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    run(**vars(parse_args(argv)))
+    """The CLI. Under ``torchrun`` (``WORLD_SIZE`` above 1 in the
+    environment) each process joins the process group first, on the card
+    of its ``LOCAL_RANK``, or on the CPU when ``--device cpu`` asks for
+    it; without a card and without ``--device cpu`` it raises."""
+    from dair_pll_tpu_torch.parallel import multiprocess
+    args = vars(parse_args(argv))
+    device = multiprocess.initialize_from_env(args["device"])
+    if device is not None:
+        args["device"] = str(device)
+    run(**args)
 
 
 if __name__ == "__main__":

@@ -17,13 +17,13 @@ Two paths, chosen by batch size as in the JAX package:
 * The fused batch-minor path (``use_fused``, the default from
   ``FUSED_ROLLOUT_MIN_BATCH`` rollouts and ``FUSED_LOSS_MIN_BATCH`` loss
   transitions): rollouts run the warm hybrid solve kernel K5 at every
-  step (the cube's ``(n_v, k) = (6, 4)`` or the elbow's ``(7, 8)``); the
-  loss of a box, polygon or sphere model runs one CUDA kernel forward and
-  one backward (K1 or K3, and K2): the box cube's own, or the
-  model-generic ones for the sizes they are built for (the elbow, box or
-  polygon; the polygon cube); a deep-support (ICNN) model runs the plain
-  terms under autograd with its detached solve on K4 (cold) or K5
-  (warm). A model that no kernel covers raises on the card.
+  step, built at first use for the model's ``(n_v, k)`` (the cube's
+  ``(6, 4)``, the elbow's ``(7, 8)``, a ball's ``(6, 1)``, ...); the loss
+  of a box, polygon or sphere model runs one CUDA kernel forward and one
+  backward (K1 or K3, and K2): the box cube's own, or the model-generic
+  ones, built at first use for the model's size; a deep-support (ICNN)
+  model runs the plain terms under autograd with its detached solve on K4
+  (cold) or K5 (warm).
 * The vmapped path (the batch written out as leading dimensions): the
   integrator steps :meth:`forward_dynamics`, whose hybrid solve
   differentiates by the implicit-function theorem (or, with
@@ -177,10 +177,10 @@ class MultibodyLearnableSystem(System):
         CUDA tensors, except for ICNN models, whose loss runs the plain
         terms with the solve kernels (K4, K5), as the JAX package runs them
         through XLA with its solve kernels. The loss kernels take the box
-        cube (``soa_loss_kernels.cube_cover``) and the models of their
-        generic sizes (``generic_cover``: the elbow, box or polygon, and the
-        polygon cube, among others), and raise ``NotImplementedError`` for
-        any other model: no route runs the plain version on the card."""
+        cube (``soa_loss_kernels.cube_cover``) and every other model of the
+        fused class (``generic_cover``, each size built at first use); a
+        model outside it raises ``NotImplementedError``: no route runs the
+        plain version on the card."""
         return x.device.type != "cpu" and not has_deep_support(self.model)
 
     def _check_on_device(self, **tensors: Tensor) -> None:
@@ -290,10 +290,10 @@ class MultibodyLearnableSystem(System):
         The fused path (the default from ``FUSED_ROLLOUT_MIN_BATCH``
         trajectories, for models it covers) runs one batch-minor step per
         time step (``soa_terms.soa_forward_dynamics_batch``: terms, the
-        warm-started hybrid solve on K5 for CUDA tensors, at the cube's
-        ``(n_v, k) = (6, 4)`` or the elbow's ``(7, 8)``, else raising; the
-        velocity update), carrying the SAP primal ``w``, forward only,
-        under ``torch.no_grad``. The vmapped path (``System.simulate_batch``)
+        warm-started hybrid solve on K5 for CUDA tensors, built at first
+        use for the model's ``(n_v, k)``; the velocity update), carrying
+        the SAP primal ``w``, forward only, under ``torch.no_grad``. The
+        vmapped path (``System.simulate_batch``)
         steps :meth:`forward_dynamics` with the batch written out, and
         differentiates through the solves' implicit-function theorem.
         ``x_0`` and ``params`` must lie on the system's device.

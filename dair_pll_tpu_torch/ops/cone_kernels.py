@@ -4,18 +4,20 @@ launch counter.
 Counterpart of ``dair_pll_tpu/ops/pallas_cone_solver.py``
 (``solve_cone_qp_pallas`` and ``solve_contact_impulse_pallas``, the TPU
 kernel ``_make_kernel``): the whole APGD solve of a batch of cone QPs in
-one launch of ``csrc/apgd_cone_solve.cu``, a group of 8, 16 or 32 lanes
-of a warp per problem, built into the library of ``ops/soa_kernels.py``.
+one launch of ``csrc/apgd_cone_solve.cuh``, a group of 8, 16 or 32 lanes
+of a warp per problem (a warp with several rows a lane beyond k = 10),
+built at first use for each cone count ``k`` by ``ops/soa_kernels.py``.
 For tensors on the CPU the wrappers call :func:`plain_apgd`; for CUDA
 tensors they launch the kernel or raise. ``solve_cone_qp_cuda.launches``
-counts launches.
+counts launches (``launches_by`` by ``f"k{k}"``).
 
 :func:`plain_apgd` runs the kernel's arithmetic in the kernel's order:
 each matvec sums over the columns in order; the dot products, the
 power-iteration norm ``sqrt(max(sum w^2, 1e-30))`` and the restart test
 sum as a 32-lane butterfly does (a halving tree over 32 lanes, zeros
-past ``n``), which the kernel's butterfly over its group of lanes equals
-bit for bit (``tests/test_torch_apgd_groups.py``). The lax APGD of
+past ``n``; over the power of two of 32-row blocks that holds ``n``
+beyond 32 rows), which the kernel's butterfly over its group of lanes
+equals bit for bit (``tests/test_torch_apgd_groups.py``). The lax APGD of
 ``ops/cone_solver.py`` differs in those orders and in its norm,
 ``max(||w||, 1e-30)``.
 """
@@ -26,24 +28,35 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
-from dair_pll_tpu_torch.ops.soa_kernels import (check_tensor, load_library,
-                                                on_cpu)
+from dair_pll_tpu_torch.ops.soa_kernels import (
+    _CTYPE, _I, _LL, _P, _SUFFIX, Instance, check_tensor, count_launch,
+    entry, on_cpu, reset_launches)
 from dair_pll_tpu_torch.ops.socp_solver import mask_failures
 
-#: Largest cone count the kernel takes: a problem's 3k rows fill one warp.
-MAX_CONES = 10
 POWER_ITERATIONS = 12
-_ENTRY = {torch.float32: "apgd_cone_solve_f32",
-          torch.float64: "apgd_cone_solve_f64"}
 _LANES = 32
 
 
+def apgd_instance(k: int, dtype) -> Instance:
+    """K6 for ``k`` cones in ``dtype``."""
+    name = f"apgd_cone_solve_k{k}_{_SUFFIX[dtype]}"
+    return Instance(name, '#include "apgd_cone_solve.cuh"\n'
+                    f"DEFINE_APGD_ENTRY({k}, {_CTYPE[dtype]}, "
+                    f"{_SUFFIX[dtype]})\n",
+                    ((name, (_P, _P, _P, _LL, _I, _P), _I),))
+
+
 def _warp_sum(v: Tensor) -> Tensor:
-    """Sum over the last axis (``n <= 32``) in the order of a 32-lane
-    butterfly reduction: zeros to 32 lanes, then halves added pairwise
-    (the kernel's butterfly over its group of lanes gives the same bits)."""
-    v = torch.nn.functional.pad(v, (0, _LANES - v.shape[-1]))
-    width = _LANES
+    """Sum over the last axis in the order of a 32-lane butterfly
+    reduction: zeros to 32 lanes, then halves added pairwise (the kernel's
+    butterfly over its group of lanes gives the same bits); beyond 32
+    entries zeros to the power of two of 32 that holds them, halved the
+    same way (the kernel's lanes first halve their own rows)."""
+    lanes = _LANES
+    while lanes < v.shape[-1]:
+        lanes *= 2
+    v = torch.nn.functional.pad(v, (0, lanes - v.shape[-1]))
+    width = lanes
     while width > 1:
         width //= 2
         v = v[..., :width] + v[..., width:2 * width]
@@ -110,11 +123,9 @@ def _check(Q: Tensor, q: Tensor) -> Tuple[int, int]:
         raise ValueError(f"q has shape {tuple(q.shape)}, expected (B, 3k)")
     B, n = q.shape
     k = n // 3
-    if not 1 <= k <= MAX_CONES:
-        raise ValueError(
-            f"no APGD kernel for k = {k} cones: one warp per problem takes "
-            f"k <= {MAX_CONES} (ROADMAP.md, Queue 2: K6 for k > 10)")
-    if q.dtype not in _ENTRY:
+    if k < 1:
+        raise ValueError(f"no APGD kernel for k = {k} cones")
+    if q.dtype not in _SUFFIX:
         raise TypeError(f"no APGD kernel for dtype {q.dtype}")
     check_tensor("Q", Q, (B, n, n), q.dtype, q.device)
     check_tensor("q", q, (B, n), q.dtype, q.device)
@@ -127,27 +138,27 @@ def solve_cone_qp_cuda(Q: Tensor, q: Tensor, iterations: int = 200
     in the stacked layout -> ``x (B, 3k)``.
 
     CPU tensors run :func:`plain_apgd`; CUDA tensors launch K6 on the
-    current stream (float32 or float64, ``k <= 10``, contiguous) or
-    raise."""
+    current stream (float32 or float64, any ``k``, built at first use;
+    contiguous) or raise."""
     if on_cpu(Q, q):
         return plain_apgd(Q, q, iterations)
     B, k = _check(Q, q)
     x = torch.empty_like(q)
     if B == 0:
         return x
-    fn = getattr(load_library(), _ENTRY[q.dtype])
+    fn = entry(apgd_instance(k, q.dtype))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(Q.data_ptr(), q.data_ptr(), x.data_ptr(), B, k,
+        err = fn(Q.data_ptr(), q.data_ptr(), x.data_ptr(), B,
                  int(iterations), stream)
     if err != 0:
         raise RuntimeError(f"APGD cone solve kernel launch failed: CUDA "
                            f"error {err}")
-    solve_cone_qp_cuda.launches += 1
+    count_launch(solve_cone_qp_cuda, f"k{k}")
     return x
 
 
-solve_cone_qp_cuda.launches = 0
+reset_launches(solve_cone_qp_cuda)
 
 
 def solve_contact_impulse_cuda(delassus: Tensor, q_vec: Tensor, eps,

@@ -38,6 +38,7 @@ counts one, so the count is a floor on the card's instructions.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -340,7 +341,11 @@ def _build_host(work_dir: str, source: str, text: str, level: str,
                        (source, text)):
         with open(os.path.join(work_dir, name), "w") as handle:
             handle.write(body)
-    library = os.path.join(work_dir, f"lib{os.path.splitext(source)[0]}.so")
+    # The text's hash in the name: builds of other sizes in one directory
+    # load as libraries of their own.
+    digest = hashlib.sha256(text.encode() + "\0".join(flags).encode())
+    library = os.path.join(work_dir, f"lib{os.path.splitext(source)[0]}_"
+                                     f"{digest.hexdigest()[:12]}.so")
     proc = subprocess.run(
         [cxx, "-std=c++17", level, *flags, "-ffp-contract=off", "-pthread",
          "-shared", "-fPIC", f"-I{work_dir}", f"-I{soa_kernels.SOURCE_DIR}",
@@ -777,15 +782,14 @@ static void warm_solve_count_run(const T* M, const T* Jc, const T* qc,
     });                                                                      \
   }
 
-// The sizes K5 is built for on the card (soa_kernels.KERNEL_SHAPES).
+// K5's host entries at one (n_v, k).
 #define WARM_SOLVE_SIZE(NV, K)                                               \
   WARM_SOLVE_ENTRY(NV, K, float, f32)                                        \
   WARM_SOLVE_ENTRY(NV, K, double, f64)                                       \
   WARM_SOLVE_COUNT_ENTRY(NV, K, float, f32)                                  \
   WARM_SOLVE_COUNT_ENTRY(NV, K, double, f64)                                 \
   extern "C" int warm_lanes_nv##NV##_k##K() { return kWarmLanes<NV, K>; }
-WARM_SOLVE_SIZE(6, 4)
-WARM_SOLVE_SIZE(7, 8)
+WARM_SHAPE_ENTRIES
 
 // K4's body (hybrid_solve.cuh's cold_solve_packed, both loops' exits on
 // or off) over n packed QPs as the card runs it, on one thread a QP or L
@@ -895,8 +899,7 @@ static void cold_solve_count_run(const T* M, const T* Jc, const T* qc,
   COLD_SOLVE_ENTRIES(NV, K, float, f32)                                      \
   COLD_SOLVE_ENTRIES(NV, K, double, f64)                                     \
   extern "C" int cold_lanes_nv##NV##_k##K() { return kColdLanes<NV, K>; }
-COLD_SOLVE_SIZE(6, 4)
-COLD_SOLVE_SIZE(7, 8)
+COLD_SHAPE_ENTRIES
 
 // The counts of the box cube's K1 (cube_loss_cold, fin null; its solve's
 // exits on or off) or K3 (cube_loss_warm from fin) on Counted<B> over the
@@ -1002,12 +1005,15 @@ def _tallies(counts, *keys) -> Dict:
     return {key: int(counts[_TALLIES.index(key)]) for key in keys}
 
 
-def _model_batch_source() -> str:
-    sizes = "\n".join(
-        f"using Size_{name} = ModelSize<{', '.join(map(str, dims))}>;\n"
-        f"HOST_ENTRIES(Size_{name}, {name})"
-        for name, dims in soa_kernels.MODEL_SIZES.items())
-    return MODEL_BATCH.replace("SIZE_ENTRIES", sizes)
+def _model_batch_source(sizes, shapes) -> str:
+    entries = "\n".join(
+        f"using Size_{size.name} = {size.template};\n"
+        f"HOST_ENTRIES(Size_{size.name}, {size.name})" for size in sizes)
+    return (MODEL_BATCH.replace("SIZE_ENTRIES", entries)
+            .replace("WARM_SHAPE_ENTRIES", "\n".join(
+                f"WARM_SOLVE_SIZE({n_v}, {k})" for n_v, k in shapes))
+            .replace("COLD_SHAPE_ENTRIES", "\n".join(
+                f"COLD_SOLVE_SIZE({n_v}, {k})" for n_v, k in shapes)))
 
 
 class HostModelTerms:
@@ -1016,17 +1022,26 @@ class HostModelTerms:
     K2's gradient (``csrc/model_adjoint.cuh``) of any model the generic
     kernels cover, in float64 and counted; the box cube's loss (also
     counted) and gradient from ``cube_terms.cuh`` and ``cube_adjoint.cuh``;
-    and K5's body at (6, 4) and (7, 8) as the card runs it, and
-    counted."""
+    and K4's and K5's bodies as the card runs them, and counted. The
+    generic bodies are built at ``sizes`` (``soa_loss_kernels.ModelSize``
+    or its fields, as ``soa_loss_kernels.model_size`` gives them for the
+    models to run), K4 and K5 at ``shapes`` (``(n_v, k)``)."""
 
-    def __init__(self, work_dir: str, flags: Tuple[str, ...] = ()):
+    def __init__(self, work_dir: str, sizes, shapes,
+                 flags: Tuple[str, ...] = ()):
+        from dair_pll_tpu_torch.ops.soa_loss_kernels import ModelSize
+        sizes = list({size.name: size for size in
+                      (ModelSize(*size) for size in sizes)}.values())
+        self._sizes = {size.name for size in sizes}
+        self._shapes = tuple(tuple(shape) for shape in shapes)
         # -O1: the unrolled bodies of every size and scalar make one large
         # source, which -O2 compiles several times slower. ``flags`` go to
         # g++ as well (tests/check_torch_k2_host_builds.py: sanitizers, the
         # fill of uninitialised locals).
         self._lib = _build_host(work_dir, "model_batch.cpp",
-                                _model_batch_source(), "-O1", flags)
-        for name in soa_kernels.MODEL_SIZES:
+                                _model_batch_source(sizes, self._shapes),
+                                "-O1", flags)
+        for name in self._sizes:
             getattr(self._lib, f"model_host_{name}").argtypes = _HOST_ARGS
             getattr(self._lib, f"model_lanes_host_{name}").argtypes = \
                 _LANES_ARGS
@@ -1040,7 +1055,7 @@ class HostModelTerms:
             getattr(self._lib, f"cube_count_{s}").argtypes = \
                 _CUBE_COUNT_ARGS
             getattr(self._lib, f"cube_count_{s}").restype = None
-        for n_v, k in soa_kernels.KERNEL_SHAPES:
+        for n_v, k in self._shapes:
             for s in ("f32", "f64"):
                 fn = getattr(self._lib, f"warm_solve_host_nv{n_v}_k{k}_{s}")
                 fn.argtypes = _WARM_SOLVE_ARGS
@@ -1057,16 +1072,18 @@ class HostModelTerms:
             _SIGNATURES["cube_loss_vjp_f64"]
         for fn in (self._lib.cube_host_f64, self._lib.cube_loss_vjp_f64,
                    *(getattr(self._lib, f"model_host_{n}")
-                     for n in soa_kernels.MODEL_SIZES)):
+                     for n in self._sizes)):
             fn.restype = None
 
-    @staticmethod
-    def _desc(model):
+    def _desc(self, model):
         from dair_pll_tpu_torch.ops import soa_loss_kernels
         name = soa_loss_kernels.generic_size(model)
         if name is None:
             raise NotImplementedError("the generic loss kernels do not cover "
                                       "this model")
+        if name not in self._sizes:
+            raise ValueError(f"this host build has no size {name}; built: "
+                             f"{sorted(self._sizes)}")
         return name, soa_loss_kernels.model_descriptor(model)
 
     @staticmethod
@@ -1144,9 +1161,8 @@ class HostModelTerms:
                         "newton_fixed")
 
     def warm_lanes(self, shape: Tuple[int, int]) -> int:
-        """Lanes a QP of the card's K5 at ``shape``, ``(n_v, k)``: the
-        cube's (6, 4) or the elbow's (7, 8) (``kWarmLanes`` of
-        ``csrc/hybrid_solve.cuh``)."""
+        """Lanes a QP of the card's K5 at ``shape``, ``(n_v, k)``, one of
+        the build's shapes (``kWarmLanes`` of ``csrc/hybrid_solve.cuh``)."""
         n_v, k = shape
         return getattr(self._lib, f"warm_lanes_nv{n_v}_k{k}")()
 

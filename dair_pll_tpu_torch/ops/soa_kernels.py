@@ -1,29 +1,36 @@
-r"""The port's CUDA kernel library, and the hybrid cone-solve kernels.
+r"""The port's CUDA kernels, built at first use, and the hybrid cone-solve
+kernels.
 
-Every source under ``dair_pll_tpu_torch/csrc/`` builds into one shared
-library at first use: ``nvcc`` compiles each ``.cu`` file (all started
-together), links them into ``build/kernels/`` (listed in ``.gitignore``),
-and ``ctypes`` binds their plain C entry points. The library's file name
-carries a hash of every file under ``csrc/`` (headers included), the
-compiler's path and its flags, so a change to any of them builds anew.
+Every kernel is instantiated for the size it meets, at first use: the
+wrapper names the instantiation (an :class:`Instance`: a few lines of
+generated CUDA that include a header of ``dair_pll_tpu_torch/csrc/`` and
+instantiate its templates for one size and type), ``nvcc`` compiles it
+into a shared library of its own under ``build/kernels/`` (listed in
+``.gitignore``), and ``ctypes`` binds its plain C entry points. The
+library's file name carries a hash of every file under ``csrc/`` (headers
+included), the compiler's path, its flags and the generated source, so a
+change to any of them builds anew. :func:`build_instances` builds many at
+once (one ``nvcc`` each, all started together); a file lock keeps two
+processes from building one library twice. A build or a launch that fails
+raises: no size runs the plain version on the card.
 
 The warm hybrid solve kernel here is the counterpart of
 ``dair_pll_tpu/ops/soa_pallas.py``'s ``solve_warm_hybrid_soa_pallas`` (the
 TPU kernel ``_warm_kernel``): the whole solve of
 ``ops/soa_solver.solve_warm_hybrid_soa`` runs in one launch of
-``csrc/warm_hybrid_solve.cu``, on 4 lanes of a warp per sample at the
-cube's ``(n_v, k)`` and at the elbow's (at the cube's, large float32
-batches one CUDA thread per sample). For tensors on
-the CPU the wrapper calls the plain version in ``ops/soa_solver.py``; for
-CUDA tensors it launches the kernel or raises.
-``solve_warm_hybrid_soa_cuda.launches`` counts launches, and
-``launches_by`` counts them by instantiation: ``(n_v, k)`` is ``(6, 4)``
-(the cube) or ``(7, 8)`` (the elbow), each in float32 and float64.
+``csrc/warm_hybrid_solve.cuh`` at any ``(n_v, k)``, on 4 or 2 lanes of a
+warp per sample where the contacts split evenly (the cube's (6, 4), the
+elbow's (7, 8)), else one thread a sample (at the cube's size, large
+float32 batches one thread a sample too). For tensors on the CPU the
+wrapper calls the plain version in ``ops/soa_solver.py``; for CUDA tensors
+it launches the kernel or raises. ``solve_warm_hybrid_soa_cuda.launches``
+counts launches, and ``launches_by`` counts them by instantiation,
+``f"nv{n_v}_k{k}"``.
 
 The cold hybrid solve kernel is the counterpart of
 ``solve_contact_impulse_soa_pallas`` (the TPU kernel ``_kernel``): the
 whole of ``ops/soa_solver.solve_contact_impulse_soa`` in one launch of
-``csrc/cold_hybrid_solve.cu``, with the same routing;
+``csrc/cold_hybrid_solve.cuh``, with the same routing;
 ``solve_contact_impulse_soa_cuda.launches`` (and ``launches_by``) counts
 its launches. The
 ContactNets loss kernels' wrappers are in ``ops/soa_loss_kernels.py``,
@@ -32,13 +39,14 @@ the APGD cone solve kernel's in ``ops/cone_kernels.py``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -49,52 +57,39 @@ _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE_DIR = os.path.join(_PACKAGE_DIR, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "kernels")
 
-#: Problem sizes the solve kernels are instantiated for, (n_v, k): the
-#: cube's and the elbow's.
-KERNEL_SHAPES = ((6, 4), (7, 8))
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-_ENTRY = {(n_v, k, dtype): f"warm_hybrid_solve_nv{n_v}_k{k}_{suffix}"
-          for n_v, k in KERNEL_SHAPES for dtype, suffix in _SUFFIX.items()}
-_COLD_ENTRY = {(n_v, k, dtype): f"cold_hybrid_solve_nv{n_v}_k{k}_{suffix}"
-               for n_v, k in KERNEL_SHAPES
-               for dtype, suffix in _SUFFIX.items()}
-#: The model-generic ContactNets loss kernels' sizes (``csrc/
-#: model_loss_{fwd,bwd}_*.cu``): name -> (bodies, n_q, n_v, plane-convex
-#: pairs, witnesses per pair).
-MODEL_SIZES = {"b1_q7_v6_k4": (1, 7, 6, 1, 4),
-               "b2_q8_v7_k8": (2, 8, 7, 2, 4)}
+_CTYPE = {torch.float32: "float", torch.float64: "double"}
 _P, _I, _LL, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_double)
-_FWD, _FWD_WARM, _BWD = ([_P] * 6 + [_LL, _D, _D, _I, _I, _P],
-                         [_P] * 7 + [_LL, _D, _D, _I, _I, _P],
-                         [_P] * 10 + [_LL, _D, _D, _P])
-#: The model-generic forward entries: the descriptor's address first, and
-#: after ``valid`` the scratch ``pack`` and its count of values.
-_MODEL_FWD, _MODEL_FWD_WARM = (
-    [_P] * 8 + [_LL, _LL, _D, _D, _I, _I, _P],
-    [_P] * 9 + [_LL, _LL, _D, _D, _I, _I, _P])
-#: ``ctypes`` signatures of the library's entry points: argument types and
-#: return type. Pointers and the stream are ``c_void_p``; the model-generic
-#: loss entries take the model descriptor's address first.
-SIGNATURES = {
-    **{name: ([_P] * 7 + [_LL, _D, _I, _I, _P], _I)
-       for name in _ENTRY.values()},
-    **{name: ([_P] * 5 + [_LL, _D, _I, _I, _P], _I)
-       for name in _COLD_ENTRY.values()},
-    **{f"contactnets_loss_{kind}_cube_{s}": (args, _I)
-       for kind, args in (("fwd", _FWD), ("fwd_warm", _FWD_WARM),
-                          ("bwd", _BWD))
-       for s in _SUFFIX.values()},
-    **{f"contactnets_loss_{kind}_{model}_{s}": (args, _I)
-       for kind, args in (("fwd", _MODEL_FWD),
-                          ("fwd_warm", _MODEL_FWD_WARM),
-                          ("bwd", [_P] + _BWD))
-       for model in MODEL_SIZES for s in _SUFFIX.values()},
-    "contactnets_loss_bwd_scratch": ([_LL], _LL),
-    "model_loss_bwd_scratch": ([_LL, _I], _LL),
-    **{f"apgd_cone_solve_{s}": ([_P] * 3 + [_LL, _I, _I, _P], _I)
-       for s in ("f32", "f64")},
-}
+_WARM_ARGS = [_P] * 7 + [_LL, _D, _I, _I, _P]
+_COLD_ARGS = [_P] * 5 + [_LL, _D, _I, _I, _P]
+
+
+class Instance(NamedTuple):
+    """One instantiation of a kernel: its name (the library's and the
+    launch counts' key), the CUDA source that instantiates it, and its
+    entry points' ``ctypes`` signatures (argument types, return type)."""
+    name: str
+    text: str
+    entries: Tuple[Tuple[str, tuple, object], ...]
+
+
+def warm_instance(n_v: int, k: int, dtype) -> Instance:
+    """K5 at ``(n_v, k)`` in ``dtype``."""
+    name = f"warm_hybrid_solve_nv{n_v}_k{k}_{_SUFFIX[dtype]}"
+    return Instance(name, '#include "warm_hybrid_solve.cuh"\n'
+                    f"DEFINE_ENTRY({n_v}, {k}, {_CTYPE[dtype]}, "
+                    f"{_SUFFIX[dtype]})\n",
+                    ((name, tuple(_WARM_ARGS), _I),))
+
+
+def cold_instance(n_v: int, k: int, dtype) -> Instance:
+    """K4 at ``(n_v, k)`` in ``dtype``."""
+    name = f"cold_hybrid_solve_nv{n_v}_k{k}_{_SUFFIX[dtype]}"
+    return Instance(name, '#include "cold_hybrid_solve.cuh"\n'
+                    f"DEFINE_ENTRY({n_v}, {k}, {_CTYPE[dtype]}, "
+                    f"{_SUFFIX[dtype]})\n",
+                    ((name, tuple(_COLD_ARGS), _I),))
 
 
 def count_launch(wrapper, instance: str) -> None:
@@ -110,10 +105,12 @@ def reset_launches(wrapper) -> None:
     wrapper.launches_by = {}
 
 
-class _Library:
-    """The built shared library; loaded once per process."""
-    lib: Optional[ctypes.CDLL] = None
-    build_log: str = ""
+class _Built:
+    """This process's loaded libraries (by instance name) and its builds'
+    readings: seconds and ``nvcc``'s output, ``ptxas``'s register and
+    spill report included."""
+    libraries: Dict[str, ctypes.CDLL] = {}
+    builds: Dict[str, dict] = {}
 
 
 def _nvcc() -> str:
@@ -127,27 +124,22 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
-#: ``nvcc`` flags of each source's compile. No fast math: the solver
-#: relies on ``isfinite``, NaN comparisons and the ``|f| > 1e3`` failure
-#: mask. No contraction into fused multiply-adds either (``-fmad=false``):
-#: the plain versions round every product and sum on their own, and the
-#: line search amplifies one-ulp differences.
+#: ``nvcc`` flags of each instantiation's build into a shared library. No
+#: fast math: the solver relies on ``isfinite``, NaN comparisons and the
+#: ``|f| > 1e3`` failure mask. No contraction into fused multiply-adds
+#: either (``-fmad=false``): the plain versions round every product and
+#: sum on their own, and the line search amplifies one-ulp differences.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-#: Flags of the link into one shared library.
-LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-shared")
 
 
-def _sources(source_dir: str) -> List[str]:
-    return sorted(os.path.join(source_dir, name)
-                  for name in os.listdir(source_dir) if name.endswith(".cu"))
-
-
-def library_path(source_dir: str = SOURCE_DIR,
+def library_path(instance: Instance, source_dir: str = SOURCE_DIR,
                  nvcc: Optional[str] = None) -> str:
-    """Where the library built from ``source_dir`` lives: its name hashes
-    every file under ``source_dir`` (names and bytes), the compiler's path
-    and the flags."""
+    """Where the library of an instantiation built from ``source_dir``
+    lives: its name hashes every file under ``source_dir`` (names and
+    bytes), the compiler's path, the flags and the instantiation's
+    source."""
     hasher = hashlib.sha256()
     for root, dirs, files in os.walk(source_dir):
         dirs.sort()
@@ -156,76 +148,119 @@ def library_path(source_dir: str = SOURCE_DIR,
             hasher.update(os.path.relpath(path, source_dir).encode() + b"\0")
             with open(path, "rb") as handle:
                 hasher.update(handle.read() + b"\0")
-    hasher.update("\0".join((nvcc or _nvcc(),) + NVCC_FLAGS + LINK_FLAGS)
-                  .encode())
+    hasher.update("\0".join((nvcc or _nvcc(),) + NVCC_FLAGS).encode())
+    hasher.update(b"\0" + instance.text.encode())
     return os.path.join(_BUILD_DIR,
-                        f"libdair_pll_kernels_{hasher.hexdigest()[:16]}.so")
+                        f"lib{instance.name}_{hasher.hexdigest()[:16]}.so")
 
 
-def _build(path: str) -> str:
-    """Compiles every source at once (one ``nvcc`` each), then links them
-    into ``path``; returns the compilers' output, each source's headed by
-    its name and the seconds its compile took."""
+def build_instances(instances: Iterable[Instance],
+                    jobs: Optional[int] = None) -> Dict[str, dict]:
+    """Builds the libraries of those ``instances`` not built yet, at most
+    ``jobs`` ``nvcc`` processes at a time (all the card machine's cores by
+    default); returns each build's seconds and ``nvcc``'s output by
+    instance name (also kept for :func:`build_log`). Raises if any build
+    fails."""
     nvcc = _nvcc()
+    todo = {inst.name: inst for inst in instances}
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    paths = {name: library_path(inst, SOURCE_DIR, nvcc)
+             for name, inst in todo.items()}
+    locks = []
+    try:
+        for name in sorted(todo):
+            handle = open(paths[name] + ".lock", "w")
+            fcntl.flock(handle, fcntl.LOCK_EX)
+            locks.append(handle)
+        missing = [name for name in sorted(todo)
+                   if not os.path.exists(paths[name])]
+        readings = _compile(nvcc, [todo[n] for n in missing],
+                            [paths[n] for n in missing],
+                            jobs or os.cpu_count() or 1)
+    finally:
+        for handle in locks:
+            fcntl.flock(handle, fcntl.LOCK_UN)
+            handle.close()
+    _Built.builds.update(readings)
+    return readings
+
+
+def _compile(nvcc: str, instances: List[Instance], paths: List[str],
+             jobs: int) -> Dict[str, dict]:
+    readings, failed = {}, []
     with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as work:
-        procs = []
+        pending = list(zip(instances, paths))
+        running = []
         start = time.perf_counter()
-        for source in _sources(SOURCE_DIR):
-            obj = os.path.join(work, os.path.basename(source) + ".o")
-            out = open(obj + ".log", "w+")
-            procs.append((source, obj, out, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, source],
-                stdout=out, stderr=subprocess.STDOUT, text=True)))
-        seconds = {}
-        while len(seconds) < len(procs):
-            for source, _, _, proc in procs:
-                if source not in seconds and proc.poll() is not None:
-                    seconds[source] = time.perf_counter() - start
+        while pending or running:
+            while pending and len(running) < jobs:
+                inst, path = pending.pop(0)
+                source = os.path.join(work, inst.name + ".cu")
+                with open(source, "w", encoding="utf-8") as handle:
+                    handle.write(inst.text)
+                out = open(source + ".log", "w+")
+                tmp = os.path.join(work, inst.name + ".so")
+                running.append((inst, path, tmp, out, time.perf_counter(),
+                                subprocess.Popen(
+                                    [nvcc, *NVCC_FLAGS, "-I", SOURCE_DIR,
+                                     "-o", tmp, source],
+                                    stdout=out, stderr=subprocess.STDOUT,
+                                    text=True)))
             time.sleep(0.05)
-        log = []
-        failed = []
-        for source, _, out, proc in procs:
-            out.seek(0)
-            log.append(f"== {os.path.basename(source)} "
-                       f"({seconds[source]:.1f} s)\n{out.read()}")
-            out.close()
-            if proc.returncode != 0:
-                failed.append(source)
-        if failed:
-            raise RuntimeError(f"nvcc failed to build {failed}:\n"
-                               + "\n".join(log))
-        tmp = os.path.join(work, "lib.so")
-        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp,
-                               *(obj for _, obj, _, _ in procs)],
-                              capture_output=True, text=True, check=False)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc failed to link the kernel library:\n"
-                               f"{link.stdout}{link.stderr}")
-        os.replace(tmp, path)
-    return "\n".join(log)
+            for entry in [e for e in running if e[-1].poll() is not None]:
+                running.remove(entry)
+                inst, path, tmp, out, began, proc = entry
+                out.seek(0)
+                readings[inst.name] = {
+                    "seconds": time.perf_counter() - began,
+                    "since_start": time.perf_counter() - start,
+                    "log": out.read()}
+                out.close()
+                if proc.returncode != 0:
+                    failed.append(inst.name)
+                else:
+                    os.replace(tmp, path)
+    if failed:
+        raise RuntimeError(f"nvcc failed to build {failed}:\n" + "\n".join(
+            f"== {name}\n{readings[name]['log']}" for name in failed))
+    return readings
 
 
-def load_library() -> ctypes.CDLL:
-    """Builds (if needed) and loads the kernel library."""
-    if _Library.lib is not None:
-        return _Library.lib
-    path = library_path()
+def instance_library(instance: Instance) -> ctypes.CDLL:
+    """The loaded library of an instantiation, built first if needed."""
+    lib = _Built.libraries.get(instance.name)
+    if lib is not None:
+        return lib
+    path = library_path(instance)
     if not os.path.exists(path):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        _Library.build_log = _build(path)
+        build_instances([instance])
     lib = ctypes.CDLL(path)
-    for name, (argtypes, restype) in SIGNATURES.items():
+    for name, argtypes, restype in instance.entries:
         fn = getattr(lib, name)
-        fn.argtypes = argtypes
+        fn.argtypes = list(argtypes)
         fn.restype = restype
-    _Library.lib = lib
+    _Built.libraries[instance.name] = lib
     return lib
 
 
+def entry(instance: Instance, name: Optional[str] = None):
+    """An entry point of an instantiation (its first by default)."""
+    return getattr(instance_library(instance),
+                   name or instance.entries[0][0])
+
+
 def build_log() -> str:
-    """``nvcc``'s output (with ``ptxas``'s register and spill report)
-    from this process's build; empty when the library was already built."""
-    return _Library.build_log
+    """``nvcc``'s output (with ``ptxas``'s register and spill report) of
+    this process's builds, each headed ``== <instance> (<seconds> s)``;
+    empty for libraries that were already built."""
+    return "\n".join(f"== {name} ({reading['seconds']:.1f} s)\n"
+                     f"{reading['log']}"
+                     for name, reading in _Built.builds.items())
+
+
+def build_readings() -> Dict[str, dict]:
+    """This process's builds: seconds and ``nvcc``'s output by instance."""
+    return dict(_Built.builds)
 
 
 def check_tensor(name: str, t: Tensor, shape, dtype, device) -> None:
@@ -283,10 +318,8 @@ def _check_qp(m: Tensor, jc: Tensor, qc: Tensor) -> Tuple[int, int, int]:
         raise ValueError(f"jc has shape {tuple(jc.shape)}, expected "
                          "(3, n_v, k, B)")
     _, n_v, k, B = jc.shape
-    if (n_v, k) not in KERNEL_SHAPES:
-        raise ValueError(f"no kernel for (n_v, k) = {(n_v, k)}; built for "
-                         f"{KERNEL_SHAPES} (other sizes: ROADMAP.md, Queue "
-                         "2)")
+    if n_v < 1 or k < 1:
+        raise ValueError(f"no kernel for (n_v, k) = {(n_v, k)}")
     dtype = m.dtype
     if dtype not in _SUFFIX:
         raise TypeError(f"no kernel for dtype {dtype}")
@@ -317,8 +350,8 @@ def solve_warm_hybrid_soa_cuda_packed(
     ``w (n_v, B)``, ``valid (B,)`` bool.
 
     CPU tensors go to the plain version; CUDA tensors launch the kernel
-    on the current stream (float32 or float64, ``(n_v, k)`` in
-    ``KERNEL_SHAPES``, contiguous) or raise."""
+    on the current stream (float32 or float64, any ``(n_v, k)``, built at
+    first use; contiguous) or raise."""
     if on_cpu(m, jc, qc, w0):
         return plain_packed(m, jc, qc, w0, eps, ipm_iterations,
                             newton_iterations)
@@ -331,7 +364,7 @@ def solve_warm_hybrid_soa_cuda_packed(
     valid = torch.empty((B,), dtype=torch.bool, device=m.device)
     if B == 0:
         return force, w, valid
-    fn = getattr(load_library(), _ENTRY[n_v, k, dtype])
+    fn = entry(warm_instance(n_v, k, dtype))
     with torch.cuda.device(m.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(m.data_ptr(), jc.data_ptr(), qc.data_ptr(), w0.data_ptr(),
@@ -383,8 +416,8 @@ def solve_contact_impulse_soa_cuda_packed(
     ``valid (B,)`` bool.
 
     CPU tensors go to the plain version; CUDA tensors launch the kernel
-    on the current stream (float32 or float64, ``(n_v, k)`` in
-    ``KERNEL_SHAPES``, contiguous) or raise."""
+    on the current stream (float32 or float64, any ``(n_v, k)``, built at
+    first use; contiguous) or raise."""
     if on_cpu(m, jc, qc):
         return plain_packed_cold(m, jc, qc, eps, ipm_iterations,
                                  newton_iterations)
@@ -393,7 +426,7 @@ def solve_contact_impulse_soa_cuda_packed(
     valid = torch.empty((B,), dtype=torch.bool, device=m.device)
     if B == 0:
         return force, valid
-    fn = getattr(load_library(), _COLD_ENTRY[n_v, k, m.dtype])
+    fn = entry(cold_instance(n_v, k, m.dtype))
     with torch.cuda.device(m.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(m.data_ptr(), jc.data_ptr(), qc.data_ptr(),

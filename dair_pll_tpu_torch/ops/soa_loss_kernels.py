@@ -18,19 +18,20 @@ models whose geometries are planes, boxes, polygons and spheres):
 * the box cube's own (:func:`cube_cover`; ``csrc/contactnets_loss.cu`` on
   ``cube_terms.cuh``, K2 a hand-written reverse-mode sweep,
   ``cube_adjoint.cuh``);
-* the model-generic ones (:func:`generic_cover`; ``csrc/model_loss_*.cu``
+* the model-generic ones (:func:`generic_cover`; ``csrc/model_loss.cuh``
   on ``model_terms.cuh``, K2 a hand-written reverse-mode sweep over the
-  kinematic tree, ``model_adjoint.cuh``), one build per size of
-  ``soa_kernels.MODEL_SIZES``: one free body with a
-  4-witness pair (the polygon cube), and a free base with a revolute or
-  prismatic joint and two 4-witness pairs (the elbow, box or polygon).
-  They read the model from a descriptor (:func:`model_descriptor`).
+  kinematic tree, ``model_adjoint.cuh``), which cover every model of the
+  class: each size (:class:`ModelSize`: bodies, ``n_q``, ``n_v``, derived
+  scalars, polygon vertices, each pair's witnesses) builds at first use
+  (``soa_kernels.build_instances``), as the polygon cube's, the elbow's,
+  a ball's or a box and a sphere on one body. They read the model from a
+  descriptor (:func:`model_descriptor`).
 
 Beside each kernel stands its plain PyTorch version (:func:`plain_loss_fwd`,
 :func:`plain_loss_fwd_warm`, :func:`plain_loss_bwd`), which serves every
 model: the wrappers run it for CPU tensors, and for CUDA tensors launch
-the kernel or raise (a model outside both covers raises
-``NotImplementedError``). The ``launches`` attribute of each wrapper counts
+the kernel or raise (a model outside the class, such as an ICNN geometry,
+raises ``NotImplementedError``). The ``launches`` attribute of each wrapper counts
 its kernel's launches, ``launches_by`` by instantiation (``"cube"`` or a
 size's name). The kernels take float32 and float64.
 
@@ -43,7 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,14 +56,21 @@ from dair_pll_tpu_torch.multibody.soa_terms import (
 from dair_pll_tpu_torch.ops import soa, soa_kernels, soa_solver
 
 _NOT_COVERED = (
-    "the ContactNets loss kernels are instantiated for the box cube and for "
-    "the model sizes {sizes} (bodies, n_q, n_v, pairs, witnesses per pair) "
-    "of box and polygon geometry; other models wait for ROADMAP.md, Queue 2: "
-    "'K1-K3 at other sizes and for sphere models'")
+    "the ContactNets loss kernels cover the JAX kernels' model class "
+    "(supports_fused_kernel: plane against box, polygon or sphere, free, "
+    "revolute, prismatic and fixed joints, at most one actuator a body); "
+    "this model is outside it")
 #: Geometries of the JAX kernels' model class (``supports_fused_kernel``).
 _KERNEL_GEOMETRIES = ("plane", "box", "polygon", "sphere")
-#: Vertices of a polygon the generic kernels take (``kMaxVertices``).
-MAX_VERTICES = 8
+#: A box's vertices: the fewest the generic kernels' vertex sort takes.
+_BOX_VERTICES = 8
+_P, _I, _LL, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_double)
+#: The generic forward entries: the descriptor's address first, and after
+#: ``valid`` the scratch ``pack`` and its count of values.
+_MODEL_FWD = [_P] * 8 + [_LL, _LL, _D, _D, _I, _I, _P]
+_MODEL_FWD_WARM = [_P] * 9 + [_LL, _LL, _D, _D, _I, _I, _P]
+_BWD = [_P] * 10 + [_LL, _D, _D, _P]
 _JOINT = {"free": 0, "revolute": 1, "prismatic": 2, "fixed": 3, "weld": 3}
 _GEOMETRY = {"plane": 0, "box": 1, "polygon": 2, "sphere": 3}
 
@@ -88,37 +96,85 @@ def cube_cover(model: MultibodyModel) -> bool:
                 for g in (plane, box)))
 
 
-def _pmax(n_bodies: int, n_pairs: int) -> int:
-    """Derived scalars a size's kernels take (``ModelSize::PMAX``)."""
-    return 11 * n_bodies + 1 + 3 * MAX_VERTICES * n_pairs
+class ModelSize(NamedTuple):
+    """The generic kernels' size of a model (``ModelSize`` of
+    ``csrc/model_terms.cuh``): bodies, ``n_q``, ``n_v``, the most derived
+    scalars, the vertices the convex's sort takes (a box's 8, or the
+    largest polygon's count) and each plane-convex pair's witnesses, in
+    the packed contact order."""
+    n_bodies: int
+    n_q: int
+    n_v: int
+    pmax: int
+    n_vertices: int
+    witnesses: Tuple[int, ...]
+
+    @property
+    def name(self) -> str:
+        """``b<bodies>_q<n_q>_v<n_v>_k<k>``, then the witnesses where a
+        pair has other than 4, the vertices beyond 8 and the derived
+        scalars beyond the usual count."""
+        name = (f"b{self.n_bodies}_q{self.n_q}_v{self.n_v}_"
+                f"k{sum(self.witnesses)}")
+        if any(w != 4 for w in self.witnesses):
+            name += "_w" + "_".join(map(str, self.witnesses))
+        if self.n_vertices != _BOX_VERTICES:
+            name += f"_n{self.n_vertices}"
+        if self.pmax != _pmax(self.n_bodies, len(self.witnesses),
+                              self.n_vertices):
+            name += f"_p{self.pmax}"
+        return name
+
+    @property
+    def template(self) -> str:
+        """The C++ type of the size."""
+        return (f"ModelSize<{self.n_bodies}, {self.n_q}, {self.n_v}, "
+                f"{self.pmax}, {self.n_vertices}, "
+                f"{', '.join(map(str, self.witnesses))}>")
 
 
-def generic_size(model: MultibodyModel) -> Optional[str]:
-    """The generic kernels' size (a key of ``soa_kernels.MODEL_SIZES``)
-    that covers the model, or ``None``: a model of the JAX kernels' class
-    (``supports_fused_kernel``) whose bodies, ``n_q``, ``n_v`` and
-    plane-convex pairs of ``witnesses`` contacts each match an
-    instantiated size, with polygons of at most ``MAX_VERTICES`` vertices,
-    at most one actuator per body and at most the size's derived
-    scalars."""
+def _pmax(n_bodies: int, n_pairs: int, n_vertices: int) -> int:
+    """Derived scalars a size's kernels take: each body's 10 and a
+    geometry's friction, the world's plane, and each pair's shape."""
+    return 11 * n_bodies + 1 + 3 * n_vertices * n_pairs
+
+
+def model_size(model: MultibodyModel) -> Optional[ModelSize]:
+    """The generic kernels' size of a model of the JAX kernels' class
+    (``supports_fused_kernel``: plane against box, polygon or sphere), or
+    ``None`` outside it: also for more actuators than bodies, a polygon
+    with fewer vertices than witnesses or a pair whose witnesses are not
+    the convex's."""
     if not supports_fused(model) or any(
             g.geom_type not in _KERNEL_GEOMETRIES for g in model.geometries):
         return None
-    for name, (n_b, n_q, n_v, n_pairs, witnesses) in \
-            soa_kernels.MODEL_SIZES.items():
-        if (model.n_bodies, model.n_q, model.n_v) != (n_b, n_q, n_v) or \
-                len(model.collision_candidates) != n_pairs:
-            continue
-        if model.n_u > n_b or derived_size(model) > _pmax(n_b, n_pairs):
-            continue
-        convex = [model.geometries[b] for _, b in model.collision_candidates]
-        if all(g.geom_type in ("box", "polygon") and
-               g.n_query == witnesses and
-               (g.geom_type == "box" or
-                witnesses <= len(g.vertices_init) <= MAX_VERTICES)
-               for g in convex):
-            return name
-    return None
+    if model.n_u > model.n_bodies or not model.collision_candidates:
+        return None
+    n_vertices = _BOX_VERTICES
+    for (_, b), witnesses in zip(model.collision_candidates,
+                                 model.contacts_per_pair):
+        g = model.geometries[b]
+        if g.geom_type == "sphere":
+            if witnesses != 1:
+                return None
+        elif g.geom_type == "polygon":
+            if not 1 <= witnesses <= len(g.vertices_init):
+                return None
+            n_vertices = max(n_vertices, len(g.vertices_init))
+        elif not 1 <= witnesses <= _BOX_VERTICES:
+            return None
+    n_pairs = len(model.collision_candidates)
+    return ModelSize(model.n_bodies, model.n_q, model.n_v,
+                     max(derived_size(model),
+                         _pmax(model.n_bodies, n_pairs, n_vertices)),
+                     n_vertices, tuple(model.contacts_per_pair))
+
+
+def generic_size(model: MultibodyModel) -> Optional[str]:
+    """The name of the generic kernels' size that covers the model
+    (:func:`model_size`), or ``None``."""
+    size = model_size(model)
+    return None if size is None else size.name
 
 
 def generic_cover(model: MultibodyModel) -> bool:
@@ -127,19 +183,57 @@ def generic_cover(model: MultibodyModel) -> bool:
     return generic_size(model) is not None
 
 
-def _require_generic(model: MultibodyModel) -> str:
+def _require_generic(model: MultibodyModel) -> ModelSize:
     """The generic size that covers the model; raises outside it."""
-    name = generic_size(model)
-    if name is None:
-        raise NotImplementedError(_NOT_COVERED.format(
-            sizes=sorted(soa_kernels.MODEL_SIZES.values())))
-    return name
+    size = model_size(model)
+    if size is None:
+        raise NotImplementedError(_NOT_COVERED)
+    return size
+
+
+def loss_instances(size: ModelSize, dtype) -> Tuple[soa_kernels.Instance,
+                                                     soa_kernels.Instance]:
+    """The generic K1 and K3 (one library) and K2 (another) of a size in
+    ``dtype``, built at first use."""
+    s, t = soa_kernels._SUFFIX[dtype], soa_kernels._CTYPE[dtype]
+    head = (f'#include "model_loss.cuh"\n'
+            f"using Size = {size.template};\n")
+    fwd = soa_kernels.Instance(
+        f"contactnets_loss_fwd_{size.name}_{s}",
+        head + f"DEFINE_MODEL_FWD_ENTRY(Size, {size.name}, {t}, {s}, "
+        f"kFwdLanes<Size>)\n",
+        tuple((f"contactnets_loss_{kind}_{size.name}_{s}", tuple(args),
+               soa_kernels._I)
+              for kind, args in (("fwd", _MODEL_FWD),
+                                 ("fwd_warm", _MODEL_FWD_WARM))))
+    bwd = soa_kernels.Instance(
+        f"contactnets_loss_bwd_{size.name}_{s}",
+        head + f"DEFINE_MODEL_BWD_ENTRIES(Size, {size.name}, {t}, {s})\n"
+        'extern "C" long long model_loss_bwd_scratch(long long B, int n_p) '
+        "{\n  return model_blocks(B, kModelBwdThreads) * n_p;\n}\n",
+        ((f"contactnets_loss_bwd_{size.name}_{s}", tuple([_P] + _BWD),
+          soa_kernels._I),
+         ("model_loss_bwd_scratch", (_LL, soa_kernels._I), _LL)))
+    return fwd, bwd
+
+
+#: The box cube's own K1, K3 and K2, both types (``csrc/
+#: contactnets_loss.cuh``).
+CUBE_INSTANCE = soa_kernels.Instance(
+    "contactnets_loss_cube", '#include "contactnets_loss.cuh"\n',
+    tuple((f"contactnets_loss_{kind}_cube_{s}", tuple(args), soa_kernels._I)
+          for kind, args in (("fwd", [_P] * 6 + [_LL, _D, _D, _I, _I, _P]),
+                             ("fwd_warm",
+                              [_P] * 7 + [_LL, _D, _D, _I, _I, _P]),
+                             ("bwd", _BWD))
+          for s in ("f32", "f64")) +
+    (("contactnets_loss_bwd_scratch", (_LL,), _LL),))
 
 
 def _instance(model: MultibodyModel) -> str:
     """The kernels' instantiation for the model: ``"cube"`` or a generic
-    size; raises for a model outside both covers."""
-    return "cube" if cube_cover(model) else _require_generic(model)
+    size's name; raises for a model outside both covers."""
+    return "cube" if cube_cover(model) else _require_generic(model).name
 
 
 # -- the model descriptor ------------------------------------------------------------
@@ -202,8 +296,8 @@ def model_descriptor(model: MultibodyModel) -> ctypes.Structure:
     joint (kind, parent, coordinates' offsets, actuator row, frame, axis)
     and each pair's plane and convex geometry (kind, body, vertex count,
     friction and shape indices in the derived vector, pose)."""
-    n_b, _, _, n_pairs, _ = soa_kernels.MODEL_SIZES[_require_generic(model)]
-    desc = _desc_type(n_b, n_pairs)()
+    _require_generic(model)
+    desc = _desc_type(model.n_bodies, len(model.collision_candidates))()
     u_index = 0
     for i, body in enumerate(model.bodies):
         joint = body.joint
@@ -368,11 +462,13 @@ def _entry(model: MultibodyModel, kind: str, instance: str,
     """The library's entry point of a kernel (``kind`` ``fwd``,
     ``fwd_warm`` or ``bwd``) for an instantiation, and the arguments that
     lead its call: the model descriptor's address for a generic size."""
-    fn = getattr(soa_kernels.load_library(),
-                 f"contactnets_loss_{kind}_{instance}_"
-                 f"{soa_kernels._SUFFIX[dtype]}")
+    s = soa_kernels._SUFFIX[dtype]
     if instance == "cube":
-        return fn, ()
+        return soa_kernels.entry(CUBE_INSTANCE,
+                                 f"contactnets_loss_{kind}_cube_{s}"), ()
+    fwd, bwd = loss_instances(_require_generic(model), dtype)
+    fn = soa_kernels.entry(bwd if kind == "bwd" else fwd,
+                           f"contactnets_loss_{kind}_{instance}_{s}")
     return fn, (ctypes.addressof(model_descriptor(model)),)
 
 
@@ -478,10 +574,12 @@ def fused_loss_bwd(model: MultibodyModel, pvec: Tensor, xin: Tensor,
     dxp = torch.empty_like(xp)
     if B == 0:
         return torch.zeros_like(pvec), dxin, dxp
-    lib = soa_kernels.load_library()
     dp = torch.empty_like(pvec)
-    n_scratch = (lib.contactnets_loss_bwd_scratch(B) if instance == "cube"
-                 else lib.model_loss_bwd_scratch(B, pvec.numel()))
+    n_scratch = (
+        soa_kernels.entry(CUBE_INSTANCE, "contactnets_loss_bwd_scratch")(B)
+        if instance == "cube" else soa_kernels.entry(
+            loss_instances(_require_generic(model), pvec.dtype)[1],
+            "model_loss_bwd_scratch")(B, pvec.numel()))
     partial = torch.empty((n_scratch,), dtype=pvec.dtype, device=pvec.device)
     fn, lead = _entry(model, "bwd", instance, pvec.dtype)
     with torch.cuda.device(pvec.device):

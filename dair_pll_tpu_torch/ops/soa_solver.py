@@ -65,8 +65,8 @@ def _where_field(mask: Tensor, a: ConeField, b: ConeField) -> ConeField:
 
 
 def _gap(x: ConeField, z: ConeField, k: int) -> Tensor:
-    return soa.sum_rows(x[0] * z[0] + x[1] * z[1] + x[2] * z[2]) / \
-        (2.0 * k)
+    return _divide(soa.sum_rows(x[0] * z[0] + x[1] * z[1] + x[2] * z[2]),
+                   2.0 * k)
 
 
 def _divide(t: Tensor, c) -> Tensor:

@@ -1,8 +1,14 @@
 r"""Experiment configuration dataclasses.
 
-A copy of ``dair_pll_tpu/training/config.py`` (it imports no JAX), but
-for the two sharding flags: the port has no multi-card training or
-evaluation yet (``ROADMAP.md`` Queue 1 item 6), so setting either raises.
+A copy of ``dair_pll_tpu/training/config.py`` (it imports no JAX). The two
+sharding flags work over ``torch.distributed``: with a process group of
+more than one rank (one process per card, as ``torchrun`` starts them;
+``parallel/multiprocess.initialize``), ``shard_training`` splits every
+minibatch over the ranks and averages the gradients, and
+``shard_evaluation`` splits the evaluation rollouts
+(``training/experiment.py``'s ``training_mesh`` and
+``evaluation_mesh``); with no process group or one rank the run is
+unsharded.
 
 Mirrors the reference's ``experiment_config.py``
 (``dair_pll/experiment_config.py:12-71``) with the same
@@ -132,7 +138,3 @@ class SupervisedLearningExperimentConfig:
     def __post_init__(self):
         assert self.selection_metric in _SELECTION_METRICS, (
             f"selection_metric must be one of {_SELECTION_METRICS}")
-        if self.shard_training or self.shard_evaluation:
-            raise NotImplementedError(
-                "shard_training and shard_evaluation wait for the port's "
-                "scale-out (ROADMAP.md Queue 1 item 6)")

@@ -43,6 +43,7 @@ from torch import Tensor
 from dair_pll_tpu_torch.data.management import (ExperimentDataManager,
                                                 TrajectorySet)
 from dair_pll_tpu_torch.multibody.learnable_system import resolve_device
+from dair_pll_tpu_torch.parallel import sharding
 from dair_pll_tpu_torch.params import dtype_device, tree_from_leaves
 from dair_pll_tpu_torch.system import System
 from dair_pll_tpu_torch.training.config import (
@@ -235,7 +236,12 @@ class SupervisedLearningExperiment:
         self.learned_system: Optional[System] = None
         self.data_manager: Optional[ExperimentDataManager] = None
         self.log_manager: Optional[ExperimentLogManager] = None
-        file_utils.save_config(config.storage, config.run_name, config)
+        #: Whether this process writes the run's files: rank 0 of a
+        #: process group (every rank runs the experiment; see
+        #: :meth:`training_mesh`), or the only process.
+        self.writer = sharding.rank() == 0
+        if self.writer:
+            file_utils.save_config(config.storage, config.run_name, config)
 
     # -- abstract system factories ------------------------------------------
     def get_base_system(self) -> Tuple[System, Any]:
@@ -254,6 +260,35 @@ class SupervisedLearningExperiment:
     def space(self):
         assert self.learned_system is not None
         return self.learned_system.space
+
+    def evaluation_mesh(self) -> Optional[sharding.Mesh]:
+        """The data-parallel mesh of the evaluation rollouts, or ``None``:
+        with ``config.shard_evaluation`` and a process group of more than
+        one rank, every rank rolls out its share of each batch of
+        trajectories (:meth:`_rollout`)."""
+        if not self.config.shard_evaluation or sharding.world_size() <= 1:
+            return None
+        return sharding.make_mesh()
+
+    def training_mesh(self, batch_size: int) -> Optional[sharding.Mesh]:
+        """The data-parallel mesh of the training epochs, or ``None``.
+
+        With ``config.shard_training`` every minibatch splits across the
+        mesh's ranks, the parameters stay equal on every rank and the
+        gradients are averaged over the mesh before the (identical) Adam
+        update on every rank. The mesh is the largest count of ranks that
+        divides ``batch_size``, so that each rank's share is equal; the
+        other ranks join the collectives with zeros. With no process group
+        or one rank the run is unsharded, as the JAX package's
+        ``training_mesh`` returns ``None`` on one device."""
+        if not self.config.shard_training:
+            return None
+        n_ranks = sharding.world_size()
+        while n_ranks > 1 and batch_size % n_ranks != 0:
+            n_ranks -= 1
+        if n_ranks <= 1:
+            return None
+        return sharding.make_mesh(n_ranks)
 
     def params_from_leaves(self, init_params: Any, leaves: Sequence) -> Any:
         """Stored numpy leaves (a checkpoint's) in the structure, dtype and
@@ -356,6 +391,10 @@ class SupervisedLearningExperiment:
                                              state.current_params)
         for leaf in params.parameters():
             leaf.requires_grad_(True)
+        if sharding.world_size() > 1 and (config.shard_training or
+                                          config.shard_evaluation):
+            # Every rank starts from rank 0's parameters.
+            sharding.replicate(params, sharding.make_mesh())
         optimizer = build_optimizer(config.optimizer_config,
                                     params.parameters(), decay_steps)
         if state is None:
@@ -390,8 +429,9 @@ class SupervisedLearningExperiment:
         ``eval_epoch_fn(params, past, future, batches, weights)`` is the
         exact per-slice average of the loss without gradients (wraparound
         duplicates carry weight 0), a 0-d tensor."""
-        del optimizer, batch_size
+        del optimizer
         loss_fn = self.loss_callback()
+        mesh = self.training_mesh(batch_size)
 
         def epoch_fn(params, optimizer, past, future, batches):
             update_mask = self.parameter_update_mask(params)
@@ -399,23 +439,42 @@ class SupervisedLearningExperiment:
                 else None
             losses = []
             for batch_indices in batches:
-                x_past = past.index_select(0, batch_indices)
-                x_future = future.index_select(0, batch_indices)
-                loss = torch.mean(loss_fn(params, x_past, x_future))
-                loss.backward()
+                if mesh is not None:
+                    batch_indices = sharding.shard_batch(batch_indices, mesh)
+                if mesh is None or mesh.participates:
+                    x_past = past.index_select(0, batch_indices)
+                    x_future = future.index_select(0, batch_indices)
+                    loss = torch.mean(loss_fn(params, x_past, x_future))
+                    loss.backward()
+                else:
+                    loss = past.new_zeros(())
+                if mesh is not None:
+                    sharding.mean_gradients(params.parameters(), mesh)
+                    loss = sharding.mean_over_mesh(loss.detach(), mesh)
                 optimizer.step(mask)
                 losses.append(loss.detach())
             return torch.stack(losses)
 
         def eval_epoch_fn(params, past, future, batches, batch_weights):
-            loss_sum = weight_sum = 0.0
+            loss_sum = weight_sum = past.new_zeros(())
             with torch.no_grad():
                 for batch_indices, w in zip(batches, batch_weights):
+                    if mesh is not None:
+                        batch_indices = sharding.shard_batch(batch_indices,
+                                                             mesh)
+                        w = sharding.shard_batch(w, mesh)
+                    if mesh is not None and not mesh.participates:
+                        continue
                     x_past = past.index_select(0, batch_indices)
                     x_future = future.index_select(0, batch_indices)
                     losses = loss_fn(params, x_past, x_future)
                     loss_sum = loss_sum + torch.sum(losses * w)
                     weight_sum = weight_sum + torch.sum(w)
+            if mesh is not None:
+                sums = sharding.all_reduce_sum(
+                    torch.stack([loss_sum, weight_sum.to(loss_sum.dtype)]),
+                    mesh)
+                loss_sum, weight_sum = sums[0], sums[1]
             return loss_sum / torch.clamp(weight_sum, min=1.0)
 
         return epoch_fn, eval_epoch_fn
@@ -426,11 +485,12 @@ class SupervisedLearningExperiment:
         an epoch of the warm loss (:meth:`warm_loss_callback`). Each step
         gathers its batch's cache entries and scatters the refreshed ones
         back in place; returns the step losses on the device."""
-        del optimizer, batch_size
+        del optimizer
         warm = self.warm_loss_callback()
         assert warm is not None
         make_warm_fn, _ = warm
         warm_fn = make_warm_fn(seed)
+        mesh = self.training_mesh(batch_size)
 
         def epoch_fn(params, optimizer, cache, past, future, batches):
             update_mask = self.parameter_update_mask(params)
@@ -438,15 +498,32 @@ class SupervisedLearningExperiment:
                 else None
             losses = []
             for batch_indices in batches:
-                x_past = past.index_select(0, batch_indices)
-                x_future = future.index_select(0, batch_indices)
-                cache_b = cache.index_select(-1, batch_indices)
-                step_losses, new_cache_b = warm_fn(params, x_past,
-                                                   x_future, cache_b)
-                loss = torch.mean(step_losses)
-                loss.backward()
+                mine = batch_indices if mesh is None else \
+                    sharding.shard_batch(batch_indices, mesh)
+                if mesh is None or mesh.participates:
+                    x_past = past.index_select(0, mine)
+                    x_future = future.index_select(0, mine)
+                    cache_b = cache.index_select(-1, mine)
+                    step_losses, new_cache_b = warm_fn(params, x_past,
+                                                       x_future, cache_b)
+                    loss = torch.mean(step_losses)
+                    loss.backward()
+                    new_cache_b = new_cache_b.detach()
+                else:
+                    loss = past.new_zeros(())
+                    new_cache_b = cache.index_select(-1, mine)
+                if mesh is not None:
+                    sharding.mean_gradients(params.parameters(), mesh)
+                    loss = sharding.mean_over_mesh(loss.detach(), mesh)
+                    # The ranks refresh disjoint columns of the batch: the
+                    # whole batch's on every rank, one all_reduce of a
+                    # zero-filled buffer, then one scatter into the cache
+                    # (O(batch) values, not the cache's O(slices)).
+                    new_cache_b = sharding.gather_rows(
+                        new_cache_b, mesh, batch_indices.numel(),
+                        axis=cache.dim() - 1)
                 cache.index_copy_(cache.dim() - 1, batch_indices,
-                                  new_cache_b.detach())
+                                  new_cache_b)
                 optimizer.step(mask)
                 losses.append(loss.detach())
             return torch.stack(losses)
@@ -648,7 +725,8 @@ class SupervisedLearningExperiment:
         finally:
             state.current_params = params
             state.optimizer_state = optimizer.state_dict()
-            save_checkpoint(ckpt_path, state)
+            if self.writer:
+                save_checkpoint(ckpt_path, state)
 
         return train_loss, state.best_valid_loss, state.best_params
 
@@ -739,7 +817,8 @@ class SupervisedLearningExperiment:
             self.base_and_learned_comparison_summary(statistics, params))
         scalars[LOGGING_DURATION] = time.time() - start_log
         assert self.log_manager is not None
-        self.log_manager.update(epoch, scalars, videos, summary.meshes)
+        if self.writer:
+            self.log_manager.update(epoch, scalars, videos, summary.meshes)
 
     # -- evaluation -----------------------------------------------------------
     def _rollout(self, system: System, params: Any, x_hist: Tensor,
@@ -748,8 +827,12 @@ class SupervisedLearningExperiment:
         t_history, n_x)``, without gradients: through ``simulate_batch``
         (for a ``MultibodyLearnableSystem`` the fused rollout on K5 from
         ``FUSED_ROLLOUT_MIN_BATCH`` trajectories, the vmapped integrator
-        below), or ``simulate`` when the system carries a hidden state."""
-        with torch.no_grad():
+        below), or ``simulate`` when the system carries a hidden state.
+        With an evaluation mesh (:meth:`evaluation_mesh`) each rank rolls
+        out its share of the histories and every rank gets them all
+        (``sharding.make_data_parallel_rollout``)."""
+
+        def predict(params, x_hist):
             x_0, carry = system.preprocess_initial_condition(
                 params, x_hist, system.initial_carry(x_hist[..., -1, :]))
             if carry.shape[-1] == 0:
@@ -757,7 +840,14 @@ class SupervisedLearningExperiment:
             else:
                 trajectory = system.simulate(params, x_0, steps,
                                              carry_0=carry)
-        return trajectory[..., 1:, :]
+            return trajectory[..., 1:, :]
+
+        mesh = self.evaluation_mesh()
+        with torch.no_grad():
+            if mesh is None:
+                return predict(params, x_hist)
+            return sharding.make_data_parallel_rollout(predict, mesh)(
+                params, x_hist)
 
     @staticmethod
     def _host_rollouts(system: System, params: Any, x_hist: np.ndarray,
@@ -944,6 +1034,8 @@ class SupervisedLearningExperiment:
             LEARNED_SYSTEM_NAME: (self.learned_system, best_params),
         }
         evaluation = self.evaluate_systems_on_sets(systems, sets)
+        if not self.writer:
+            return evaluation
         file_utils.save_evaluation(self.config.storage,
                                    self.config.run_name, evaluation)
         videos = self.base_and_learned_comparison_summary(

@@ -242,8 +242,11 @@ class MultibodyLearnableExperiment(SupervisedLearningExperiment):
         evaluation that carries samples. With
         ``config.update_geometry_in_videos`` the geometry is the learned
         one, else the initial (URDF) one. Rendering needs matplotlib; a
-        machine without it logs no videos. The JAX package's interactive
-        three.js page waits for ``ROADMAP.md`` Queue 1 item 7."""
+        machine without it logs no videos. Beside each video, as in the
+        JAX package, an interactive three.js page of the same pair
+        (``interactive_vis.export_interactive_html``) goes under the run's
+        ``interactive/``; it needs no matplotlib, so it is written on a
+        machine without it too."""
         assert isinstance(self.learned_system, MultibodyLearnableSystem)
         config = self.config
         has_samples = any(
@@ -257,8 +260,10 @@ class MultibodyLearnableExperiment(SupervisedLearningExperiment):
             return {}
         try:
             import matplotlib  # noqa: F401
+            has_matplotlib = True
         except ImportError:
-            return {}
+            has_matplotlib = False
+        from dair_pll_tpu_torch.interactive_vis import export_interactive_html
         from dair_pll_tpu_torch.vis_utils import visualize_trajectory
         if config.update_geometry_in_videos:
             video_params = best_params
@@ -270,13 +275,24 @@ class MultibodyLearnableExperiment(SupervisedLearningExperiment):
             prediction_key = f"{set_name}_model_prediction_sample"
             if target_key not in statistics or not statistics[target_key]:
                 continue
-            video, fps = visualize_trajectory(
-                self.learned_system.model, video_params,
-                statistics[target_key][0], statistics[prediction_key][0],
-                self.config.data_config.dt,
-                max_frames=config.video_max_frames,
-                height=config.video_height, width=config.video_width)
-            videos[f"{set_name}_trajectory_overlay"] = (video, fps)
+            if has_matplotlib:
+                video, fps = visualize_trajectory(
+                    self.learned_system.model, video_params,
+                    statistics[target_key][0],
+                    statistics[prediction_key][0],
+                    self.config.data_config.dt,
+                    max_frames=config.video_max_frames,
+                    height=config.video_height, width=config.video_width)
+                videos[f"{set_name}_trajectory_overlay"] = (video, fps)
+            if self.writer:
+                export_interactive_html(
+                    self.learned_system.model, video_params,
+                    statistics[prediction_key][0],
+                    statistics[target_key][0], self.config.data_config.dt,
+                    os.path.join(file_utils.run_dir(config.storage,
+                                                    config.run_name),
+                                 "interactive", f"{set_name}_overlay.html"),
+                    title=f"{config.run_name} {set_name}")
         return videos
 
     def parameter_update_mask(self, params: Any) -> Optional[Any]:

@@ -53,7 +53,8 @@ def main() -> int:
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     host = host_adjoint.HostModelTerms(
-        os.path.join(ROOT, "build", "host_model_terms"))
+        os.path.join(ROOT, "build", "host_model_terms"),
+        *cs.host_sizes(cs.DEFAULT_HOST_MODELS))
     n, threads, budget = args.n, args.threads, cs.COLD_BUDGET
 
     def emit(name, count, extra):

@@ -44,10 +44,11 @@ def run_build(name: str) -> None:
     import test_torch_model_terms_host as host_test
     from torch_parity import DT, KERNEL_MODELS
     from dair_pll_tpu_torch.ops import host_adjoint
-    host = host_adjoint.HostModelTerms(os.path.join(WORK, name),
-                                       BUILDS[name])
     urdfs = os.path.join(WORK, "urdfs")
     os.makedirs(urdfs, exist_ok=True)
+    host = host_adjoint.HostModelTerms(
+        os.path.join(WORK, name), host_test.model_sizes(urdfs),
+        tuple(host_test.WARM_SHAPES.values()), BUILDS[name])
     out = {}
     for model_name in sorted(KERNEL_MODELS):
         model, pvec, xin, xp, force, valid, ct = host_test._inputs(

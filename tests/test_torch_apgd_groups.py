@@ -11,7 +11,7 @@ bit for bit for every n <= G, on inputs with signed zeros, subnormals,
 large magnitudes, infinities and NaNs, save the sign of a sum of zeros,
 which no use of the sum sees; and ``plain_apgd`` with the group butterfly
 in place of the 32-lane one gives the same bits. Last, the wrapper's
-routes: CPU tensors run the plain version; k = 11 (the check a CUDA call
+routes: CPU tensors run the plain version; k = 0 (the check a CUDA call
 goes through), mixed devices and another device raise.
 Uses no JAX and builds nothing.
 """
@@ -137,8 +137,9 @@ def test_plain_apgd_on_groups_gives_the_same_bits(k, monkeypatch):
 
 def test_wrapper_routes():
     """``solve_cone_qp_cuda`` on CPU tensors is ``plain_apgd`` and counts
-    no launch; the check of a CUDA call refuses k = 11 cones, and tensors
-    on two devices or on another device raise."""
+    no launch; the check of a CUDA call takes k = 11 cones (any k builds
+    at first use) and refuses none, and tensors on two devices or on
+    another device raise."""
     rng = np.random.default_rng(3)
     A = rng.standard_normal((8, 12, 12))
     Q = torch.tensor(A @ np.swapaxes(A, -1, -2) + 0.1 * np.eye(12))
@@ -147,8 +148,10 @@ def test_wrapper_routes():
     assert torch.equal(cone_kernels.solve_cone_qp_cuda(Q, q, 40),
                        cone_kernels.plain_apgd(Q, q, 40))
     assert cone_kernels.solve_cone_qp_cuda.launches == before
-    with pytest.raises(ValueError, match="k = 11"):
-        cone_kernels._check(torch.zeros(2, 33, 33), torch.zeros(2, 33))
+    assert cone_kernels._check(torch.zeros(2, 33, 33),
+                               torch.zeros(2, 33)) == (2, 11)
+    with pytest.raises(ValueError, match="k = 0"):
+        cone_kernels._check(torch.zeros(2, 0, 0), torch.zeros(2, 0))
     with pytest.raises(ValueError, match="several devices"):
         cone_kernels.solve_cone_qp_cuda(Q, q.to("meta"))
     with pytest.raises(ValueError, match="unsupported device"):

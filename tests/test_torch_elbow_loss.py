@@ -1,5 +1,5 @@
 """The port's fused ContactNets loss for the models of the generic loss
-kernels (``dair_pll_tpu_torch/csrc/model_loss_*.cu``) against the JAX
+kernels (``dair_pll_tpu_torch/csrc/model_loss.cuh``) against the JAX
 package's, float64: the elbow in boxes and in polygons, the polygon cube,
 ``pris2`` (a prismatic joint) and the actuated ``paddle``.
 
@@ -11,9 +11,9 @@ and its impulses match JAX's ``soa_contactnets_loss`` (loss rtol 1e-9, atol
 ``test_torch_elbow_gradients.py`` holds the gradients. Then the routes: which
 kernels cover which model, the card's route for the elbow (the generic
 kernels, by their entry points and launch counts, with the library and
-the card stood in for) and for the ICNN elbow (the solve kernels), and a
-model outside every cover (a sphere) raising with a pointer to
-ROADMAP.md.
+the card stood in for) and for the ICNN elbow (the solve kernels), every
+other size of the class covered, and a model outside it (the ICNN elbow)
+raising.
 
 The JAX side runs eagerly (``jax.disable_jit``), as in
 ``test_torch_loss.py``.
@@ -35,8 +35,10 @@ from dair_pll_tpu_torch.multibody.model import params_from_numpy
 from dair_pll_tpu_torch.ops import soa_kernels
 from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
 from dair_pll_tpu_torch.urdf import build_multibody_model as tbuild
+from dair_pll_tpu_torch.ops import cone_kernels
 from torch_parity import (COLD_BUDGET as COLD, DT, KERNEL_MODELS,
-                          LOSS_EPS as EPS, kernel_case, kernel_port)
+                          LOSS_EPS as EPS, kernel_case, kernel_port,
+                          size_model_urdfs)
 
 LOSS_RTOL, LOSS_ATOL = 1e-9, 1e-12
 FORCE_TOL = 1e-8
@@ -88,22 +90,20 @@ def test_cold_loss_and_impulses_match_jax(urdf_dir, name):
     assert np.mean(np.max(ref["force"][0], axis=0) > 1e-6) > 0.5
 
 
-def _sphere_model(urdf_dir):
-    path = f"{urdf_dir}/ball.urdf"
-    with open(path, "w", encoding="utf-8") as handle:
-        handle.write("""<robot name="ball"><link name="ball">
-  <inertial><mass value="0.3"/><inertia ixx="0.0003" iyy="0.0003"
-    izz="0.0003" ixy="0" ixz="0" iyz="0"/></inertial>
-  <collision><geometry><sphere radius="0.05"/></geometry></collision>
-</link></robot>""")
-    return tbuild({"ball": path})
+def _size_model(name, urdf_dir):
+    urdfs, representation = size_model_urdfs(name, urdf_dir)
+    return tbuild(urdfs, **({} if representation is None else
+                            {"mesh_representation": representation}))
 
 
 def test_kernel_covers(urdf_dir):
     """The box cube's kernels cover the box cube alone; the generic
-    kernels the five parity models (and the box cube), each at its size;
-    the ICNN elbow and a sphere neither, and the wrappers raise for the
-    sphere with a pointer to ROADMAP.md."""
+    kernels the five parity models (and the box cube), each at its size,
+    and every other model of the JAX kernels' class, each at a size of
+    its own built at first use: a sphere (the ball), a box and a sphere on
+    one body (witnesses 4 + 1), a polygon of 10 vertices; the three cubes'
+    k = 15 passes K6's check. The ICNN elbow is outside the class, and
+    the wrappers raise for it."""
     cube = tbuild({"cube": tassets.get_asset("cube")})
     assert lk.cube_cover(cube) and lk.generic_size(cube) == "b1_q7_v6_k4"
     for name, size in SIZES.items():
@@ -111,18 +111,27 @@ def test_kernel_covers(urdf_dir):
         assert not lk.cube_cover(model)
         assert lk.generic_size(model) == size and lk.generic_cover(model)
         assert lk.model_descriptor(model).n_params == lk.derived_size(model)
+    for name, size in (("ball", "b1_q7_v6_k1_w1"),
+                       ("box_sphere", "b1_q7_v6_k5_w4_1"),
+                       ("prism10", "b1_q7_v6_k4_n10")):
+        model = _size_model(name, urdf_dir)
+        assert not lk.cube_cover(model) and lk.generic_cover(model)
+        assert lk.generic_size(model) == size
+        assert lk.model_descriptor(model).n_params == lk.derived_size(model)
+    three = _size_model("three_cubes", urdf_dir)
+    assert three.n_contacts == 15 and not lk.generic_cover(three)
+    assert cone_kernels._check(torch.zeros(2, 45, 45),
+                               torch.zeros(2, 45)) == (2, 15)
     icnn_elbow = tbuild({"elbow": tassets.get_asset("elbow_mesh")})
-    sphere = _sphere_model(urdf_dir)
-    for model in (icnn_elbow, sphere):
-        assert not lk.cube_cover(model) and not lk.generic_cover(model)
-    xin = torch.zeros(13, 2).to("meta")
-    pvec = torch.zeros(lk.derived_size(sphere)).to("meta")
+    assert not lk.cube_cover(icnn_elbow) and not lk.generic_cover(icnn_elbow)
+    xin = torch.zeros(15, 2).to("meta")
+    pvec = torch.zeros(lk.derived_size(icnn_elbow)).to("meta")
     with pytest.MonkeyPatch.context() as patch:
         patch.setattr(soa_kernels, "on_cpu", lambda *ts: False)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lk.fused_loss_fwd(sphere, pvec, xin, xin, DT, EPS, *COLD)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lk.model_descriptor(sphere)
+        with pytest.raises(NotImplementedError, match="outside"):
+            lk.fused_loss_fwd(icnn_elbow, pvec, xin, xin, DT, EPS, *COLD)
+        with pytest.raises(NotImplementedError, match="outside"):
+            lk.model_descriptor(icnn_elbow)
 
 
 class _Reached(Exception):
@@ -164,10 +173,11 @@ def test_loss_route_by_model_off_the_cpu(monkeypatch, asset):
 
 
 def test_elbow_loss_calls_the_generic_entries(urdf_dir, monkeypatch):
-    """With the card stood in for (the wrappers' device test, the library,
-    ``torch.cuda``'s stream), the elbow's cold loss and its gradient call
-    the generic entry points of the elbow's size, with the model
-    descriptor leading, and count one launch each at that size."""
+    """With the card stood in for (the wrappers' device test, the entry
+    points of the instantiations built at first use, ``torch.cuda``'s
+    stream), the elbow's cold loss and its gradient call the generic entry
+    points of the elbow's size, with the model descriptor leading, and
+    count one launch each at that size."""
     calls = []
 
     def entry(name):
@@ -176,12 +186,15 @@ def test_elbow_loss_calls_the_generic_entries(urdf_dir, monkeypatch):
             return 0
         return fn
 
-    library = types.SimpleNamespace(model_loss_bwd_scratch=lambda b, p: b * p)
-    for name in soa_kernels.SIGNATURES:
-        if name.startswith("contactnets_loss_"):
-            setattr(library, name, entry(name))
+    def instance_entry(instance, name=None):
+        name = name or instance.entries[0][0]
+        assert name in [e[0] for e in instance.entries]
+        if name == "model_loss_bwd_scratch":
+            return lambda b, p: b * p
+        return entry(name)
+
     monkeypatch.setattr(soa_kernels, "on_cpu", lambda *ts: False)
-    monkeypatch.setattr(soa_kernels, "load_library", lambda: library)
+    monkeypatch.setattr(soa_kernels, "entry", instance_entry)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",

@@ -246,23 +246,28 @@ def test_small_batch_default_path_runs_vmapped(monkeypatch):
 
 
 def test_library_name_hashes_every_source(tmp_path):
-    """The kernel library's file name changes with the bytes of any file
-    under ``csrc/``, headers included, and with the compiler's path."""
+    """An instantiation's library file name changes with the bytes of any
+    file under ``csrc/``, headers included, with the compiler's path and
+    with the instantiation."""
     copy = tmp_path / "csrc"
     shutil.copytree(soa_kernels.SOURCE_DIR, copy)
     nvcc = "/usr/local/cuda/bin/nvcc"
-    name = soa_kernels.library_path(str(copy), nvcc)
-    assert name == soa_kernels.library_path(soa_kernels.SOURCE_DIR, nvcc)
+    instance = soa_kernels.warm_instance(6, 4, torch.float64)
+    name = soa_kernels.library_path(instance, str(copy), nvcc)
+    assert name == soa_kernels.library_path(instance,
+                                            soa_kernels.SOURCE_DIR, nvcc)
     headers = sorted(p for p in os.listdir(copy) if p.endswith(".cuh"))
     assert headers, "no headers under csrc/"
     for header in headers:
         path = copy / header
         original = path.read_bytes()
         path.write_bytes(original + b"\n")
-        assert soa_kernels.library_path(str(copy), nvcc) != name
+        assert soa_kernels.library_path(instance, str(copy), nvcc) != name
         path.write_bytes(original)
-    assert soa_kernels.library_path(str(copy), nvcc) == name
-    assert soa_kernels.library_path(str(copy), nvcc + "x") != name
+    assert soa_kernels.library_path(instance, str(copy), nvcc) == name
+    assert soa_kernels.library_path(instance, str(copy), nvcc + "x") != name
+    other = soa_kernels.warm_instance(6, 5, torch.float64)
+    assert soa_kernels.library_path(other, str(copy), nvcc) != name
 
 
 def test_wrappers_refuse_mixed_devices():

@@ -56,18 +56,27 @@ GRAD_RTOL, GRAD_ATOL = 1e-10, 1e-14
 
 
 @pytest.fixture(scope="module")
-def host(tmp_path_factory):
-    """``model_terms.cuh`` built for the host
-    (``host_adjoint.HostModelTerms``)."""
-    if host_adjoint.compiler() is None:
-        pytest.skip("g++ is not installed: the host build needs it")
-    return host_adjoint.HostModelTerms(
-        str(tmp_path_factory.mktemp("model_terms")))
+def urdf_dir(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("urdfs"))
 
 
 @pytest.fixture(scope="module")
-def urdf_dir(tmp_path_factory):
-    return str(tmp_path_factory.mktemp("urdfs"))
+def host(tmp_path_factory, urdf_dir):
+    """``model_terms.cuh`` built for the host
+    (``host_adjoint.HostModelTerms``) at the sizes of the parity models,
+    and K4/K5 at the cube's and the elbow's ``(n_v, k)``."""
+    if host_adjoint.compiler() is None:
+        pytest.skip("g++ is not installed: the host build needs it")
+    return host_adjoint.HostModelTerms(
+        str(tmp_path_factory.mktemp("model_terms")), model_sizes(urdf_dir),
+        tuple(WARM_SHAPES.values()))
+
+
+def model_sizes(urdf_dir: str) -> list:
+    """The generic sizes (``soa_loss_kernels.model_size``) of the parity
+    models."""
+    return [lk.model_size(_inputs(name, urdf_dir)[0])
+            for name in sorted(KERNEL_MODELS)]
 
 
 @functools.lru_cache(maxsize=None)

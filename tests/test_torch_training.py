@@ -440,7 +440,8 @@ def test_non_finite_parameters_roll_back(storage):
 def test_final_epoch_forces_full_evaluation_and_selection(storage):
     """With an evaluation period longer than the run, epochs 0 and the
     last (forced) evaluate; ``selection_metric="objective"`` selects on
-    the training objective of the validation slices."""
+    the training objective of the validation slices; the sharding flags
+    leave a run without a process group unsharded."""
     config = port_config(storage, "final_eval", epochs=2,
                          selection_metric="objective",
                          full_evaluation_period=100,
@@ -459,5 +460,10 @@ def test_final_epoch_forces_full_evaluation_and_selection(storage):
         log[e]["valid_loss"] for e in (0, 1, 2)))
     with pytest.raises(AssertionError):
         port_config(storage, "bad", selection_metric="latest")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        port_config(storage, "sharded", shard_training=True)
+    # The sharding flags are taken; with no process group the run is
+    # unsharded, as the JAX package's on one device.
+    sharded = MultibodyLearnableExperiment(
+        port_config(storage, "sharded", shard_training=True,
+                    shard_evaluation=True), device="cpu")
+    assert sharded.training_mesh(BATCH) is None
+    assert sharded.evaluation_mesh() is None

@@ -363,7 +363,8 @@ def test_failure_masking_matches_jax():
 def test_k6_wrapper_routes():
     """CPU tensors run the plain version and count no launch; a mix of
     devices, another device (the meta device stands in for one the port
-    does not run on), more than ten cones or another dtype raise."""
+    does not run on), no cones or another dtype raise; more than ten
+    cones (any k builds at first use) pass the check."""
     D, _, _, q, _ = _qps("loss")
     Q, tq = _t(D + 1e-3 * np.eye(12), q)
     before = cone_kernels.solve_cone_qp_cuda.launches
@@ -374,8 +375,10 @@ def test_k6_wrapper_routes():
         cone_kernels.solve_cone_qp_cuda(Q, tq.to("meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         cone_kernels.solve_cone_qp_cuda(Q.to("meta"), tq.to("meta"))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        cone_kernels._check(torch.zeros(2, 33, 33), torch.zeros(2, 33))
+    assert cone_kernels._check(torch.zeros(2, 33, 33),
+                               torch.zeros(2, 33)) == (2, 11)
+    with pytest.raises(ValueError, match="k = 0"):
+        cone_kernels._check(torch.zeros(2, 0, 0), torch.zeros(2, 0))
     with pytest.raises(TypeError, match="dtype"):
         cone_kernels._check(torch.zeros(2, 3, 3, dtype=torch.int32),
                             torch.zeros(2, 3, dtype=torch.int32))

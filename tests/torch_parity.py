@@ -242,6 +242,58 @@ KERNEL_MODELS = {"elbow": ("elbow", None),
                  "elbow_polygon": ("elbow_mesh", "polygon"),
                  "cube_polygon": ("cube_mesh", "polygon"),
                  "pris2": ("pris2", None), "paddle": ("paddle", None)}
+#: The models of every size the JAX kernels take beyond the five above
+#: (``tests/test_torch_size_cover.py``): a ball (one sphere, (n_v, k) =
+#: (6, 1)), a box and a sphere on one body (``tests/test_urdf_features.py``'s
+#: pattern; witnesses 4 + 1, (6, 5)), a pentagonal prism of 10 vertices as
+#: a polygon, and three box cubes (15 contacts; the K6 route).
+SIZE_URDFS = {
+    "ball": """<robot name="ball"><link name="ball">
+  <inertial><mass value="0.3"/><inertia ixx="0.0003" iyy="0.0003"
+    izz="0.0003" ixy="0" ixz="0" iyz="0"/></inertial>
+  <collision><geometry><sphere radius="0.05"/></geometry></collision>
+</link></robot>""",
+    "box_sphere": f"""<robot name="box_sphere"><link name="body">{_BOX_INERTIAL}
+  <collision><origin xyz="0.1 0 0" rpy="0 0 0"/>
+    <geometry><box size="0.1 0.2 0.3"/></geometry></collision>
+  <collision><origin xyz="-0.1 0 0" rpy="0 0 0"/>
+    <geometry><sphere radius="0.05"/></geometry></collision>
+</link></robot>""",
+    "prism10": f"""<robot name="prism10"><link name="body">{_BOX_INERTIAL}
+  <collision><origin xyz="0 0 0" rpy="0 0 0"/>
+    <geometry><mesh filename="prism10.obj"/></geometry></collision>
+</link></robot>"""}
+
+
+def prism_obj(n: int = 5, radius: float = 0.05, half: float = 0.04) -> str:
+    """A prism over a regular ``n``-gon: ``2 n`` vertices (an ``.obj``)."""
+    import math
+    rows = [f"v {radius * math.cos(2 * math.pi * i / n):.9f} "
+            f"{radius * math.sin(2 * math.pi * i / n):.9f} {z:.9f}"
+            for z in (-half, half) for i in range(n)]
+    return "\n".join(rows) + "\n"
+
+
+def size_model_urdfs(name: str, tmp_dir: str):
+    """``({name: URDF path}, mesh_representation)`` of a model of
+    :data:`SIZE_URDFS` (written, with the prism's mesh, to ``tmp_dir``),
+    or of the three cubes (``"three_cubes"``, the ``cube`` asset three
+    times; ``jax_side`` picks whose)."""
+    import os
+    if name == "three_cubes":
+        from dair_pll_tpu_torch import assets
+        path = assets.get_asset("cube")
+        return {f"cube_{c}": path for c in "abc"}, None
+    if name == "prism10":
+        with open(os.path.join(str(tmp_dir), "prism10.obj"), "w",
+                  encoding="utf-8") as handle:
+            handle.write(prism_obj())
+    path = os.path.join(str(tmp_dir), f"{name}.urdf")
+    with open(path, "w", encoding="utf-8") as handle:
+        handle.write(SIZE_URDFS[name])
+    return {name: path}, "polygon" if name == "prism10" else None
+
+
 #: Base heights of the near-ground states by model: the elbow and the
 #: cubes rest on their boxes; pris2's and the paddle's second body sits
 #: above the base.
@@ -367,6 +419,59 @@ def kernel_case(name: str, urdf_dir: str):
             jmodel, jterms.derive_scalar_params(jmodel, params))
     return jmodel, tmodel, (x, x_plus, u), numpy_params, \
         jax.tree_util.tree_map(np.asarray, ref)
+
+
+def size_transitions(tmodel, rng: np.random.Generator, n: int = 8):
+    """``(x, x_plus)`` of a single free body, ``2 n`` float64 transitions:
+    ``n`` near the ground (``assets.tree_states_near_ground``, the lowest
+    witness within (-4, 10) mm of the plane) with their next state from
+    one step of the port's float64 fused rollout, and ``n`` of them lifted
+    2 cm with a perturbed ``x_plus``."""
+    from dair_pll_tpu_torch import assets
+    from dair_pll_tpu_torch.multibody.learnable_system import (
+        MultibodyLearnableSystem)
+    near = assets.tree_states_near_ground(rng, n, tmodel)
+    system = MultibodyLearnableSystem(tmodel, DT, device="cpu")
+    step = system.simulate_batch(system.initial_params(torch.float64),
+                                 torch.tensor(near), 1, use_fused=True)
+    lifted = near.copy()
+    lifted[:, 6] += 0.02
+    x_plus = lifted + 0.005 * rng.standard_normal(lifted.shape)
+    x_plus[:, :4] /= np.linalg.norm(x_plus[:, :4], axis=-1, keepdims=True)
+    return (np.concatenate([near, lifted]),
+            np.concatenate([step[:, 1].numpy(), x_plus]))
+
+
+@functools.lru_cache(maxsize=None)
+def size_case(name: str, urdf_dir: str):
+    """The JAX package's and the port's models of a model of
+    :data:`SIZE_URDFS`, transitions (:func:`size_transitions`), perturbed
+    parameters and JAX's cold loss, impulses and valid mask (eagerly, as
+    :func:`kernel_case`)."""
+    from dair_pll_tpu.multibody import soa_terms as jterms
+    from dair_pll_tpu.ops import soa_solver as jsolver
+    from dair_pll_tpu.urdf import build_multibody_model as jbuild
+    from dair_pll_tpu_torch.urdf import build_multibody_model as tbuild
+    urdfs, representation = size_model_urdfs(name, urdf_dir)
+    kwargs = ({} if representation is None else
+              {"mesh_representation": representation})
+    jmodel, tmodel = jbuild(urdfs, **kwargs), tbuild(urdfs, **kwargs)
+    rng = np.random.default_rng(sorted(SIZE_URDFS).index(name) + 51)
+    x, x_plus = size_transitions(tmodel, rng)
+    u = np.zeros((x.shape[0], 0))
+    numpy_params = perturbed_params(
+        rng, *params_numpy(jmodel.initial_params(jnp.float64)))
+    eps = jnp.asarray(LOSS_EPS)
+    with jax.disable_jit():
+        M, Jc, phi, qc, dv = _jax_loss_parts(jmodel, jax_params(numpy_params),
+                                             x, u, x_plus)
+        force, valid = jsolver.solve_contact_impulse_soa(M, Jc, qc, eps,
+                                                         *COLD_BUDGET)
+        loss = jterms.soa_loss_assemble(M, Jc, phi, qc, dv, force, valid,
+                                        eps).reshape(-1)
+    ref = {"loss": np.asarray(loss), "force": np.asarray(jnp.stack(force)),
+           "valid": np.asarray(valid).reshape(-1)}
+    return jmodel, tmodel, (x, x_plus, u), numpy_params, ref
 
 
 @functools.lru_cache(maxsize=None)
