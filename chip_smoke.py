@@ -201,7 +201,10 @@ slower (PERF.md).
    numbers, at most SIZE_DIVERGED_SHARE, rerun in float64 must stay
    finite) and the kernels' times and own-count bounds; K4 at (6, 1) on the
    ball's cold loss through its plain terms at 262,144 against plain over
-   chunks; the three cubes (k = 15) on the K6 route, 8 steps at 65,536, K6
+   chunks; a free body with a prism of 20 vertices (a polygon) and a
+   sphere, whose K2 keeps its gradient in the thread's stack: its generic
+   K1, K3 and K2 against plain as above; the three cubes (k = 15) on the
+   K6 route, 8 steps at 65,536, K6
    against plain on those problems and on random ones, float64 and
    float32. ``sharded_experiment``: ``shard_training`` and
    ``shard_evaluation`` in worker processes of this script
@@ -248,6 +251,7 @@ import contextlib
 import functools
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -343,17 +347,21 @@ VMAPPED_B = 256
 VMAPPED_BIG_B = 65536
 VMAPPED_STEPS = 8
 VMAPPED_CHECK_B = 16
-VMAPPED_ROLLOUT_STEPS = 32
+#: The vmapped rollout's steps: 16, half the 32 it ran before, so that the
+#: script keeps to its time limit (``PERF.md`` §4).
+VMAPPED_ROLLOUT_STEPS = 16
 #: The elbow (``examples/contactnets_simple.py``: a free base box, a
 #: revolute hinge, a second box; 15 states, 8 contacts): its trajectory
 #: length, its training batch (the box cube's), the ICNN elbow's loss
 #: batch, the slice of the training batch its kernels are held against
 #: their plain versions on, and the samples the host counts each loss
-#: kernel's operations on (scaled to the timed batch).
+#: kernel's operations on (scaled to the timed batch). The slice's 32,768
+#: transitions are half what they were before, so that the script keeps to
+#: its time limit (``PERF.md`` §4).
 ELBOW_STEPS = 120
 ELBOW_TRAIN_B = 2097152
 ELBOW_ICNN_B = 65536
-ELBOW_SLICE = 65536
+ELBOW_SLICE = 32768
 ELBOW_PLAIN_CHUNK = 16384
 #: Float32 elbow trajectories may leave the finite numbers over the 120
 #: steps: float32 solves at eps = 1e-4 turn rounding into impulses that
@@ -376,11 +384,47 @@ SOLVE_BUDGETS = ((0, 0), (4, 0), (10, 0), (4, 10), (10, 10))
 #: The models whose generic sizes the default host build holds
 #: (``generic_models``); the others are ``size_cover``'s.
 DEFAULT_HOST_MODELS = ("cube_polygon", "elbow", "elbow_polygon")
-#: The generic K1's and K3's design at each size (``kFwdLanes`` of
-#: ``csrc/model_terms.cuh``).
-FWD_DESIGN = {"b2_q8_v7_k8": "terms on one thread a sample, then the solve "
-                             "on 4 lanes a sample (two contacts a lane)",
-              "b1_q7_v6_k4": "one thread a sample"}
+#: The generic K2's design at every size; each size's own choices follow
+#: (``generic_design``).
+BWD_DESIGN = "reverse-mode adjoint, one sweep per sample"
+
+
+def design_text(design: dict, kind: str, k: int) -> str:
+    """The words for a generic kernel's design (``kind`` K1, K3 or K2) of
+    ``soa_loss_kernels.loss_design`` at a size of ``k`` contacts."""
+    lanes = design["lanes"]
+    if kind == "K2":
+        parts = [BWD_DESIGN]
+    elif lanes == 1:
+        parts = ["one thread a sample"]
+    else:
+        parts = [f"terms on one thread a sample, then the solve on {lanes} "
+                 f"lanes a sample ({k // lanes} contacts a lane)"]
+    if design["const_body"]:
+        parts.append("the free body's joint as constants")
+    if kind == "K1" and design["cold_exits"]:
+        parts.append("the cold solve leaves its IPM and Newton loops at "
+                     "their exact fixed points, a warp together")
+    if kind == "K2" and design["grad_shared"]:
+        parts.append("each sample's derived-scalar gradient a column in "
+                     "shared memory")
+    return "; ".join(parts)
+
+
+def generic_design(size: str, kind: str) -> str:
+    """The generic K1's, K3's or K2's design (``kind``) at a size of
+    :func:`generic_sizes`, as its built libraries give it
+    (``soa_loss_kernels.loss_design``): float32's, and float64's after it
+    where that differs."""
+    import torch
+    from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
+    model_size = {s.name: s for s in generic_sizes()}[size]
+    k = sum(model_size.witnesses)
+    f32, f64 = (design_text(lk.loss_design(model_size, dtype), kind, k)
+                for dtype in (torch.float32, torch.float64))
+    return f32 if f32 == f64 else f"{f32} (float64: {f64})"
+
+
 #: The box cube's K1 and K3 (``csrc/contactnets_loss.cuh``).
 CUBE_FWD_DESIGN = "one thread a sample"
 CUBE_K1_DESIGN = ("one thread a sample; the cold solve leaves its IPM and "
@@ -526,8 +570,9 @@ def kernel_instances() -> list:
     """Every kernel instantiation the script's phases launch: K5 and K4 at
     the cube's (6, 4), the elbow's (7, 8) and the ball's (6, 1), K5 at the
     box and sphere's (6, 5), K6 at k = 1, 4, 9 and 15, the box cube's K1-K3
-    and the generic K1-K3 of the polygon cube, the elbow, the ball and the
-    box and sphere body, each in float32 and float64."""
+    and the generic K1-K3 of the polygon cube, the elbow, the ball, the
+    box and sphere body and the wide polygon, each in float32 and
+    float64."""
     import torch
     from dair_pll_tpu_torch.ops import cone_kernels, soa_kernels
     from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
@@ -1104,14 +1149,18 @@ def phase_loss_timing(system, transitions, x_train, xp_train):
     # [0 | I]): they are what its sweep needs on this run's data, counted by
     # the same code on the host (host_adjoint), an invalid sample none,
     # plus the batch sum of dp. Float64 counts the float64 sweep.
+    # Counted on the first COUNT_B samples and scaled, as K1's and K3's.
     k2 = result["K2"]
     p_d, xin_d, xp_d, force_d, ct_d = (
         t.double() for t in (pvec, xin_t, xp_t, cold[1], ct_t))
     host = host_build("adjoint")
     t0 = time.perf_counter()
-    counts = {dtype: host.count(*args, cold[2], ct, DT,
-                                threads=os.cpu_count() or 1)
-              for dtype, (*args, ct) in (
+    scale = n_train / cols.stop
+    counts = {dtype: {key: value * scale for key, value in host.count(
+        p, *(t[..., cols].contiguous() for t in (xin, xp, force)),
+        cold[2][cols].contiguous(), ct[cols].contiguous(), DT,
+        threads=os.cpu_count() or 1).items()}
+              for dtype, (p, xin, xp, force, ct) in (
                   ("float32", (pvec, xin_t, xp_t, cold[1], ct_t)),
                   ("float64", (p_d, xin_d, xp_d, force_d, ct_d)))}
     batch_sum = pvec.numel() * (n_train - 1)
@@ -3203,11 +3252,75 @@ SIZE_URDFS = {
 SIZE_DIVERGED_SHARE = 230 / 8192
 SIZE_TRAIN_B = 2097152
 SIZE_ROLLOUT_STEPS = 128
+#: A free body with a prism over a WIDE_POLYGON_SIDES-gon (twice that many
+#: vertices, as a polygon) and a sphere: the box and sphere body's
+#: witnesses (4 + 1) at a size whose K2 gradient columns would take more
+#: than ``kBwdGradShared``'s 64 KB a block in both types (132 derived
+#: scalars at most), so that K2 keeps them in the thread's stack. At 80
+#: vertices the columns would have needed more shared memory than a block
+#: has (``scripts/probe_loss_lanes.py --model wide_polygon_80``), but its
+#: kernels take minutes to build.
+WIDE_POLYGON_SIDES = 10
 SIZE_K4_B = 262144
 SIZE_PLAIN_CHUNK = 65536
 THREE_CUBES_B = 65536
 THREE_CUBES_CHECK_B = 8192
 THREE_CUBES_STEPS = 8
+
+
+def prism_obj(sides: int, radius: float = 0.05, half: float = 0.04) -> str:
+    """An ``.obj`` of a prism over a regular ``sides``-gon (``2 sides``
+    vertices)."""
+    rows = [f"v {radius * math.cos(2 * math.pi * i / sides):.9f} "
+            f"{radius * math.sin(2 * math.pi * i / sides):.9f} {z:.9f}"
+            for z in (-half, half) for i in range(sides)]
+    return "\n".join(rows) + "\n"
+
+
+def wide_polygon_system(device=None, sides: int = WIDE_POLYGON_SIDES):
+    """The free body of WIDE_POLYGON_SIDES (its prism over a ``sides``-gon
+    a polygon, then a sphere; on the card unless ``device`` says
+    otherwise), from a URDF and a mesh the script writes under
+    ``build/size_cover/``."""
+    from dair_pll_tpu_torch.multibody.learnable_system import (
+        MultibodyLearnableSystem)
+    directory = os.path.join(HERE, "build", "size_cover")
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, f"prism{sides}.obj"), "w",
+              encoding="utf-8") as handle:
+        handle.write(prism_obj(sides))
+    path = os.path.join(directory, f"wide_polygon{sides}.urdf")
+    with open(path, "w", encoding="utf-8") as handle:
+        handle.write(SIZE_URDFS["box_sphere"].replace(
+            '<box size="0.1 0.2 0.3"/>',
+            f'<mesh filename="prism{sides}.obj"/>'))
+    return MultibodyLearnableSystem.from_urdfs(
+        {"wide_polygon": path}, DT, mesh_representation="polygon",
+        device=device)
+
+
+def wide_polygon_readings() -> dict:
+    """The free body of WIDE_POLYGON_SIDES: its generic K1, K3 and K2,
+    built at first use, against their plain versions on 8,192 transitions
+    of its own float64 rollout (``compare_loss_kernels``: K2 launched in
+    both types), and the size's designs in each type
+    (``soa_loss_kernels.loss_design``), whose K2 keeps each sample's
+    gradient in the thread's stack."""
+    import torch
+    from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
+    system = wide_polygon_system()
+    size = lk.model_size(system.model)
+    x64, xp64 = model_transitions(system, states_near_ground(system, B, 23))
+    vs_plain, _ = compare_loss_kernels(system, x64, xp64)
+    designs = {str(dtype).split(".")[1]: lk.loss_design(size, dtype)
+               for dtype in (torch.float32, torch.float64)}
+    if any(d["grad_shared"] for d in designs.values()):
+        raise AssertionError(f"{size.name}: K2's gradient columns past "
+                             "64 KB a block")
+    return {"size": size.name, "vertices": 2 * WIDE_POLYGON_SIDES,
+            "n_params": lk.derived_size(system.model),
+            "witnesses": list(system.model.contacts_per_pair),
+            "designs": designs, "loss_kernels_vs_plain": vs_plain}
 
 
 def size_systems(device=None) -> dict:
@@ -3232,7 +3345,7 @@ def size_systems(device=None) -> dict:
 def generic_models() -> dict:
     """The models of the phases that run the generic loss kernels, on the
     CPU, by name: the polygon cube, the elbow in boxes and in polygons,
-    the ball and the box and sphere body."""
+    the ball, the box and sphere body and the wide polygon."""
     from dair_pll_tpu_torch import assets
     from dair_pll_tpu_torch.multibody.learnable_system import (
         MultibodyLearnableSystem)
@@ -3243,7 +3356,8 @@ def generic_models() -> dict:
         "elbow": elbow_system(device="cpu"),
         "elbow_polygon": elbow_system("elbow_mesh", device="cpu",
                                       mesh_representation="polygon"),
-        **size_systems("cpu")}
+        **size_systems("cpu"),
+        "wide_polygon": wide_polygon_system("cpu")}
     return {name: system.model for name, system in systems.items()}
 
 
@@ -3393,11 +3507,20 @@ def size_model_readings(name: str, system, seed: int) -> dict:
                       "launches_by": rollout_launches}
     # Times and bounds of the loss kernels at the training batch.
     small = tuple(t[:, :B].contiguous() for t in (x.T, x_plus.T))
-    timing = generic_loss_timing(system, pvec, x.T.contiguous(),
-                                 x_plus.T.contiguous(), small, reps=3,
+    xin_t, xp_t = x.T.contiguous(), x_plus.T.contiguous()
+    timing = generic_loss_timing(system, pvec, xin_t, xp_t, small, reps=3,
                                  with_float64=True)
     for kernel_name, lines in loss_ptxas(size.name).items():
         timing[kernel_name].update(lines)
+        timing[kernel_name]["design"] = generic_design(size.name,
+                                                       kernel_name)
+    # Where K1's and K3's time goes: the terms, an IPM and a Newton
+    # iteration (budget_timing).
+    fprev = lk.fused_loss_fwd(model, pvec, xin_t, xp_t, DT, LOSS_EPS,
+                              *COLD_BUDGET)[1]
+    timing["budgets"] = budget_timing(model, pvec, xin_t, xp_t, fprev,
+                                      reps=3)
+    del fprev, xin_t, xp_t
     out["loss_timing"] = timing
     # K5's time at the rollout's QPs, its bound from its own body.
     qps32 = tuple(t.float() for t in qps)
@@ -3541,13 +3664,15 @@ def phase_size_cover() -> dict:
     """Every size of the JAX kernels' cover on the card (phase 14): the
     ball and the box and sphere body (generic K1-K3 built at first use,
     trained at SIZE_TRAIN_B; K5 at (6, 1) and (6, 5) in their rollouts;
-    K4 at (6, 1) on the ball's cold loss) and the three cubes on the K6
-    route at k = 15. One JSON line each: ``size_cover_<model>``."""
+    K4 at (6, 1) on the ball's cold loss), the wide polygon's loss
+    kernels against plain (``wide_polygon_readings``) and the three cubes
+    on the K6 route at k = 15. One JSON line each:
+    ``size_cover_<model>``."""
     import torch
     from dair_pll_tpu_torch.ops import soa_kernels
     start_host_builds()
     new_sizes = ("nv6_k1", "nv6_k5", "_k15_", "b1_q7_v6_k1_w1",
-                 "b1_q7_v6_k5_w4_1")
+                 "b1_q7_v6_k5_w4_1")  # and the wide polygon's _n20
     emit({"phase": "size_cover_builds", "instances": {
         name: {"seconds": reading["seconds"],
                "ptxas": ptxas_of(reading["log"])}
@@ -3562,6 +3687,11 @@ def phase_size_cover() -> dict:
         out[name]["seconds"] = time.perf_counter() - t0
         emit({"phase": f"size_cover_{name}", **out[name]})
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["wide_polygon"] = wide_polygon_readings()
+    out["wide_polygon"]["seconds"] = time.perf_counter() - t0
+    emit({"phase": "size_cover_wide_polygon", **out["wide_polygon"]})
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     out["three_cubes"] = three_cubes_readings()
     out["three_cubes"]["seconds"] = time.perf_counter() - t0
@@ -4912,8 +5042,7 @@ def size_cover_rows(sizes: dict) -> list:
                 f"dair_pll_tpu/ops/soa_loss_pallas.py:{line}",
                 entry["train"]["launches_by"][kind][size],
                 entry["loss_kernels_vs_plain"][kind], timing,
-                "reverse-mode adjoint, one sweep per sample"
-                if kind == "K2" else "one thread a sample")
+                generic_design(size, kind))
     ball = sizes["ball"]["K4"]
     row("cold_hybrid_solve_nv6_k1", "cold_hybrid_solve.cuh",
         "dair_pll_tpu/ops/soa_pallas.py:59",
@@ -5252,8 +5381,7 @@ def main(argv=None) -> int:
                 "ms": times[name]["ms"],
                 **({"ms_float64": times[name]["ms_float64"]}
                    if "ms_float64" in times[name] else {}),
-                "design": ("reverse-mode adjoint, one sweep per sample"
-                           if name == "K2" else FWD_DESIGN[size]),
+                "design": generic_design(size, name),
                 "plain_ms": times[name]["plain_ms"],
                 "bound_ms": times[name]["bound_ms"],
                 "bound_by": times[name]["bound_by"],

@@ -32,15 +32,28 @@
 // the sort's keys take no cotangent, and each witness's goes to the vertex
 // the forward picked; a failed solve (valid false) gives exactly 0, and so
 // do the configuration rows of xin, which the loss does not read. eps does
-// not enter the gradient at a fixed impulse. Spheres are outside the
-// generic kernels' cover (soa_loss_kernels.generic_size), so no witness
-// here depends on the support direction.
+// not enter the gradient at a fixed impulse. A box's or a polygon's
+// witness is a vertex, whose cotangent goes to its shape scalars alone; a
+// sphere's is its radius along the support direction, so its cotangent
+// goes to the radius and, through the direction, to the frames
+// (contact_terms_vjp).
 #pragma once
 
 #include "cube_adjoint.cuh"
 #include "model_terms.cuh"
 
 namespace {
+
+// The derived-scalar gradient of one sample as a column of a block's
+// shared array, entry i at base[i * stride]: runtime indices (a geometry's
+// friction and shape) reach shared memory, not a thread's local stack.
+template <typename S> struct GradColumn {
+  S* base;
+  int stride;
+  __device__ __forceinline__ S& operator[](int i) const {
+    return base[i * stride];
+  }
+};
 
 // Forward terms the sweep recomputes from the frames instead of keeping
 // them from the forward sweep (pair_terms, witness_offsets, body_terms,
@@ -173,14 +186,14 @@ __device__ __forceinline__ void geometry_rates(const GeomDesc& g,
 
 // The contact terms' adjoint for pair pp: J's cotangent f u' + [0; sb] vp'
 // and phi's phi_bar -> the frame cotangents Fh and the derived scalars'
-// g_p (friction, shape).
-template <typename S, typename Z>
+// g_p (friction, shape; GP a pointer or GradColumn).
+template <typename S, typename Z, typename GP>
 __device__ void contact_terms_vjp(const ModelDesc<Z>& desc, const S* p,
                                   const Frame<S, Z::NV> (&F)[Z::NB], int pp,
                                   const S (&f)[3][Z::K], const S (&sb)[2][Z::K],
                                   const S (&phi_bar)[Z::K],
                                   const S (&u)[Z::NV], const S (&vp)[Z::NV],
-                                  S* g_p, Frame<S, Z::NV> (&Fh)[Z::NB]) {
+                                  GP g_p, Frame<S, Z::NV> (&Fh)[Z::NB]) {
   const GeomDesc& ga = desc.plane[pp];
   const GeomDesc& gb = desc.convex[pp];
   const bool a_moves = ga.body >= 0, b_moves = gb.body >= 0;
@@ -360,12 +373,12 @@ __device__ void contact_terms_vjp(const ModelDesc<Z>& desc, const S* p,
 // The Lagrangian terms' adjoint for body b: M's cotangent Mb (symmetric,
 // both triangles) and F's Fb -> the frame cotangent Fh[b] (values and
 // rates), the body's inertial scalars' g_p, and vp_bar.
-template <typename S, typename Z>
+template <typename S, typename Z, typename GP>
 __device__ void lagrangian_terms_vjp(const S* p,
                                      const Frame<S, Z::NV>& f, int b,
                                      const S (&vp)[Z::NV],
                                      const S (&Mb)[Z::NV][Z::NV],
-                                     const S (&Fb)[Z::NV], S* g_p,
+                                     const S (&Fb)[Z::NV], GP g_p,
                                      S (&vp_bar)[Z::NV],
                                      Frame<S, Z::NV>& fh) {
   constexpr int NV = Z::NV;
@@ -516,19 +529,19 @@ __device__ void lagrangian_terms_vjp(const S* p,
   }
   // The inertial scalars: mass, first moments (c_B = p[1:4] / mass),
   // inertia [Ixx, Iyy, Izz, Ixy, Ixz, Iyz].
-  S* g = g_p + 10 * b;
+  const int g = 10 * b;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    g[1 + k] = g[1 + k] + cB_bar[k] / o.mass;
+    g_p[g + 1 + k] = g_p[g + 1 + k] + cB_bar[k] / o.mass;
     mass_bar = mass_bar - cB_bar[k] * o.c_B[k] / o.mass;
   }
-  g[0] = g[0] + mass_bar;
-  g[4] = g[4] + IB_bar[0][0];
-  g[5] = g[5] + IB_bar[1][1];
-  g[6] = g[6] + IB_bar[2][2];
-  g[7] = g[7] + (IB_bar[0][1] + IB_bar[1][0]);
-  g[8] = g[8] + (IB_bar[0][2] + IB_bar[2][0]);
-  g[9] = g[9] + (IB_bar[1][2] + IB_bar[2][1]);
+  g_p[g] = g_p[g] + mass_bar;
+  g_p[g + 4] = g_p[g + 4] + IB_bar[0][0];
+  g_p[g + 5] = g_p[g + 5] + IB_bar[1][1];
+  g_p[g + 6] = g_p[g + 6] + IB_bar[2][2];
+  g_p[g + 7] = g_p[g + 7] + (IB_bar[0][1] + IB_bar[1][0]);
+  g_p[g + 8] = g_p[g + 8] + (IB_bar[0][2] + IB_bar[2][0]);
+  g_p[g + 9] = g_p[g + 9] + (IB_bar[1][2] + IB_bar[2][1]);
   // The frame's cotangent: values in .d, rates in .v (Jv_dot's is
   // acm_bar vp').
 #pragma unroll
@@ -562,7 +575,7 @@ __device__ void body_kinematics_vjp(const ModelDesc<Z>& desc,
   const X zero = cst<X>(0.0), one = cst<X>(1.0);
 #pragma unroll
   for (int b = Z::NB - 1; b >= 0; --b) {
-    const BodyDesc& bd = desc.body[b];
+    const auto& bd = body_desc<Z>(desc, b);
     const Frame<S, NV>& f = F[b];
     Frame<S, NV>& fh = Fh[b];
     if (bd.joint == kJointFree) {
@@ -735,7 +748,7 @@ __device__ void configuration_rate_vjp(const ModelDesc<Z>& desc,
                                        S (&vp_bar)[Z::NV]) {
 #pragma unroll
   for (int b = 0; b < Z::NB; ++b) {
-    const BodyDesc& bd = desc.body[b];
+    const auto& bd = body_desc<Z>(desc, b);
     if (bd.joint == kJointFree) {
       const int o = bd.q_off, w = bd.v_off;
       const S q0 = pick<Z::NQ>(q, o), q1 = pick<Z::NQ>(q, o + 1),
@@ -763,17 +776,18 @@ __device__ void configuration_rate_vjp(const ModelDesc<Z>& desc,
 }
 
 // K2's body: the gradient of ct * L for one sample with respect to the
-// n_params derived scalars (g_p), the velocity and actuation rows of xin
+// n_params derived scalars (g_p: a pointer to them, or the sample's
+// GradColumn), the velocity and actuation rows of xin
 // (g_xin, whose configuration rows get exactly 0) and the rows of xp
 // (g_xp), at the saved impulse f. A failed solve's loss is 0, and so is
 // its gradient. Inline in the kernel: as an out-of-line call the sweep ran
 // some 7% slower in float32.
-template <typename S, typename Z>
+template <typename S, typename Z, typename GP>
 __device__ __forceinline__ void model_loss_vjp(const ModelDesc<Z>& desc, const S* p,
                                const S (&xin)[Z::NX + Z::NU],
                                const S (&xp)[Z::NX],
                                const S (&f)[3][Z::K], bool valid, S ct, S dt,
-                               S* g_p, S (&g_xin)[Z::NX + Z::NU],
+                               GP g_p, S (&g_xin)[Z::NX + Z::NU],
                                S (&g_xp)[Z::NX]) {
   constexpr int NV = Z::NV, NQ = Z::NQ, NU = Z::NU, K = Z::K;
 #pragma unroll
@@ -880,8 +894,9 @@ __device__ __forceinline__ void model_loss_vjp(const ModelDesc<Z>& desc, const S
 #pragma unroll
   for (int b = 0; b < Z::NB; ++b) {
     lagrangian_terms_vjp<S, Z>(p, F[b], b, vp, Mb, Fb, g_p, vp_bar, Fh[b]);
-    const int row = desc.body[b].u_index;
-    if (row >= 0) add_at<NU>(u_bar, row, pick<NV>(Fb, desc.body[b].v_off));
+    const auto& bd = body_desc<Z>(desc, b);
+    if (bd.u_index >= 0)
+      add_at<NU>(u_bar, bd.u_index, pick<NV>(Fb, bd.v_off));
   }
 
   // The kinematic tree, then qdot = configuration_rate(q, vp).

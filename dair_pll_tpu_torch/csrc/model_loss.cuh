@@ -21,13 +21,13 @@
 // scalars from SMEM; here each block stages them in shared memory.
 //
 // K2 is one reverse-mode sweep per sample (model_loss_vjp,
-// model_adjoint.cuh): K1's terms once forward in plain arithmetic, then
-// their adjoint, written out by hand, back through the assembly, the
-// contact and Lagrangian terms and the kinematic tree. Each thread keeps
-// its sample's derived-scalar gradient; a warp sums it with shuffles in a
-// fixed tree, the block its warps in order, and a second pass the blocks'
-// partials in a fixed order. No atomics: float64 results repeat bit for
-// bit.
+// model_adjoint.cuh), one thread a sample at every size: K1's terms once
+// forward in plain arithmetic, then their adjoint, written out by hand,
+// back through the assembly, the contact and Lagrangian terms and the
+// kinematic tree. Each thread keeps its sample's derived-scalar gradient;
+// a warp sums it with shuffles in a fixed tree, the block its warps in
+// order, and a second pass the blocks' partials in a fixed order. No
+// atomics: float64 results repeat bit for bit.
 //
 // What bounds them on an H100 (the elbow, float32, B = 2,097,152): K1 and K3
 // read 15 + 15 values (K3 24 more) and write 26 per sample, some 0.14 ms of
@@ -47,8 +47,26 @@
 // exchanging the sums over contacts through its group's slots in shared
 // memory, folded in contact order, so the results are one thread's bit
 // for bit. The terms stay on one thread: on every lane they cost L times
-// their issue slots. K2 keeps one thread a sample.
+// their issue slots. Elsewhere one thread a sample runs terms, solve and
+// loss in one kernel: at the polygon cube's k = 4 and the box and sphere
+// body's k = 5 lanes lost to it in float32 (fewer samples in flight, each
+// lane repeating the sample's factors).
+//
+// At one free body's sizes (kConstFreeBody of model_terms.cuh: one free
+// body, but the polygon cube's (6, 4)) the body's joint is a compile-time
+// constant in the three kernels, K1's cold solve leaves its loops at their
+// exact fixed points, a warp together (kFwdColdExits; the threads past the
+// batch solve its last sample again, so that every lane of a warp meets
+// each exit), and K2 keeps each sample's gradient as a column of the
+// block's dynamic shared memory where the columns take at most 64 KB
+// (kBwdGradShared, GradColumn), so that the sweep's runtime indices (a
+// geometry's friction and shape scalars) do not put it in the thread's
+// local stack. At the box and sphere body's (6, 5) these took float32 K1
+// from 28.5-28.9 to 22.8-23.0 ms and K2 from 8.7-9.0 to 3.0-3.2 (its
+// spills 2,064 -> 596 B); K3 stayed at 19.2-19.6 (PERF.md §6).
 #pragma once
+
+#include <type_traits>
 
 #include "model_adjoint.cuh"
 
@@ -100,6 +118,11 @@ __device__ __forceinline__ void store_model_solution(
       force[(i * Z::K + lane * KL + c) * B + b] = f[i][c];
 }
 
+// K1's group of one thread a sample: WarpSolo where its solve takes the
+// exits (kFwdColdExits), whose warps leave the loops together.
+template <typename Z>
+using OneThread = std::conditional_t<kFwdColdExits<Z>, WarpSolo, Solo>;
+
 // K1 and K3 at L = 1: one thread a sample, terms, solve and loss.
 template <typename S, typename Z>
 __global__ void __launch_bounds__(kModelThreads) model_loss_fwd_kernel(
@@ -110,14 +133,20 @@ __global__ void __launch_bounds__(kModelThreads) model_loss_fwd_kernel(
     int ipm_iterations, int newton_iterations) {
   __shared__ S shared_p[Z::PMAX];
   stage_params<S, Z>(desc, pvec, shared_p);
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  // A thread past the batch returns, or, where the warp leaves the
+  // solve's loops together (kFwdColdExits), solves the last sample again
+  // and writes nothing.
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (!kFwdColdExits<Z> && t >= B) return;
+  const long long b = t < B ? t : B - 1;
   S x[Z::NX + Z::NU], x_plus[Z::NX], f[3][Z::K];
   load_model_states<S, Z>(desc, xin, xp, B, b, x, x_plus);
   bool ok;
-  const S l = model_loss_cold<S, Z>(desc, shared_p, x, x_plus, S(dt), eps,
-                                    ipm_iterations, newton_iterations, f, ok);
-  store_model_solution<S, Z, 1>(l, f, ok, B, b, 0, loss, force, valid);
+  const S l = model_loss_cold<S, Z, OneThread<Z>>(
+      desc, shared_p, x, x_plus, S(dt), eps, ipm_iterations,
+      newton_iterations, f, ok);
+  if (t < B)
+    store_model_solution<S, Z, 1>(l, f, ok, B, b, 0, loss, force, valid);
 }
 
 template <typename S, typename Z>
@@ -222,10 +251,41 @@ model_loss_fwd_warm_lanes_kernel(const S* __restrict__ pack,
                                   valid);
 }
 
+// Whether K2 keeps each sample's derived-scalar gradient in shared memory
+// (a column of the block's array a thread, GradColumn) rather than in the
+// thread's local stack, where the sweep's runtime indices put it: at the
+// sizes of kConstFreeBody whose columns of PMAX scalars of S take at most
+// 64 KB a block (the box and sphere body's 60 in float64, the largest
+// measured). A larger size, as a polygon of many vertices, keeps the local
+// array, which holds any size.
+template <typename S, typename Z>
+constexpr bool kBwdGradShared =
+    kConstFreeBody<Z> &&
+    (size_t)Z::PMAX * kModelBwdThreads * sizeof(S) <= 64 * 1024;
+
+// K2's dynamic shared memory: the gradient columns of kBwdGradShared.
+template <typename S, typename Z>
+inline size_t model_bwd_shared(int n_params) {
+  return kBwdGradShared<S, Z>
+             ? (size_t)n_params * kModelBwdThreads * sizeof(S)
+             : 0;
+}
+
+// A size's designs in S as bits, for reports (soa_loss_kernels.loss_design
+// reads them from the built K2 library): K1's and K3's lanes a sample in
+// bits 0-7, the free body's joint as constants in bit 8, K1's cold exits
+// in bit 9, K2's gradient columns in shared memory in bit 10.
+template <typename S, typename Z> constexpr int model_design() {
+  return kFwdLanes<Z> | int(kConstFreeBody<Z>) << 8 |
+         int(kFwdColdExits<Z>) << 9 | int(kBwdGradShared<S, Z>) << 10;
+}
+
 // K2, first pass: each thread's sample (model_loss_vjp, one reverse-mode
 // sweep) writes the state gradients; each warp sums its samples'
 // derived-scalar gradients with shuffles, and the block its warps in
-// order, into partial (n_blocks, n_params).
+// order, into partial (n_blocks, n_params). The gradient of a sample lies
+// in the thread's local array g_p, or (kBwdGradShared) in its column of
+// the block's dynamic shared memory.
 template <typename S, typename Z>
 __global__ void __launch_bounds__(kModelBwdThreads) model_loss_bwd_kernel(
     const __grid_constant__ ModelDesc<Z> desc, const S* __restrict__ pvec,
@@ -240,7 +300,17 @@ __global__ void __launch_bounds__(kModelBwdThreads) model_loss_bwd_kernel(
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const long long b = (long long)blockIdx.x * blockDim.x + tid;
   const int n_p = desc.n_params;
-  S g_p[Z::PMAX];
+  constexpr bool shared_grad = kBwdGradShared<S, Z>;
+  using Grad = std::conditional_t<shared_grad, GradColumn<S>, S*>;
+  S g_local[shared_grad ? 1 : Z::PMAX];
+  Grad g_p;
+  if constexpr (shared_grad) {
+    extern __shared__ __align__(16) unsigned char model_bwd_columns[];
+    g_p = GradColumn<S>{reinterpret_cast<S*>(model_bwd_columns) + tid,
+                        kModelBwdThreads};
+  } else {
+    g_p = g_local;
+  }
   if (b < B) {
     S x[Z::NX + Z::NU], x_plus[Z::NX], f[3][Z::K];
     load_model_states<S, Z>(desc, xin, xp, B, b, x, x_plus);
@@ -357,8 +427,15 @@ int launch_model_bwd(const void* desc, const void* pvec, const void* xin,
                      void* dxp, long long B, double dt, void* stream) {
   const ModelDesc<Z>& d = *(const ModelDesc<Z>*)desc;
   const long long n_blocks = model_blocks(B, kModelBwdThreads);
+  const size_t shared = model_bwd_shared<S, Z>(d.n_params);
+  if (shared > 48 * 1024 &&
+      cudaFuncSetAttribute(model_loss_bwd_kernel<S, Z>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)shared) != cudaSuccess)
+    return (int)cudaGetLastError();
   model_loss_bwd_kernel<S, Z>
-      <<<(unsigned)n_blocks, kModelBwdThreads, 0, (cudaStream_t)stream>>>(
+      <<<(unsigned)n_blocks, kModelBwdThreads, shared,
+         (cudaStream_t)stream>>>(
           d, (const S*)pvec, (const S*)xin, (const S*)xp, (const S*)force,
           (const unsigned char*)valid, (const S*)ct, (S*)partial, (S*)dxin,
           (S*)dxp, B, dt);

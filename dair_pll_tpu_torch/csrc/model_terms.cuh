@@ -218,6 +218,34 @@ template <typename Z> struct ModelDesc {
   int n_params, n_u;
 };
 
+// Whether a size's kernels take its body's joint as compile-time
+// constants. One body with 7 coordinates and 6 velocities has one free
+// joint, parented to the world, at the start of q and v and unactuated;
+// as constants, the kinematics' runtime offsets (pick, put) become fixed
+// indices and the other joints' code drops out, with the same arithmetic.
+// The polygon cube's (6, 4) keeps reading them from the descriptor.
+template <typename Z>
+constexpr bool kConstFreeBody =
+    Z::NB == 1 && Z::NQ == 7 && Z::NV == 6 && Z::K != 4;
+
+// Body b's descriptor: a copy with the free body's fields as constants at
+// the sizes of kConstFreeBody, else the descriptor's own entry.
+template <typename Z>
+__device__ __forceinline__ decltype(auto) body_desc(const ModelDesc<Z>& desc,
+                                                    int b) {
+  if constexpr (kConstFreeBody<Z>) {
+    BodyDesc bd = desc.body[b];
+    bd.joint = kJointFree;
+    bd.parent = -1;
+    bd.q_off = 0;
+    bd.v_off = 0;
+    bd.u_index = -1;
+    return bd;
+  } else {
+    return (desc.body[b]);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // soa_body_kinematics with its JVP along qdot: each body's world pose and
 // angular and linear Jacobians, every entry a Dual (value, rate).
@@ -266,7 +294,7 @@ __device__ void body_kinematics(const ModelDesc<Z>& desc,
   const X zero = cst<X>(0.0), one = cst<X>(1.0);
 #pragma unroll
   for (int b = 0; b < Z::NB; ++b) {
-    const BodyDesc& bd = desc.body[b];
+    const auto& bd = body_desc<Z>(desc, b);
     Frame<T, NV>& f = F[b];
     if (bd.joint == kJointFree) {
       X quat[4];
@@ -381,7 +409,7 @@ __device__ void configuration_rate(const ModelDesc<Z>& desc,
   for (int i = 0; i < Z::NQ; ++i) qdot[i] = T(B(0));
 #pragma unroll
   for (int b = 0; b < Z::NB; ++b) {
-    const BodyDesc& bd = desc.body[b];
+    const auto& bd = body_desc<Z>(desc, b);
     if (bd.joint == kJointFree) {
       const T qw = pick<Z::NQ>(q, bd.q_off), qx = pick<Z::NQ>(q, bd.q_off + 1),
               qy = pick<Z::NQ>(q, bd.q_off + 2),
@@ -779,12 +807,12 @@ __device__ void lagrangian_terms(const ModelDesc<Z>& desc,
     for (int j = i + 1; j < NV; ++j) M[i][j] = M[j][i];
 #pragma unroll
   for (int b = 0; b < Z::NB; ++b) {
-    const int row = desc.body[b].u_index;
-    if (row >= 0) {
-      const T ub = pick<Z::NU>(u, row);
+    const auto& bd = body_desc<Z>(desc, b);
+    if (bd.u_index >= 0) {
+      const T ub = pick<Z::NU>(u, bd.u_index);
 #pragma unroll
       for (int i = 0; i < NV; ++i)
-        if (i == desc.body[b].v_off) Fo[i] = Fo[i] + ub;
+        if (i == bd.v_off) Fo[i] = Fo[i] + ub;
     }
   }
 }
@@ -918,11 +946,22 @@ __device__ __forceinline__ void model_parts_at(const ModelDesc<Z>& desc,
 // Lanes a sample in the card's K1 and K3 at a size: two contacts a lane
 // (the elbow's k = 8 on 4 lanes); one thread a sample at k = 4, where the
 // lanes' repeated whole-sample work costs more than the one thread's
-// spills (PERF.md §6), and wherever two contacts a lane do not make a
-// group that divides a warp (odd k; k / 2 not a power of two).
+// spills, and wherever two contacts a lane do not make a group that
+// divides a warp (odd k; k / 2 not a power of two). At the box and sphere
+// body's k = 5, one contact a lane (five lanes, six groups a warp) took
+// float32 K1 and K3 from 23 and 19 ms to 49 and 38, and the terms on a
+// kernel of their own before the solve on one thread a sample took K3 to
+// 18.6-18.8 ms in float32 but from 65 to 71 in float64 (PERF.md §6).
 template <typename Z>
 constexpr int kFwdLanes =
     Z::K > 4 && Z::K % 2 == 0 && 32 % (Z::K / 2) == 0 ? Z::K / 2 : 1;
+
+// Whether K1's cold solve leaves its IPM and SAP-Newton loops at their
+// exact fixed points (hybrid_solve.cuh's exits: the same bits), a warp
+// together on the card: at the sizes of kConstFreeBody (at the box and
+// sphere body's size they took float32 K1 from 28.1 to 22.8-23.1 ms; the
+// warm solve's exits gained K3 nothing there).
+template <typename Z> constexpr bool kFwdColdExits = kConstFreeBody<Z>;
 
 // What the solve and the assembly of a sample need, on one lane of its
 // group: the problem with the lane's contacts' columns (M whole), dv, and
@@ -1008,8 +1047,8 @@ __device__ S lane_loss_cold(const LaneParts<S, Z, G>& lane, double eps,
                             S (&force)[3][Z::K / G::kLanes], bool& valid,
                             const G& g) {
   constexpr int KL = Z::K / G::kLanes;
-  valid = cold_hybrid_solve<S, Z::NV, KL, G>(lane.P, ipm_iterations,
-                                             newton_iterations, force, g);
+  valid = cold_hybrid_solve<S, Z::NV, KL, G, kFwdColdExits<Z>>(
+      lane.P, ipm_iterations, newton_iterations, force, g);
   return model_loss_assemble<S, Z::NV, KL, G>(lane.P.M, lane.dv, lane.P.J,
                                               lane.P.q, lane.phi, force,
                                               valid, S(eps), g);
@@ -1035,32 +1074,34 @@ __device__ S lane_loss_warm(const LaneParts<S, Z, G>& lane,
 }
 
 // The terms of one sample, handed to its solve on the same thread.
-template <typename S, typename Z>
+template <typename S, typename Z, typename G = Solo>
 __device__ __forceinline__ void model_parts_one(
     const ModelDesc<Z>& desc, const S* p, const S (&xin)[Z::NX + Z::NU],
-    const S (&xp)[Z::NX], S dt, double eps, LaneParts<S, Z, Solo>& out) {
+    const S (&xp)[Z::NX], S dt, double eps, LaneParts<S, Z, G>& out) {
   S pack[kPackValues<Z>];
   {
     ModelParts<S, Z> lp;
     model_parts_at<S, Z>(desc, p, xin, xp, dt, lp);
     pack_problem<S, Z>(lp, pack, 1);
   }
-  unpack_problem<S, Z, Solo>(pack, 1, eps, Solo(), out);
+  unpack_problem<S, Z, G>(pack, 1, eps, G(), out);
 }
 
-// K1's body on one thread: terms, the cold hybrid solve, the loss. Writes
-// the impulse; returns the loss and sets valid. The actuation rows of xin
-// past n_u are never read by the terms (no body's u_index reaches them).
-template <typename S, typename Z>
+// K1's body on one thread (G: Solo, or on the card WarpSolo, whose warp
+// leaves the solve's loops together): terms, the cold hybrid solve, the
+// loss. Writes the impulse; returns the loss and sets valid. The actuation
+// rows of xin past n_u are never read by the terms (no body's u_index
+// reaches them).
+template <typename S, typename Z, typename G = Solo>
 __device__ S model_loss_cold(const ModelDesc<Z>& desc, const S* p,
                              const S (&xin)[Z::NX + Z::NU],
                              const S (&xp)[Z::NX], S dt, double eps,
                              int ipm_iterations, int newton_iterations,
                              S (&force)[3][Z::K], bool& valid) {
-  LaneParts<S, Z, Solo> lane;
-  model_parts_one<S, Z>(desc, p, xin, xp, dt, eps, lane);
-  return lane_loss_cold<S, Z, Solo>(lane, eps, ipm_iterations,
-                                    newton_iterations, force, valid, Solo());
+  LaneParts<S, Z, G> lane;
+  model_parts_one<S, Z, G>(desc, p, xin, xp, dt, eps, lane);
+  return lane_loss_cold<S, Z, G>(lane, eps, ipm_iterations,
+                                 newton_iterations, force, valid, G());
 }
 
 // K3's body on one thread: as K1, warm-started from f_prev.

@@ -558,8 +558,9 @@ static void run_lanes(const ModelDesc<Z>& desc, const double* pvec,
 // One kind of body over the samples [lo, hi) of n batch-minor ones: the
 // cold or warm loss (fin: the previous impulse) writing loss, force and
 // valid, or the gradient (fin: the saved impulse) writing dp (n, P), dxin
-// and dxp; outputs are skipped when null.
-template <typename S, typename B, typename Z>
+// and dxp; outputs are skipped when null. kVjpOnly builds the gradient's
+// branch alone.
+template <typename S, typename B, typename Z, bool kVjpOnly = false>
 static void run(int kind, const ModelDesc<Z>& desc, const B* pvec,
                 const B* xin, const B* xp, const B* fin,
                 const unsigned char* valid_in, const B* ct, long long n,
@@ -594,18 +595,48 @@ static void run(int kind, const ModelDesc<Z>& desc, const B* pvec,
       for (int i = 0; i < NX; ++i) dxp[i * n + b] = B(V::out(g_xp[i]));
       continue;
     }
-    bool ok;
-    const S l = kind == kCold
-                    ? model_loss_cold<S, Z>(desc, p, x, x_plus, dt_s, eps, ipm,
-                                            newton, f, ok)
-                    : model_loss_warm<S, Z>(desc, p, x, x_plus, f_in, dt_s,
-                                            eps, ipm, newton, f, ok);
-    if (loss == nullptr) continue;
-    loss[b] = B(V::out(l));
-    for (int i = 0; i < 3; ++i)
-      for (int c = 0; c < K; ++c) force[(i * K + c) * n + b] = B(V::out(f[i][c]));
-    valid[b] = ok ? 1 : 0;
+    if constexpr (!kVjpOnly) {
+      bool ok;
+      const S l = kind == kCold
+                      ? model_loss_cold<S, Z>(desc, p, x, x_plus, dt_s, eps,
+                                              ipm, newton, f, ok)
+                      : model_loss_warm<S, Z>(desc, p, x, x_plus, f_in, dt_s,
+                                              eps, ipm, newton, f, ok);
+      if (loss == nullptr) continue;
+      loss[b] = B(V::out(l));
+      for (int i = 0; i < 3; ++i)
+        for (int c = 0; c < K; ++c)
+          force[(i * K + c) * n + b] = B(V::out(f[i][c]));
+      valid[b] = ok ? 1 : 0;
+    }
   }
+}
+
+// A size Z read as the kernels read sizes outside kConstFreeBody: the
+// body's joint from the descriptor (the generic K2's sweep before the
+// free body's constants), with Z's descriptor layout.
+template <typename Z> struct DescBody : Z {};
+namespace {
+template <typename Z> constexpr bool kConstFreeBody<DescBody<Z>> = false;
+}  // namespace
+
+// K2's sweep in float64 at a size of kConstFreeBody with the joint read
+// from the descriptor (DescBody), as HOST_ENTRIES' model_host at kVjp;
+// returns 1 at other sizes, whose kernels read it there already.
+template <typename Z>
+static int vjp_desc_body(const void* desc, const double* pvec,
+                         const double* xin, const double* xp,
+                         const double* fin, const unsigned char* valid_in,
+                         const double* ct, long long n, double dt, double* dp,
+                         double* dxin, double* dxp) {
+  if constexpr (kConstFreeBody<Z>) {
+    run<double, double, DescBody<Z>, true>(
+        kVjp, *(const ModelDesc<DescBody<Z>>*)desc, pvec, xin, xp, fin,
+        valid_in, ct, n, 0, n, dt, 0.0, 0, 0, nullptr, nullptr, nullptr, dp,
+        dxin, dxp);
+    return 0;
+  }
+  return 1;
 }
 
 // Runs body(lo, hi) over the samples [lo, hi) of n split among `threads`
@@ -660,6 +691,14 @@ static void count(int kind, const ModelDesc<Z>& desc, const B* pvec,
                            loss, force, valid, dp, dxin, dxp);               \
   }                                                                          \
   extern "C" int model_fwd_lanes_##NAME() { return kFwdLanes<Z>; }          \
+  extern "C" int model_vjp_desc_body_##NAME(                                 \
+      const void* desc, const double* pvec, const double* xin,               \
+      const double* xp, const double* fin, const unsigned char* valid_in,    \
+      const double* ct, long long n, double dt, double* dp, double* dxin,    \
+      double* dxp) {                                                         \
+    return vjp_desc_body<Z>(desc, pvec, xin, xp, fin, valid_in, ct, n, dt,   \
+                            dp, dxin, dxp);                                  \
+  }                                                                          \
   extern "C" int model_lanes_host_##NAME(                                    \
       int lanes, const void* desc, const double* pvec, const double* xin,    \
       const double* xp, const double* fin, long long n, double dt,           \
@@ -991,6 +1030,7 @@ extern "C" void cube_host_f64(int exits, const double* pvec,
 _KINDS = {"cold": 0, "warm": 1, "vjp": 2}
 _HOST_ARGS = [_I, _P] + [_P] * 6 + [_LL, _D, _D, _I, _I] + [_P] * 6
 _LANES_ARGS = [_I] + [_P] * 5 + [_LL, _D, _D, _I, _I] + [_P] * 3
+_VJP_ARGS = [_P] * 7 + [_LL, _D] + [_P] * 3
 _COUNT_ARGS = [_I, _P] + [_P] * 6 + [_LL, _D, _D, _I, _I, _I, _P]
 _WARM_SOLVE_ARGS = [_I] + [_P] * 4 + [_LL, _LL, _D, _I, _I] + [_P] * 3
 _CUBE_COUNT_ARGS = [_I, _I] + [_P] * 4 + [_LL, _D, _D, _I, _I, _I, _P]
@@ -1046,6 +1086,8 @@ class HostModelTerms:
             getattr(self._lib, f"model_lanes_host_{name}").argtypes = \
                 _LANES_ARGS
             getattr(self._lib, f"model_fwd_lanes_{name}").argtypes = []
+            getattr(self._lib, f"model_vjp_desc_body_{name}").argtypes = \
+                _VJP_ARGS
             for s in ("f32", "f64"):
                 getattr(self._lib, f"model_count_{name}_{s}").argtypes = \
                     _COUNT_ARGS
@@ -1282,6 +1324,26 @@ class HostModelTerms:
         getattr(self._lib, f"model_host_{name}")(
             _KINDS["vjp"], ctypes.addressof(desc), *[_ptr(a) for a in ins],
             n, dt, 0.0, 0, 0, None, None, None, *[_ptr(a) for a in outs])
+        return tuple(torch.from_numpy(o) for o in outs)
+
+    def vjp_desc_body(self, model, pvec: Tensor, xin: Tensor, xp: Tensor,
+                      force: Tensor, valid: Tensor, ct: Tensor, dt: float
+                      ) -> Tuple[Tensor, Tensor, Tensor]:
+        """As :meth:`vjp`, with the body's joint read from the descriptor
+        at a size whose kernels take it as compile-time constants
+        (``kConstFreeBody`` of ``csrc/model_terms.cuh``): the sweep before
+        the constants. Raises at other sizes."""
+        name, desc = self._desc(model)
+        n = xin.shape[1]
+        ins = [self._array(t, np.float64) for t in (pvec, xin, xp, force)]
+        ins += [self._array(valid, np.uint8), self._array(ct, np.float64)]
+        outs = [np.zeros((n, pvec.numel())), np.zeros(tuple(xin.shape)),
+                np.zeros(tuple(xp.shape))]
+        if getattr(self._lib, f"model_vjp_desc_body_{name}")(
+                ctypes.addressof(desc), *[_ptr(a) for a in ins], n, dt,
+                *[_ptr(a) for a in outs]):
+            raise ValueError(f"size {name} reads its joints from the "
+                             "descriptor already")
         return tuple(torch.from_numpy(o) for o in outs)
 
     def count(self, kind: str, model, pvec: Tensor, xin: Tensor, xp: Tensor,

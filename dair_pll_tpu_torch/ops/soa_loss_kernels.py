@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -210,11 +210,30 @@ def loss_instances(size: ModelSize, dtype) -> Tuple[soa_kernels.Instance,
         f"contactnets_loss_bwd_{size.name}_{s}",
         head + f"DEFINE_MODEL_BWD_ENTRIES(Size, {size.name}, {t}, {s})\n"
         'extern "C" long long model_loss_bwd_scratch(long long B, int n_p) '
-        "{\n  return model_blocks(B, kModelBwdThreads) * n_p;\n}\n",
+        "{\n  return model_blocks(B, kModelBwdThreads) * n_p;\n}\n"
+        'extern "C" int model_loss_design() '
+        f"{{\n  return model_design<{t}, Size>();\n}}\n",
         ((f"contactnets_loss_bwd_{size.name}_{s}", tuple([_P] + _BWD),
           soa_kernels._I),
-         ("model_loss_bwd_scratch", (_LL, soa_kernels._I), _LL)))
+         ("model_loss_bwd_scratch", (_LL, soa_kernels._I), _LL),
+         ("model_loss_design", (), soa_kernels._I)))
     return fwd, bwd
+
+
+def loss_design(size: ModelSize, dtype) -> Dict[str, object]:
+    """The generic K1's, K3's and K2's design at a size in ``dtype``, as
+    its built K2 library gives it (``model_design`` of
+    ``csrc/model_loss.cuh``): ``lanes``, K1's and K3's lanes a sample
+    (``kFwdLanes``); ``const_body``, the free body's joint as compile-time
+    constants (``kConstFreeBody``); ``cold_exits``, K1's cold solve
+    leaving its loops at their exact fixed points (``kFwdColdExits``);
+    ``grad_shared``, K2's per-sample gradient in shared memory
+    (``kBwdGradShared``)."""
+    bits = soa_kernels.entry(loss_instances(size, dtype)[1],
+                             "model_loss_design")()
+    return {"lanes": bits & 255, "const_body": bool(bits >> 8 & 1),
+            "cold_exits": bool(bits >> 9 & 1),
+            "grad_shared": bool(bits >> 10 & 1)}
 
 
 #: The box cube's own K1, K3 and K2, both types (``csrc/

@@ -1,6 +1,33 @@
-"""The generic forward loss kernels K1 and K3 of one checkout on one card.
+"""The loss kernels K1, K3 and K2 (and the solves K5, K4) of one checkout
+on one card.
 
-For the checkout at ``--tree`` (this one by default):
+With ``--model NAME`` (``box_sphere``, ``ball``, ``elbow``,
+``cube_polygon``, ``cube``, ``wide_polygon``, ``chip_smoke.py``'s free
+body with a 20-vertex polygon and a sphere, or ``wide_polygon_80``, the
+same with 80 vertices, whose kernels take some 5 minutes to build), for
+the checkout at
+``--tree`` (this one by default): the model's loss kernels built at first
+use
+(``soa_kernels.build_instances``), with ptxas's register and spill lines
+of K1, K3 and K2 in float32 and float64 (``chip_smoke.loss_ptxas``; the
+box cube's own ``contactnets_loss.cuh`` kernels for ``cube``); their
+times at the model's training batch (2,097,152 transitions of
+``chip_smoke.train_transitions``, the elbow's
+``elbow_train_transitions``, the polygon cube's and the wide polygons'
+262,144) in both types,
+``--reps`` launches each; with ``--budgets`` K1's and K3's times at every
+(ipm, newton) budget of ``chip_smoke.SOLVE_BUDGETS`` with their split
+into the terms, an IPM and a Newton iteration
+(``chip_smoke.budget_timing``); with ``--check`` (generic sizes) K1, K3
+and K2 against their plain versions on 8,192 transitions of the model's
+own float64 rollout (``chip_smoke.compare_loss_kernels``, whose float64
+bars raise) and a digest of the three kernels' float64 outputs there
+(equal digests across trees and variants: equal bits); with ``--train``
+a training round at the batch (``chip_smoke.TrainingRun``: a cold step,
+the seed, 8 warm steps) and its step times.
+
+The older modes, written for older checkouts (``--tree``) whose kernels
+build into one library (their ``load_library``):
 
 - ptxas's registers and stack of K1, K3 and K2 at both generic sizes, in
   float32 and float64 (``chip_smoke.loss_ptxas``);
@@ -40,16 +67,23 @@ The data, checks and timing are this checkout's ``chip_smoke.py``; the
 package, and so the kernels' sources, are the ``--tree``'s, built under its
 ``build/kernels``. ``--variant NAME`` measures instead a copy of the
 tree's package under ``build/lane_probe/NAME/`` with the source edits of
-``VARIANTS[NAME]``, designs the shipped kernels were measured against
-(the ``k5_*`` ones K5's at (7, 8), the ``k5_cube_*`` ones K5's at (6,
-4), measured with ``--solves``; the ``k4_*`` ones K4's, measured with
-``--k4``). To compare
+``VARIANTS[NAME]``, designs the shipped kernels were measured against:
+the box and sphere body's (``k3_*``, ``k2_*``, ``no_const_body``, on this
+tree's sources, with ``--model``; these were measured beside designs
+whose code was then taken out: K1 and K3 on five lanes a sample, with and without
+exits and at 8 blocks a multiprocessor, the terms on a kernel of their own
+before the solve on one thread a sample, alone and at 5 blocks, and K3's
+warm solve with its exits; ``PERF.md`` §6 has their times); the older trees' (the ``k5_*`` ones
+K5's at (7, 8), the ``k5_cube_*`` ones K5's at (6, 4), measured with
+``--solves``; the ``k4_*`` ones K4's, measured with ``--k4``). To compare
 two checkouts on one card, unpack the other into a directory
 ``.gitignore`` lists and run both in turns in one call:
 
-    python3 scripts/probe_loss_lanes.py --tree committed_tree/parent \\
-        --label parent --check
-    python3 scripts/probe_loss_lanes.py --label change --check
+    python3 scripts/probe_loss_lanes.py --model box_sphere --check \\
+        --budgets --tree committed_tree/parent --label parent
+    python3 scripts/probe_loss_lanes.py --model box_sphere --check --budgets
+    python3 scripts/probe_loss_lanes.py --model box_sphere --variant \\
+        k3_no_exits
     python3 scripts/probe_loss_lanes.py --solves --variant k5_lanes8
     python3 scripts/probe_loss_lanes.py --k4 --variant k4_lanes2
 
@@ -164,9 +198,50 @@ def k5_design(elbow: int, cube: int, threads: int,
              "    return (int)cudaGetLastError();")]
 
 
-#: Other designs of the generic K1/K3 and of K5, as edits (file under
-#: ``csrc/``, old text or pattern, new text) of the shipped sources.
+#: The lines of this tree's sources that choose the generic loss
+#: kernels' designs at a size (``csrc/model_terms.cuh``,
+#: ``csrc/model_loss.cuh``): one free body's joint as constants, K1's
+#: exits, K2's gradient in shared memory.
+COLD_EXITS = ("template <typename Z> constexpr bool kFwdColdExits = "
+              "kConstFreeBody<Z>;")
+CONST_BODY = re.compile(r"constexpr bool kConstFreeBody =[^;]*;")
+BWD_SHARED = ("template <typename S, typename Z>\n"
+              "constexpr bool kBwdGradShared =\n"
+              "    kConstFreeBody<Z> &&\n"
+              "    (size_t)Z::PMAX * kModelBwdThreads * sizeof(S) <= "
+              "64 * 1024;")
+
+
+def pin(line: str, value: str, source: str = "model_terms.cuh") -> tuple:
+    """An edit that sets one of the choices above to ``value``."""
+    head = line[:line.index("=") + 1]
+    return (source, line, f"{head} {value};")
+
+
+#: Other designs of the generic K1/K3 and K2, and of K5 and K4, as edits
+#: (file under ``csrc/``, old text or pattern, new text) of the shipped
+#: sources.
 VARIANTS = {
+    # The box and sphere body's (k = 5) K1 and K3 held to 5 blocks a
+    # multiprocessor (fewer registers, more warps), and K1 without its
+    # solve's exits.
+    "k3_one_thread_blocks5": [
+        ("model_loss.cuh", f"__launch_bounds__(kModelThreads) {name}(",
+         f"__launch_bounds__(kModelThreads, 5) {name}(")
+        for name in ("model_loss_fwd_kernel", "model_loss_fwd_warm_kernel")],
+    "k3_no_exits": [pin(COLD_EXITS, "false")],
+    # The joint of one free body read from the descriptor (the parent's
+    # code), the other choices as shipped.
+    "no_const_body": [("model_terms.cuh", CONST_BODY,
+                       "constexpr bool kConstFreeBody = false;"),
+                      pin(COLD_EXITS, "Z::K == 5"),
+                      pin(BWD_SHARED, "Z::K == 5", "model_loss.cuh")],
+    # K2's gradient in the thread's local stack (the parent's); K2 in
+    # blocks of 64 threads.
+    "k2_local_grad": [pin(BWD_SHARED, "false", "model_loss.cuh")],
+    "k2_block64": [("model_loss.cuh",
+                    "constexpr int kModelBwdThreads = 128;  // K2",
+                    "constexpr int kModelBwdThreads = 64;  // K2")],
     # K5 at (7, 8) on one thread a QP (its design before lanes), on 2 or 8
     # lanes a QP, and on the shipped 4 in blocks of 32 or 128 threads (the
     # cube's at its shipped 4 lanes).
@@ -297,6 +372,106 @@ def variant_tree(tree: str, name: str) -> str:
         with open(path, "w") as handle:
             handle.write(text)
     return root
+
+
+#: The training batch each ``--model`` is timed at: chip_smoke.py's.
+MODEL_BATCH = {"box_sphere": 2097152, "ball": 2097152, "elbow": 2097152,
+               "cube": 2097152, "cube_polygon": 262144,
+               "wide_polygon": 262144, "wide_polygon_80": 262144}
+
+
+def model_system(cs, name: str):
+    """The system of a ``--model`` on the card."""
+    from dair_pll_tpu_torch import assets
+    from dair_pll_tpu_torch.multibody.learnable_system import (
+        MultibodyLearnableSystem)
+    if name in cs.SIZE_URDFS:
+        return cs.size_systems()[name]
+    if name == "wide_polygon":
+        return cs.wide_polygon_system()
+    if name == "wide_polygon_80":
+        return cs.wide_polygon_system(sides=40)
+    if name == "elbow":
+        return cs.elbow_system()
+    return MultibodyLearnableSystem.from_urdfs(
+        {"cube": assets.get_asset("cube" if name == "cube" else
+                                  "cube_mesh")}, cs.DT,
+        **({} if name == "cube" else {"mesh_representation": "polygon"}))
+
+
+def model_times(cs, name: str, check: bool, budgets: bool, train: bool,
+                reps: int) -> dict:
+    """``--model``'s readings, as the module's docstring lists."""
+    import torch
+    from dair_pll_tpu_torch.ops import soa_kernels
+    from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
+    system = model_system(cs, name)
+    model = system.model
+    cube = name == "cube"
+    size = None if cube else lk.model_size(model)
+    out = {"model": name, "size": "cube" if cube else size.name}
+    t0 = time.perf_counter()
+    soa_kernels.build_instances(
+        [lk.CUBE_INSTANCE] if cube else
+        [i for dtype in (torch.float32, torch.float64)
+         for i in lk.loss_instances(size, dtype)])
+    out["build_seconds"] = time.perf_counter() - t0
+    out["ptxas"] = (cs.ptxas_lines("contactnets_loss_cube") if cube else
+                    cs.loss_ptxas(size.name))
+    if check and not cube:
+        x0 = cs.states_near_ground(system, cs.B, 21)
+        x64, xp64 = cs.model_transitions(system, x0)
+        out["vs_plain"] = cs.compare_loss_kernels(system, x64, xp64)[0]
+        pvec = cs.derived_vector(system,
+                                 system.initial_params(torch.float64))
+        xin, xp = x64.T.contiguous(), xp64.T.contiguous()
+        ct = torch.ones_like(xin[0])
+        k1 = lk.fused_loss_fwd(model, pvec, xin, xp, cs.DT, cs.LOSS_EPS,
+                               *cs.COLD_BUDGET)
+        k3 = lk.fused_loss_fwd_warm(model, pvec, xin, xp, k1[1], cs.DT,
+                                    cs.LOSS_EPS, *cs.WARM_BUDGET)
+        k2 = lk.fused_loss_bwd(model, pvec, xin, xp, k3[1], k3[2], ct,
+                               cs.DT, cs.LOSS_EPS)
+        out["float64_digests"] = {"K1": digest(k1), "K3": digest(k3),
+                                  "K2": digest(k2)}
+        del x64, xp64, xin, xp, k1, k3, k2
+    n = MODEL_BATCH[name]
+    transitions = (cs.elbow_train_transitions if name == "elbow" else
+                   cs.train_transitions)
+    x, x_plus = transitions(n, system.device)
+    if train:
+        run = cs.TrainingRun(system, x, x_plus)
+        report = run.timed()[0]
+        out["train"] = {key: report[key] for key in (
+            "cold_step_ms", "seed_ms", "warm_step_median_ms", "warm_step_ms",
+            "warm_transitions_per_s", "launches")}
+        del run
+    pvec = cs.derived_vector(system, system.initial_params(torch.float32))
+    xin, xp = x.T.contiguous(), x_plus.T.contiguous()
+    del x, x_plus
+    out["B"] = n
+    for dtype in (torch.float32, torch.float64):
+        args = [t.to(dtype) for t in (pvec, xin, xp)]
+        ct = torch.ones_like(args[1][0])
+        cold = lk.fused_loss_fwd(model, *args, cs.DT, cs.LOSS_EPS,
+                                 *cs.COLD_BUDGET)
+        r = reps if dtype == torch.float32 else max(1, reps // 2)
+        out[str(dtype).split(".")[1]] = {
+            "K1": cs.cuda_ms(lambda: lk.fused_loss_fwd(
+                model, *args, cs.DT, cs.LOSS_EPS, *cs.COLD_BUDGET), r,
+                warmup=1),
+            "K3": cs.cuda_ms(lambda: lk.fused_loss_fwd_warm(
+                model, *args, cold[1], cs.DT, cs.LOSS_EPS,
+                *cs.WARM_BUDGET), r, warmup=1),
+            "K2": cs.cuda_ms(lambda: lk.fused_loss_bwd(
+                model, *args, cold[1], cold[2], ct, cs.DT, cs.LOSS_EPS), r,
+                warmup=1),
+            "valid_share": cold[2].float().mean().item()}
+        if budgets and dtype == torch.float32:
+            out["budgets"] = cs.budget_timing(model, *args, cold[1], reps=3)
+        del args, cold, ct
+        torch.cuda.empty_cache()
+    return out
 
 
 def loss_times(cs, check: bool) -> dict:
@@ -571,6 +746,14 @@ def main() -> int:
                         help="time the cold solve K4 alone")
     parser.add_argument("--variant", choices=sorted(VARIANTS),
                         help="measure the tree with this design's edits")
+    parser.add_argument("--model", choices=sorted(MODEL_BATCH),
+                        help="time this model's loss kernels")
+    parser.add_argument("--budgets", action="store_true",
+                        help="with --model, K1 and K3 at every budget")
+    parser.add_argument("--train", action="store_true",
+                        help="with --model, a training round's steps")
+    parser.add_argument("--reps", type=int, default=5,
+                        help="with --model, launches timed a kernel")
     args = parser.parse_args()
     tree = os.path.abspath(args.tree)
     if args.variant:
@@ -594,17 +777,20 @@ def main() -> int:
 
     out = {"label": args.label, "tree": tree, "variant": args.variant,
            "nvidia_smi": cs.phase_device()}
-    t0 = time.perf_counter()
-    soa_kernels.load_library()
-    out["build_seconds"] = time.perf_counter() - t0
-    out["ptxas"] = {size: cs.loss_ptxas(size) for size in ("b1", "b2")}
-
-    if args.k4:
-        out["k4"] = k4_times(cs)
-    elif args.solves:
-        out["solves"] = solve_times(cs, cs.elbow_system())
+    if args.model:
+        out.update(model_times(cs, args.model, args.check, args.budgets,
+                               args.train, args.reps))
     else:
-        out.update(loss_times(cs, args.check))
+        t0 = time.perf_counter()
+        soa_kernels.load_library()
+        out["build_seconds"] = time.perf_counter() - t0
+        out["ptxas"] = {size: cs.loss_ptxas(size) for size in ("b1", "b2")}
+        if args.k4:
+            out["k4"] = k4_times(cs)
+        elif args.solves:
+            out["solves"] = solve_times(cs, cs.elbow_system())
+        else:
+            out.update(loss_times(cs, args.check))
 
     line = json.dumps(out)
     print(line, flush=True)

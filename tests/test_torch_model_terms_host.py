@@ -5,8 +5,10 @@
 with ``g++`` by ``ops/host_adjoint.py`` through a stand-in
 ``cuda_runtime.h``, against their plain versions in float64 on the five
 parity models of ``torch_parity.KERNEL_MODELS`` (the elbow in boxes and in
-polygons, the polygon cube, ``pris2``, the actuated ``paddle``) at
-perturbed parameters: the cold and warm loss within rtol 1e-12 (impulses
+polygons, the polygon cube, ``pris2``, the actuated ``paddle``) and, in
+the lane, gradient and counting tests, a box and a sphere on one body
+(``torch_parity.SIZE_URDFS``; k = 5, on 5 lanes one contact a lane, the
+free body's joint as constants) at perturbed parameters: the cold and warm loss within rtol 1e-12 (impulses
 atol 1e-10: torch's CPU float64 square root is one ulp off on some
 inputs, and a solve that has not converged carries that to some 1e-12;
 equal valid masks), and K2's gradient, each sample's and the batch's,
@@ -48,11 +50,17 @@ from dair_pll_tpu_torch.ops import host_adjoint, soa_kernels
 from dair_pll_tpu_torch.ops import soa_loss_kernels as lk
 from dair_pll_tpu_torch.urdf import build_multibody_model
 from torch_parity import (COLD_BUDGET, DT, KERNEL_MODELS, LOSS_EPS,
-                          WARM_BUDGET, kernel_model_urdfs, kernel_transitions,
+                          SIZE_URDFS, WARM_BUDGET, kernel_model_urdfs,
+                          kernel_transitions, size_model_urdfs,
+                          size_transitions,
                           map_tree, perturbed_params)
 
 LOSS_RTOL, FORCE_ATOL = 1e-12, 1e-10
 GRAD_RTOL, GRAD_ATOL = 1e-10, 1e-14
+#: The models of the lane and gradient tests: the parity models, and the
+#: box and sphere body (``torch_parity.SIZE_URDFS``; witnesses 4 + 1, k =
+#: 5), whose contacts split over lanes one a lane.
+LANE_MODELS = (*sorted(KERNEL_MODELS), "box_sphere")
 
 
 @pytest.fixture(scope="module")
@@ -74,9 +82,9 @@ def host(tmp_path_factory, urdf_dir):
 
 def model_sizes(urdf_dir: str) -> list:
     """The generic sizes (``soa_loss_kernels.model_size``) of the parity
-    models."""
+    models and the box and sphere body."""
     return [lk.model_size(_inputs(name, urdf_dir)[0])
-            for name in sorted(KERNEL_MODELS)]
+            for name in LANE_MODELS]
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,12 +93,19 @@ def _inputs(name: str, urdf_dir: str):
     batch-minor ``(xin, xp)`` (``xin`` with the actuation rows), the cold
     loss's plain impulses and valid mask with two samples failed, and a
     random cotangent."""
-    urdfs, representation = kernel_model_urdfs(name, urdf_dir, False)
+    if name in SIZE_URDFS:
+        urdfs, representation = size_model_urdfs(name, urdf_dir)
+    else:
+        urdfs, representation = kernel_model_urdfs(name, urdf_dir, False)
     model = build_multibody_model(
         urdfs, **({} if representation is None else
                   {"mesh_representation": representation}))
-    rng = np.random.default_rng(sorted(KERNEL_MODELS).index(name) + 7)
-    x, x_plus, u = kernel_transitions(name, model, rng)
+    rng = np.random.default_rng(LANE_MODELS.index(name) + 7)
+    if name in SIZE_URDFS:
+        x, x_plus = size_transitions(model, rng)
+        u = np.zeros((x.shape[0], 0))
+    else:
+        x, x_plus, u = kernel_transitions(name, model, rng)
     initial = MultibodyLearnableSystem(model, DT, device="cpu") \
         .initial_params(torch.float64)
     numpy_params = perturbed_params(
@@ -255,7 +270,7 @@ def _lane_case(host, urdf_dir, name, inputs, kind):
 
 @pytest.mark.parametrize("inputs", sorted(_LANE_INPUTS))
 @pytest.mark.parametrize("kind", ["cold", "warm"])
-@pytest.mark.parametrize("name", sorted(KERNEL_MODELS))
+@pytest.mark.parametrize("name", LANE_MODELS)
 def test_lane_bodies_match_plain_bit_for_bit(host, urdf_dir, name, kind,
                                              inputs):
     """K1's and K3's bodies on k lanes a sample, as the card's kernels run
@@ -282,7 +297,7 @@ def test_lane_bodies_match_plain_bit_for_bit(host, urdf_dir, name, kind,
     assert want[1].abs().max() > 0
 
 
-@pytest.mark.parametrize("name", sorted(KERNEL_MODELS))
+@pytest.mark.parametrize("name", LANE_MODELS)
 def test_lane_bodies_equal_one_thread_bodies(host, urdf_dir, name):
     """The same bodies on one thread a sample (L = 1), on k lanes (L = k)
     and on the card's lanes at the model's size (``fwd_lanes``) give the
@@ -304,7 +319,7 @@ def test_lane_bodies_equal_one_thread_bodies(host, urdf_dir, name):
                     assert torch.equal(a, b), (name, inputs, kind, lanes)
 
 
-@pytest.mark.parametrize("name", sorted(KERNEL_MODELS))
+@pytest.mark.parametrize("name", LANE_MODELS)
 def test_gradient_matches_plain_backward(host, urdf_dir, name):
     """K2's reverse-mode body at the cold solve's impulses: four samples'
     derived-scalar gradients, the batch's, and the state gradients against
@@ -315,7 +330,7 @@ def test_gradient_matches_plain_backward(host, urdf_dir, name):
     _assert_gradients(host, *_inputs(name, urdf_dir), samples=[0, 5, 9, 15])
 
 
-@pytest.mark.parametrize("name", sorted(KERNEL_MODELS))
+@pytest.mark.parametrize("name", LANE_MODELS)
 def test_gradient_at_random_impulses(host, urdf_dir, name):
     """As above at random impulses: every contact's rows carry a
     cotangent, whatever the solve made of it."""
@@ -356,7 +371,7 @@ def _edge_inputs(name: str, urdf_dir: str):
     return model, pvec, xin, xp, force, valid, ct
 
 
-@pytest.mark.parametrize("name", sorted(KERNEL_MODELS))
+@pytest.mark.parametrize("name", LANE_MODELS)
 def test_gradient_at_edge_cases(host, urdf_dir, name):
     """K2's reverse-mode body on ``_edge_inputs``: the branches of |phi| at
     0, of clamp_min(-phi, 0) on penetration, of the safe sliding norm at
@@ -368,6 +383,38 @@ def test_gradient_at_edge_cases(host, urdf_dir, name):
                    for v in range(model.n_v)) for i in (1, 2)]
     assert float((sliding[0] ** 2 + sliding[1] ** 2).max()) < 1e-24
     _assert_gradients(host, model, pvec, xin, xp, force, valid, ct)
+
+
+#: Relative bar of the sweep with the free body's joint as constants
+#: against the one that reads it from the descriptor.
+DESC_BODY_RTOL = 1e-12
+
+
+@pytest.mark.parametrize("inputs", ["solved", "random", "edge"])
+def test_gradient_equals_descriptor_sweep(host, urdf_dir, inputs):
+    """K2's sweep at the box and sphere body's size, which takes the free
+    body's joint as compile-time constants (``kConstFreeBody``), against
+    the sweep that reads it from the descriptor (the design before the
+    constants, ``HostModelTerms.vjp_desc_body``), each sample's
+    derived-scalar gradient and the state gradients within rtol
+    DESC_BODY_RTOL: at the cold solve's impulses, at random impulses and
+    on ``_edge_inputs``."""
+    if inputs == "edge":
+        model, pvec, xin, xp, force, valid, ct = _edge_inputs("box_sphere",
+                                                              urdf_dir)
+    else:
+        model, pvec, xin, xp, force, valid, ct = _inputs("box_sphere",
+                                                         urdf_dir)
+        if inputs == "random":
+            force, valid = _random_impulses(force, valid, 3)
+    got = host.vjp(model, pvec, xin, xp, force, valid, ct, DT)
+    want = host.vjp_desc_body(model, pvec, xin, xp, force, valid, ct, DT)
+    for what, a, b in zip(("dp", "dxin", "dxp"), got, want):
+        _assert_close(a, b, DESC_BODY_RTOL, 0.0, what)
+    assert got[0].abs().amax() > 0
+    elbow = _inputs("elbow", urdf_dir)
+    with pytest.raises(ValueError, match="descriptor already"):
+        host.vjp_desc_body(*elbow[:4], *elbow[4:6], elbow[6], DT)
 
 
 @pytest.mark.parametrize("kind", ["cold", "warm"])
@@ -434,7 +481,21 @@ def test_operation_counts_add_up(host, urdf_dir, dtype):
     forward terms the sweep computes a second time are counted apart
     (``recomputed``): none in the loss bodies, in K2 fewer than the cold
     loss's own forward needs, and not in K2's ``needed``."""
-    model, pvec, xin, xp, force, valid, ct = _inputs("elbow", urdf_dir)
+    _assert_counts_add_up(host, urdf_dir, "elbow", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_operation_counts_add_up_at_uneven_contacts(host, urdf_dir, dtype):
+    """As above on the box and sphere body (k = 5, witnesses 4 + 1), whose
+    bodies take the free body's joint as constants and whose cold solve
+    leaves its loops at their exact fixed points (counted as skipped):
+    the same counts' rules."""
+    _assert_counts_add_up(host, urdf_dir, "box_sphere", dtype)
+
+
+def _assert_counts_add_up(host, urdf_dir, name, dtype):
+    """The rules of ``test_operation_counts_add_up`` on ``name``."""
+    model, pvec, xin, xp, force, valid, ct = _inputs(name, urdf_dir)
     args = [t.to(dtype) for t in (pvec, xin, xp)]
     f = force.to(dtype)
     for kind, fin in (("cold", None), ("warm", f), ("vjp", f)):
